@@ -1,0 +1,133 @@
+"""Where a computation runs, and the build of the hand-written kernels.
+
+Counterpart of ``repro/kernels/dispatch.py``.  There the lowering was a
+choice (pallas / interpret / ref, with an environment override); here the
+tensor decides and nothing else does:
+
+- a CUDA tensor goes to the hand-written kernel, built from
+  ``repro_torch/csrc/*.cu``;
+- a CPU tensor goes to the kernel's plain PyTorch version (``ref.py``);
+- any other device raises.
+
+There is no override and no fallback: a kernel that fails to build or to
+launch raises.
+
+The build is route (b) of a CUDA C++ port: ``nvcc`` compiles each source
+into a shared library with a plain C interface under ``build/repro_torch/``
+of the checkout, and ``ctypes`` loads it.  It runs at the first call on a
+CUDA tensor (or an explicit :func:`build`), never at import, so the package
+imports on machines without ``nvcc``.  Library names carry a digest of the
+source and flags, so an edited source is rebuilt and a stale library is
+never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a source; the message holds its output."""
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (hand-written kernel), False for a CPU tensor
+    (plain version); raises for any other device."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain path for device {t.device}")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on.  The default is the card; the
+    CPU runs only when the caller names it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if NVCC_DEFAULT.exists():
+        return str(NVCC_DEFAULT)
+    raise KernelBuildError(
+        "nvcc not found (neither on PATH nor under /usr/local/cuda/bin); the "
+        "CUDA kernels of repro_torch need the CUDA toolkit")
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def sources() -> list:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the named sources (default: all), one ``nvcc`` per source,
+    all started together.  Returns ``{name: library path}``; the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) is kept next
+    to each library as ``<lib>.log``."""
+    names = sources() if names is None else list(names)
+    out: Dict[str, Path] = {}
+    jobs = []
+    for name in names:
+        lib = _library_path(name)
+        out[name] = lib
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, proc, tmp, lib))
+    failures = []
+    for name, proc, tmp, lib in jobs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, lib)
+        lib.with_name(lib.name + ".log").write_text(text)
+    if failures:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+    return lib

@@ -1,0 +1,103 @@
+"""Boundaries of the port: ``repro_torch`` imports neither JAX nor anything
+of the reference package ``repro``, and its entry points run on the card
+unless the caller names the CPU."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import dsfd, fd
+from repro_torch import convert
+from repro_torch.kernels import dispatch
+from repro_torch.serve.engine import SketchFleetEngine
+from repro_torch.sketch.api import make_sketch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15       # every module was imported
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without a card, whatever machine runs the test."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: SketchFleetEngine("dsfd", d=8, streams=2),
+    lambda: make_sketch("dsfd", d=8),
+    lambda: make_sketch("fd", d=8),
+    lambda: dsfd.dsfd_init(dsfd.make_config(8, 0.25, 16)),
+    lambda: fd.fd_init(2, 8),
+    lambda: dsfd.dsfd_run_stream(dsfd.make_config(8, 0.25, 16),
+                                 np.ones((4, 8), np.float32)),
+    lambda: convert.dsfd_state_from_numpy(
+        dsfd.make_config(8, 0.25, 16),
+        convert.dsfd_state_to_numpy(dsfd.dsfd_init(
+            dsfd.make_config(8, 0.25, 16), device="cpu"))),
+], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
+        "fd_init", "dsfd_run_stream", "convert"])
+def test_entry_points_default_to_the_card(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_cpu_runs_only_when_named(no_cuda):
+    eng = SketchFleetEngine("dsfd", d=8, streams=2, eps=0.25, window=16,
+                            device="cpu")
+    assert eng.state.main.buf.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        dispatch.resolve_device("meta")
+
+
+def test_convert_round_trip_and_shape_checks():
+    cfg = dsfd.make_config(8, 0.25, 16, mode="krylov", use_kernel=True)
+    st, _ = dsfd.dsfd_run_stream(
+        cfg, np.random.default_rng(0).normal(size=(2, 40, 8)), device="cpu")
+    back = convert.dsfd_state_from_numpy(cfg, convert.dsfd_state_to_numpy(st),
+                                         device="cpu")
+    for a, b in zip(st.main + st.aux, back.main + back.aux):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    other = dsfd.make_config(9, 0.25, 16)
+    with pytest.raises(ValueError, match="buf"):
+        convert.dsfd_state_from_numpy(other, convert.dsfd_state_to_numpy(st),
+                                      device="cpu")
+    fields = convert.config_to_reference_fields(cfg)
+    assert fields["use_pallas"] is True
+
+    class Ref:                                  # a reference-shaped config
+        pass
+
+    ref = Ref()
+    ref.__dict__.update(fields)
+    assert convert.config_from_reference(ref) == cfg
+
+
+def test_config_guards():
+    with pytest.raises(ValueError, match="mode"):
+        dsfd.make_config(8, 0.25, 16, mode="lazy")
+    with pytest.raises(ValueError, match="cap"):
+        dsfd.DSFDConfig(d=8, ell=4, window=16, cap=6)
