@@ -97,9 +97,11 @@ def time_in_turns(fns: dict, rounds: int = 5, reps: int = 10) -> dict:
 def kernel_bounds(S: int, m: int, d: int, iters: int) -> dict:
     """Least time (ms) for each kernel's work at (S, m, d): every input
     read once, every output written once, over HBM bandwidth; the f32
-    operations over the f32 peak.  Returns {name: (bound_ms, bound_by)}."""
+    operations the function needs over the f32 peak (K = DDᵀ is
+    symmetric, so its Gram needs m(m+1)/2 dot products of length d).
+    Returns {name: (bound_ms, bound_by)}."""
     power = (iters + 1) * 2 * m * m + iters * 3 * m + 2 * m
-    gram = 2 * m * m * d
+    gram = m * (m + 1) * d
     bytes_gp = 4 * S * (m * d + 1 + m)
     flops_gp = S * (gram + power)
     bytes_st = 4 * S * ((m * d + 1 + m) + (d + m * d + 1 + m))
@@ -129,13 +131,16 @@ def check_kernels(rng) -> dict:
             Dn = rng.standard_normal((S, m, d)).astype(np.float32)
             Dn /= np.linalg.norm(Dn, axis=2, keepdims=True)
             D = torch.from_numpy(Dn).to(dev)
-        lam_k, u_k = kernel.gram_power_cuda(D, ITERS)
-        lam_p, u_p = ref.gram_power_ref(D, ITERS)
-        got = kernel.fused_krylov_step_cuda(D, lam_p, u_p, ITERS)
-        want = ref.fused_krylov_step_ref(D, lam_p, u_p, ITERS)
+        # both norm floors: fused (Σw²) and the reference's inline (‖w‖)
+        outs = {"gram_power": [], "fused_krylov_step": []}
+        for fl in (False, True):
+            lam_k, u_k = kernel.gram_power_cuda(D, ITERS, fl)
+            lam_p, u_p = ref.gram_power_ref(D, ITERS, fl)
+            got = kernel.fused_krylov_step_cuda(D, lam_p, u_p, ITERS, fl)
+            want = ref.fused_krylov_step_ref(D, lam_p, u_p, ITERS, fl)
+            outs["gram_power"] += [(lam_k, lam_p), (u_k, u_p)]
+            outs["fused_krylov_step"] += list(zip(got, want))
         torch.cuda.synchronize()
-        outs = {"gram_power": [(lam_k, lam_p), (u_k, u_p)],
-                "fused_krylov_step": list(zip(got, want))}
         for name, pairs in outs.items():
             for i, (g, w) in enumerate(pairs):
                 if not bool(torch.isfinite(g).all()):
@@ -276,6 +281,10 @@ def run_engine(mode: str, ticks: int, seed: int, device: str = "cuda",
                                  f"> 4εN = {bound:.1f}")
     log(f"{mode} Theorem 3.1 on users {CHECKED}: worst error "
         f"{worst:.4f}·εN (bound 4·εN)")
+    live = eng.state.main.snap_valid.sum(dim=1).cpu().numpy()
+    log(f"{mode} live snapshots at the end: users [0, {half}) (k = d) "
+        f"{int(live[:half].sum())}, users [{half}, {S_FLEET}) (k = 10) "
+        f"{int(live[half:].sum())}")
 
     t1 = time.perf_counter()
     g = eng.query_global()

@@ -14,8 +14,8 @@ the batching is written out:
   them: the per-stream decisions of a row are read to the host in one
   transfer, and the branch gathers its streams by index;
 * the krylov loop is bounded by m and keeps a per-stream active mask
-  ``lam ≥ θ``; with ``use_kernel`` each iteration is one launch of the
-  fused step over the active streams;
+  ``lam ≥ θ``; each iteration is one launch of the fused step over the
+  active streams;
 * the main and auxiliary sketch of every stream absorb the same row, so a
   block update stacks them into one batch of 2S sketches.
 
@@ -54,9 +54,13 @@ class DSFDConfig:
     cap:         snapshot ring capacity (Theorem 4.1: 2(1+4/β)/ε).
     mode:        'exact' | 'fast' | 'krylov'.
     power_iters: power-iteration steps for mode='krylov'.
-    use_kernel:  run the krylov dump loop through the fused kernels
-                 (``kernels/fused_tick``); the counterpart of the
-                 reference's ``use_pallas``.
+    use_kernel:  the counterpart of the reference's ``use_pallas``: the
+                 krylov dump step of the fused kernels, whose norm floors
+                 are on Σw²; False takes the reference's inline step,
+                 whose floors are on ‖w‖.  Both run through
+                 ``kernels/fused_tick``, so a CUDA tensor launches the
+                 hand-written kernels either way and a CPU tensor runs
+                 their plain versions.
     """
 
     d: int
@@ -65,7 +69,7 @@ class DSFDConfig:
     cap: int
     mode: str = "fast"
     power_iters: int = 24
-    use_kernel: bool = False
+    use_kernel: bool = True
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -80,7 +84,7 @@ class DSFDConfig:
 
 
 def make_config(d: int, eps: float, window: int, *, mode: str = "fast",
-                beta: float = 4.0, use_kernel: bool = False) -> DSFDConfig:
+                beta: float = 4.0, use_kernel: bool = True) -> DSFDConfig:
     ell = int(min(max(round(1.0 / eps), 1), d))
     cap = int(2 * (1.0 + 4.0 / beta) / eps) + 4
     return DSFDConfig(d=d, ell=ell, window=int(window), cap=cap, mode=mode,
@@ -224,50 +228,20 @@ def _dump_sorted_rows(sk: SketchState, idx: torch.Tensor, rows: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _power_topvec(K: torch.Tensor, iters: int):
-    """Top eigenpairs of the PSD Grams K (n, m, m), inline path: ‖w‖ is
-    floored at 1e-30 (the fused path floors Σw² instead)."""
-    n, m = K.shape[0], K.shape[1]
-    u0 = 1.0 / torch.sqrt(torch.tensor(float(m), dtype=torch.float32,
-                                       device=K.device))
-    u = u0.expand(n, m).clone()
-    for _ in range(iters):
-        w = torch.bmm(K, u[..., None])[..., 0]
-        u = w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True),
-                            min=1e-30)
-    lam = torch.sum(u * torch.bmm(K, u[..., None])[..., 0], dim=1)
-    return lam, u
-
-
-def _inline_step(D, lam, u, iters: int):
-    """One dump step written out in torch ops (``use_kernel=False``)."""
-    sigma = torch.sqrt(torch.clamp(lam, min=1e-30))
-    v = torch.bmm(u[:, None, :], D)[:, 0] / sigma[:, None]   # right sing. vec
-    v = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True),
-                        min=1e-30)
-    snap = sigma[:, None] * v
-    D2 = D - torch.bmm(D, v[..., None]) * v[:, None, :]
-    lam2, u2 = _power_topvec(D2 @ D2.mT, iters)
-    return snap, D2, lam2, u2
-
-
 def _krylov_dumps(cfg: DSFDConfig, sk: SketchState, idx: torch.Tensor,
                   now: torch.Tensor, theta: torch.Tensor) -> None:
     """While σ₁²(buf) ≥ θ: extract v₁ = u₁ᵀD/σ₁, snapshot σ₁·v₁, downdate
     (Algorithm 3 lines 14-22 with power iteration, §3.1), for the sketches
     ``idx``, in place.
 
-    With ``use_kernel`` the loop entry is one ``gram_power`` launch and
-    each iteration one ``fused_krylov_step`` launch over the sketches still
-    active.  The loop runs at most m iterations, like the reference's
-    ``while_loop`` under vmap: a sketch leaves it when ``lam < θ`` and its
-    state stays as it was then."""
+    The loop entry is one ``gram_power`` launch and each iteration one
+    ``fused_krylov_step`` launch over the sketches still active;
+    ``cfg.use_kernel`` picks only the norm floor.  The loop runs at most m
+    iterations, like the reference's ``while_loop`` under vmap: a sketch
+    leaves it when ``lam < θ`` and its state stays as it was then."""
     buf = sk.buf[idx]
-    if cfg.use_kernel:
-        lam, u = gram_power(buf, iters=cfg.power_iters)
-    else:
-        lam, u = _power_topvec(buf @ buf.mT, cfg.power_iters)
-    step = fused_krylov_step if cfg.use_kernel else _inline_step
+    floor_norm = not cfg.use_kernel
+    lam, u = gram_power(buf, iters=cfg.power_iters, floor_norm=floor_norm)
     first_s = sk.last_t[idx] + 1
     active = lam >= theta
     for it in range(cfg.m):
@@ -275,8 +249,9 @@ def _krylov_dumps(cfg: DSFDConfig, sk: SketchState, idx: torch.Tensor,
         if a.size == 0:
             break
         a = _index(a, buf.device)
-        snap, D2, lam2, u2 = step(buf[a], lam[a], u[a],
-                                  iters=cfg.power_iters)
+        snap, D2, lam2, u2 = fused_krylov_step(
+            buf[a], lam[a], u[a], iters=cfg.power_iters,
+            floor_norm=floor_norm)
         s = first_s[a] if it == 0 else now[a]
         _ring_append(sk, idx[a], snap[:, None, :],
                      torch.ones_like(s), s, now[a])

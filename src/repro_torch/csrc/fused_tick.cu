@@ -11,11 +11,17 @@
 //   step:       σ = √max(λ̂, 1e-30); v = ûD/σ, renormalised with the
 //               same 1e-30 floor on Σv²; snap = σv; D′ = D − (Dv)vᵀ;
 //               then gram_power on D′.  -> snap (S, d), D′ (S, m, d), λ̂′, û′
+// With floor_norm != 0 every normalisation floors the norm instead,
+// w / max(‖w‖, 1e-30): the reference's inline (use_pallas=False) path.
 //
 // What bounds it on this card: at the main path's shape (m = 2ℓ = 64,
-// d = 300) one stream moves 2·m·d·4 B = 154 KB (read D, write D′) and does
-// about 2·m²·d = 2.5 MFLOP, 16 FLOP per byte: under the H100's f32 ridge of
-// 67 TFLOP/s / 3.35 TB/s = 20, so device memory bounds a full fleet launch.
+// d = 300) one stream moves 2·m·d·4 B = 154 KB (read D, write D′), and the
+// function needs m(m+1)·d = 1.25 MFLOP for the symmetric Gram (m(m+1)/2
+// dot products of length d) plus ~0.3 MFLOP for the rest: about 10 FLOP
+// per byte, under the H100's f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20, so
+// device memory bounds a full fleet launch.  (The Gram below forms all m²
+// entries, twice the operations the function needs; at this intensity
+// that costs time only once the kernel nears its memory bound.)
 // The Pallas kernel kept D and K resident in VMEM for the whole step; the
 // design here does the same with shared memory: the CTA reads D from device
 // memory once, forms K = DDᵀ (m² floats) next to it, runs the 24
@@ -125,10 +131,16 @@ __device__ void matvec(const float* sK, const float* su, float* sw,
   __syncthreads();
 }
 
+// The divisor that normalises a vector with squared norm `ss`: the fused
+// floor √max(ss, 1e-30), or the inline floor max(√ss, 1e-30).
+__device__ __forceinline__ float floored_norm(float ss, int floor_norm) {
+  return floor_norm ? fmaxf(sqrtf(ss), 1e-30f) : sqrtf(fmaxf(ss, 1e-30f));
+}
+
 // Power iteration on K from the uniform start; leaves û in `su` and
 // returns λ̂ = Σ (ûK)·û.
 __device__ float power(const float* sK, float* su, float* sw, float* part,
-                       float* red, int m, int iters) {
+                       float* red, int m, int iters, int floor_norm) {
   const int tid = threadIdx.x;
   const float u0 = 1.0f / sqrtf((float)m);
   for (int i = tid; i < m; i += kThreads) su[i] = u0;
@@ -137,7 +149,7 @@ __device__ float power(const float* sK, float* su, float* sw, float* part,
     matvec(sK, su, sw, part, m);
     float ss = 0.f;
     for (int j = tid; j < m; j += kThreads) ss = fmaf(sw[j], sw[j], ss);
-    const float nrm = sqrtf(fmaxf(block_sum(ss, red), 1e-30f));
+    const float nrm = floored_norm(block_sum(ss, red), floor_norm);
     for (int j = tid; j < m; j += kThreads) su[j] = sw[j] / nrm;
     __syncthreads();
   }
@@ -152,7 +164,8 @@ __global__ void __launch_bounds__(kThreads)
 fused_tick_kernel(const float* __restrict__ D, const float* __restrict__ lam_in,
                   const float* __restrict__ u_in, float* __restrict__ snap,
                   float* __restrict__ D_out, float* __restrict__ lam_out,
-                  float* __restrict__ u_out, int m, int d, int iters) {
+                  float* __restrict__ u_out, int m, int d, int iters,
+                  int floor_norm) {
   extern __shared__ float smem[];
   const int ld = d | 1;  // odd row stride: conflict-free Gram reads
   float* sD = smem;               // m × ld
@@ -186,7 +199,7 @@ fused_tick_kernel(const float* __restrict__ D, const float* __restrict__ lam_in,
       sv[j] = vj;
       ss = fmaf(vj, vj, ss);
     }
-    const float nrm = sqrtf(fmaxf(block_sum(ss, red), 1e-30f));
+    const float nrm = floored_norm(block_sum(ss, red), floor_norm);
     float* gs = snap + b * d;
     for (int j = tid; j < d; j += kThreads) {
       const float vj = sv[j] / nrm;
@@ -214,7 +227,7 @@ fused_tick_kernel(const float* __restrict__ D, const float* __restrict__ lam_in,
   }
 
   gram(sD, sK, m, d, ld);
-  const float lam = power(sK, su, sw, part, red, m, iters);
+  const float lam = power(sK, su, sw, part, red, m, iters, floor_norm);
   if (tid == 0) lam_out[b] = lam;
   for (int i = tid; i < m; i += kThreads) u_out[b * m + i] = su[i];
 }
@@ -222,13 +235,13 @@ fused_tick_kernel(const float* __restrict__ D, const float* __restrict__ lam_in,
 template <bool kStep>
 int launch(const float* D, const float* lam, const float* u, float* snap,
            float* D_out, float* lam_out, float* u_out, int S, int m, int d,
-           int iters, size_t smem, cudaStream_t stream) {
+           int iters, int floor_norm, size_t smem, cudaStream_t stream) {
   auto kern = fused_tick_kernel<kStep>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<S, kThreads, smem, stream>>>(D, lam, u, snap, D_out, lam_out, u_out,
-                                      m, d, iters);
+                                      m, d, iters, floor_norm);
   return (int)cudaGetLastError();
 }
 
@@ -257,17 +270,20 @@ const char* fused_tick_error_string(int err) {
 }
 
 int fused_tick_gram_power(const float* D, float* lam_out, float* u_out, int S,
-                          int m, int d, int iters, void* stream) {
+                          int m, int d, int iters, int floor_norm,
+                          void* stream) {
   return launch<false>(D, nullptr, nullptr, nullptr, nullptr, lam_out, u_out,
-                       S, m, d, iters, fused_tick_smem_bytes(m, d),
+                       S, m, d, iters, floor_norm, fused_tick_smem_bytes(m, d),
                        (cudaStream_t)stream);
 }
 
 int fused_tick_step(const float* D, const float* lam, const float* u,
                     float* snap, float* D_out, float* lam_out, float* u_out,
-                    int S, int m, int d, int iters, void* stream) {
+                    int S, int m, int d, int iters, int floor_norm,
+                    void* stream) {
   return launch<true>(D, lam, u, snap, D_out, lam_out, u_out, S, m, d, iters,
-                      fused_tick_smem_bytes(m, d), (cudaStream_t)stream);
+                      floor_norm, fused_tick_smem_bytes(m, d),
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

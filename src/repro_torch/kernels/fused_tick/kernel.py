@@ -29,9 +29,9 @@ def _lib() -> ctypes.CDLL:
         lib.fused_tick_max_smem.restype = _I
         lib.fused_tick_error_string.argtypes = [_I]
         lib.fused_tick_error_string.restype = ctypes.c_char_p
-        lib.fused_tick_gram_power.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+        lib.fused_tick_gram_power.argtypes = [_P, _P, _P] + [_I] * 5 + [_P]
         lib.fused_tick_gram_power.restype = _I
-        lib.fused_tick_step.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        lib.fused_tick_step.argtypes = [_P] * 7 + [_I] * 5 + [_P]
         lib.fused_tick_step.restype = _I
         _bound["lib"] = lib
     return lib
@@ -64,8 +64,9 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def gram_power_cuda(D: torch.Tensor, iters: int):
-    """(λ̂ (S,), û (S, m)) of K = DDᵀ per stream, on the card."""
+def gram_power_cuda(D: torch.Tensor, iters: int, floor_norm: bool = False):
+    """(λ̂ (S,), û (S, m)) of K = DDᵀ per stream, on the card.
+    ``floor_norm`` as in ``ops``."""
     lib = _lib()
     _check(lib, D, "gram_power")
     S, m, d = D.shape
@@ -75,7 +76,7 @@ def gram_power_cuda(D: torch.Tensor, iters: int):
         with torch.cuda.device(D.device):
             err = lib.fused_tick_gram_power(D.data_ptr(), lam.data_ptr(),
                                             u.data_ptr(), S, m, d, int(iters),
-                                            _stream(D))
+                                            int(floor_norm), _stream(D))
         _raise_on(lib, err, "gram_power")
         gram_power_cuda.launches += 1
     return lam, u
@@ -85,7 +86,8 @@ gram_power_cuda.launches = 0
 
 
 def fused_krylov_step_cuda(D: torch.Tensor, lam: torch.Tensor,
-                           u: torch.Tensor, iters: int):
+                           u: torch.Tensor, iters: int,
+                           floor_norm: bool = False):
     """One krylov dump step per stream, on the card.  Returns
     (snap (S, d), D′ (S, m, d), λ̂′ (S,), û′ (S, m))."""
     lib = _lib()
@@ -107,7 +109,7 @@ def fused_krylov_step_cuda(D: torch.Tensor, lam: torch.Tensor,
             err = lib.fused_tick_step(
                 D.data_ptr(), lam.data_ptr(), u.data_ptr(), snap.data_ptr(),
                 D2.data_ptr(), lam2.data_ptr(), u2.data_ptr(), S, m, d,
-                int(iters), _stream(D))
+                int(iters), int(floor_norm), _stream(D))
         _raise_on(lib, err, "fused_krylov_step")
         fused_krylov_step_cuda.launches += 1
     return snap, D2, lam2, u2

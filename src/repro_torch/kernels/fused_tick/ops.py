@@ -6,6 +6,11 @@ the stream axis explicitly: D (S, m, d), λ̂ (S,), û (S, m).  A CUDA tensor
 launches the hand-written kernel (``kernel.py``, one CTA per stream); a CPU
 tensor runs the plain version (``ref.py``).  No padding is needed: the
 kernel bounds every loop by the true m and d.
+
+``floor_norm`` picks the norm floor: False is the fused path's
+``sqrt(max(Σw², 1e-30))``, True the reference's inline path's
+``max(‖w‖, 1e-30)``.  Either way the tensor's device alone decides
+between kernel and plain version.
 """
 
 from __future__ import annotations
@@ -23,16 +28,16 @@ def _slab(D: torch.Tensor) -> torch.Tensor:
     return D.to(torch.float32).contiguous()
 
 
-def gram_power(D: torch.Tensor, *, iters: int = 24):
+def gram_power(D: torch.Tensor, *, iters: int = 24, floor_norm: bool = False):
     """(λ̂ (S,), û (S, m)) of K = DDᵀ for every stream, in one launch."""
     D = _slab(D)
     if use_kernel(D):
-        return kernel.gram_power_cuda(D, iters)
-    return ref.gram_power_ref(D, iters)
+        return kernel.gram_power_cuda(D, iters, floor_norm)
+    return ref.gram_power_ref(D, iters, floor_norm)
 
 
 def fused_krylov_step(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
-                      *, iters: int = 24):
+                      *, iters: int = 24, floor_norm: bool = False):
     """One krylov dump step for every stream, in one launch: v-extraction,
     snapshot, rank-1 downdate, Gram and power iteration.
     Returns (snap (S, d), D′ (S, m, d), λ̂′ (S,), û′ (S, m))."""
@@ -40,5 +45,5 @@ def fused_krylov_step(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
     lam = lam.to(torch.float32).contiguous()
     u = u.to(torch.float32).contiguous()
     if use_kernel(D):
-        return kernel.fused_krylov_step_cuda(D, lam, u, iters)
-    return ref.fused_krylov_step_ref(D, lam, u, iters)
+        return kernel.fused_krylov_step_cuda(D, lam, u, iters, floor_norm)
+    return ref.fused_krylov_step_ref(D, lam, u, iters, floor_norm)

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the fused krylov-tick kernels, batched over S.
 
 Same math as ``repro/kernels/fused_tick/ref.py``: the uniform start
-u₀ = 1/√m, and the ``sqrt(max(Σw², 1e-30))`` norm floor of the fused path
-(the inline krylov path of ``core/dsfd.py`` floors ‖w‖ at 1e-30 instead;
-it has its own power loop there).  A CPU tensor runs these; the tests hold
-them against the reference, and ``chip_smoke.py`` holds the CUDA kernels
-against them on the card.
+u₀ = 1/√m, and the ``sqrt(max(Σw², 1e-30))`` norm floor of the fused path.
+``floor_norm=True`` takes the floor of the reference's inline krylov path
+(``repro/core/dsfd.py:200,253``), ``max(‖w‖, 1e-30)``, instead; the two
+differ only on vectors with Σw² < 1e-30.  A CPU tensor runs these; the
+tests hold them against the reference, and ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
 """
 
 from __future__ import annotations
@@ -17,37 +18,44 @@ def _matvec(K: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.bmm(K, u.unsqueeze(-1)).squeeze(-1)
 
 
-def power_ref(K: torch.Tensor, iters: int):
+def _normalise(w: torch.Tensor, floor_norm: bool) -> torch.Tensor:
+    """Rows of w over their norms, with the fused (Σw²) or inline (‖w‖)
+    floor at 1e-30."""
+    if floor_norm:
+        return w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True),
+                               min=1e-30)
+    return w / torch.sqrt(torch.clamp(torch.sum(w * w, dim=1, keepdim=True),
+                                      min=1e-30))
+
+
+def power_ref(K: torch.Tensor, iters: int, floor_norm: bool = False):
     """Top eigenpair (λ̂ (S,), û (S, m)) of each PSD K (S, m, m)."""
     S, m = K.shape[0], K.shape[1]
     u0 = 1.0 / torch.sqrt(torch.tensor(float(m), dtype=torch.float32,
                                        device=K.device))
     u = u0.expand(S, m).clone()
     for _ in range(iters):
-        w = _matvec(K, u)
-        u = w / torch.sqrt(torch.clamp(torch.sum(w * w, dim=1, keepdim=True),
-                                       min=1e-30))
+        u = _normalise(_matvec(K, u), floor_norm)
     lam = torch.sum(u * _matvec(K, u), dim=1)
     return lam, u
 
 
-def gram_power_ref(D: torch.Tensor, iters: int = 24):
+def gram_power_ref(D: torch.Tensor, iters: int = 24, floor_norm: bool = False):
     """(λ̂ (S,), û (S, m)) of K = DDᵀ for each D of the (S, m, d) slab."""
     Df = D.to(torch.float32)
-    return power_ref(Df @ Df.mT, iters)
+    return power_ref(Df @ Df.mT, iters, floor_norm)
 
 
 def fused_krylov_step_ref(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
-                          iters: int = 24):
+                          iters: int = 24, floor_norm: bool = False):
     """One krylov dump step per stream.  D (S, m, d), lam (S,), u (S, m).
     Returns (snap (S, d), D′ (S, m, d), λ̂′ (S,), û′ (S, m))."""
     Df = D.to(torch.float32)
     sigma = torch.sqrt(torch.clamp(lam.to(torch.float32), min=1e-30))
     v = torch.bmm(u.to(torch.float32).unsqueeze(1), Df).squeeze(1) \
         / sigma[:, None]
-    v = v / torch.sqrt(torch.clamp(torch.sum(v * v, dim=1, keepdim=True),
-                                   min=1e-30))
+    v = _normalise(v, floor_norm)
     snap = sigma[:, None] * v
     D2 = Df - _matvec(Df, v)[:, :, None] * v[:, None, :]
-    lam2, u2 = power_ref(D2 @ D2.mT, iters)
+    lam2, u2 = power_ref(D2 @ D2.mT, iters, floor_norm)
     return snap, D2.to(D.dtype), lam2, u2

@@ -134,9 +134,9 @@ def _make_fd(d: int, eps: float, window: int, *, device) -> SlidingSketch:
 
 @register("dsfd")
 def _make_dsfd(d: int, eps: float, window: int, *, device, mode: str = "fast",
-               beta: float = 4.0, use_kernel: bool = False) -> SlidingSketch:
+               beta: float = 4.0, use_kernel: bool = True) -> SlidingSketch:
     """DS-FD (Algorithms 2-4; ``mode`` picks the §3.1 cadence;
-    ``use_kernel`` runs krylov dumps through the fused CUDA kernels)."""
+    ``use_kernel`` the krylov step's norm floor, see ``DSFDConfig``)."""
     cfg = make_config(d, eps, window, mode=mode, beta=beta,
                       use_kernel=use_kernel)
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import dsfd
 from repro_torch.kernels.fused_tick import kernel, ops, ref
 from repro_torch.serve.engine import SketchFleetEngine
 
@@ -37,26 +38,30 @@ def _unit_slab(S, m, d, seed, device):
     return torch.from_numpy(D).to(device)
 
 
+@pytest.mark.parametrize("floor_norm", [False, True])
 @pytest.mark.parametrize("S,m,d", [(64, 64, 300), (7, 10, 37), (3, 1, 1)])
-def test_cuda_kernels_match_plain_versions(cuda, S, m, d):
+def test_cuda_kernels_match_plain_versions(cuda, S, m, d, floor_norm):
     D = _unit_slab(S, m, d, S + m + d, cuda)
     n0 = kernel.gram_power_cuda.launches
-    lam, u = ops.gram_power(D, iters=24)
+    lam, u = ops.gram_power(D, iters=24, floor_norm=floor_norm)
     assert kernel.gram_power_cuda.launches == n0 + 1
-    lam_p, u_p = ref.gram_power_ref(D, 24)
+    lam_p, u_p = ref.gram_power_ref(D, 24, floor_norm)
     torch.testing.assert_close(lam, lam_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(u, u_p, rtol=0, atol=1e-4)
-    got = ops.fused_krylov_step(D, lam_p, u_p, iters=24)
-    want = ref.fused_krylov_step_ref(D, lam_p, u_p, 24)
+    got = ops.fused_krylov_step(D, lam_p, u_p, iters=24,
+                                floor_norm=floor_norm)
+    want = ref.fused_krylov_step_ref(D, lam_p, u_p, 24, floor_norm)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
-def test_cuda_kernels_on_a_zero_slab(cuda):
+@pytest.mark.parametrize("floor_norm", [False, True])
+def test_cuda_kernels_on_a_zero_slab(cuda, floor_norm):
     D = torch.zeros((4, 64, 300), device=cuda)
-    lam, u = ops.gram_power(D, iters=24)
+    lam, u = ops.gram_power(D, iters=24, floor_norm=floor_norm)
     assert torch.all(lam == 0) and torch.all(u == 0)
-    for o in ops.fused_krylov_step(D, lam, u, iters=24):
+    for o in ops.fused_krylov_step(D, lam, u, iters=24,
+                                   floor_norm=floor_norm):
         assert torch.isfinite(o).all()
 
 
@@ -64,6 +69,23 @@ def test_buffer_too_large_for_one_cta_raises(cuda):
     D = torch.zeros((1, 512, 512), device=cuda)
     with pytest.raises(ValueError, match="split path"):
         ops.gram_power(D, iters=1)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_both_krylov_floors_launch_the_kernels(cuda, use_kernel):
+    """``use_kernel`` picks only the norm floor: on the card either
+    formulation of the krylov step runs the hand-written kernels."""
+    rng = np.random.default_rng(1)
+    d = 16
+    rows = rng.normal(size=(2, 1, d)) + 0.05 * rng.normal(size=(2, 96, d))
+    rows = (rows / np.linalg.norm(rows, axis=2, keepdims=True)).astype(
+        np.float32)
+    cfg = dsfd.make_config(d, 1 / 4, 32, mode="krylov", use_kernel=use_kernel)
+    n0 = (kernel.gram_power_cuda.launches,
+          kernel.fused_krylov_step_cuda.launches)
+    dsfd.dsfd_run_stream(cfg, rows, device="cuda")
+    assert kernel.gram_power_cuda.launches > n0[0]
+    assert kernel.fused_krylov_step_cuda.launches > n0[1]
 
 
 def test_krylov_engine_on_the_card_holds_theorem_3_1(cuda):

@@ -291,13 +291,15 @@ def test_synthetic_source_model():
 
 
 def test_synthetic_set_dumps_only_at_low_signal_dimension(monkeypatch):
-    """Why ``chip_smoke.py`` feeds half its fleet k = 10 rows: at the
-    smoke's ε = 1/32, N = 1024, d = 300 the paper's SYNTHETIC set (k = d)
-    puts ~1 % of a window's energy in its largest direction, under the
-    ε = 3.1 % a dump needs, so it never snapshots; with k = 10 it does."""
-    n, N = 3 * 1024, 1024
-    rows = np.stack([SyntheticSource(300, seed=0).rows(n),
-                     SyntheticSource(300, k=10, seed=1).rows(n)])
+    """Why ``chip_smoke.py`` feeds half its fleet rows of low signal
+    dimension: a dump needs a direction with ≥ ε of a window's energy, and
+    the paper's SYNTHETIC set (k = d) spreads its energy too thinly for
+    that, so it never snapshots; the same model with small k does.  Shown
+    here at d = 32, ε = 1/4, N = 64 over 320 rows (the smoke prints the
+    same split at its full width)."""
+    n, N, d = 320, 64, 32
+    rows = np.stack([SyntheticSource(d, seed=0).rows(n),
+                     SyntheticSource(d, k=3, seed=1).rows(n)])
     dumps = np.zeros(4, np.int64)      # per sketch of the (main; aux) pair
     append = P._ring_append
 
@@ -306,8 +308,7 @@ def test_synthetic_set_dumps_only_at_low_signal_dimension(monkeypatch):
         return append(sk, idx, snaps, count, first_s, now)
 
     monkeypatch.setattr(P, "_ring_append", counting)
-    cfg = P.make_config(300, 1 / 32, N, mode="krylov", use_kernel=True)
+    cfg = P.make_config(d, 1 / 4, N, mode="krylov")
     P.dsfd_run_stream(cfg, rows, device="cpu")
     per_stream = dumps[:2] + dumps[2:]            # main + aux of stream s
     assert per_stream[0] == 0 and per_stream[1] > 0, per_stream
-    print("snapshots per stream (k=d, k=10):", per_stream.tolist())

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.core.dsfd import _power_topvec as jax_inline_power
 from repro.kernels.fused_tick.ops import fused_krylov_step as ref_step_ops
 from repro.kernels.fused_tick.ops import gram_power as ref_gp_ops
 from repro.kernels.fused_tick.ref import fused_krylov_step_ref as jax_step
@@ -92,6 +93,30 @@ def test_zero_buffer_stays_finite():
         assert torch.isfinite(o).all()
     lam_r, u_r = jax_gp(jnp.zeros((8, 32)), iters=24)
     assert float(lam_r) == 0.0 and not np.asarray(u_r).any()
+
+
+@pytest.mark.parametrize("S,m,d", SHAPES)
+def test_inline_floor_matches_reference_inline_power(S, m, d):
+    """``floor_norm=True`` is the reference's inline power loop
+    (``repro.core.dsfd._power_topvec`` without Pallas: ‖w‖ floored at
+    1e-30) on K = DDᵀ."""
+    D = _slab(S, m, d, seed=5 * m + d)
+    lam, u = ops.gram_power(torch.from_numpy(D), iters=24, floor_norm=True)
+    for s in range(S):
+        Dj = jnp.asarray(D[s])
+        lam_r, u_r = jax_inline_power(Dj @ Dj.T, 24, False)
+        np.testing.assert_allclose(float(lam[s]), float(lam_r), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(u[s].numpy(), np.asarray(u_r), atol=ATOL)
+
+
+def test_inline_floor_on_a_zero_buffer():
+    """Both floors give u = 0 and finite outputs on an all-zero buffer."""
+    D = torch.zeros((2, 8, 32))
+    lam, u = ops.gram_power(D, iters=24, floor_norm=True)
+    assert torch.all(lam == 0) and torch.all(u == 0)
+    for o in ops.fused_krylov_step(D, lam, u, iters=24, floor_norm=True):
+        assert torch.isfinite(o).all()
 
 
 def test_padding_rows_never_capture_the_top_vector():
