@@ -5,12 +5,16 @@
 
 Phases, each printing its seconds on a line of its own:
 
-1. build   — compile every kernel source under ``src/repro_torch/csrc``.
+1. build   — compile every kernel source under ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together).
 2. kernels — hold each CUDA kernel against its plain PyTorch version on
-   the card, at the main path's shape (S=1024, m=64, d=300), at an
-   unaligned shape (m=10, d=37) and on an all-zero slab; time kernel and
-   plain version in turns with CUDA events.
-3. krylov  — the main path at full width:
+   the card and time both in turns with CUDA events: the fused-tick
+   kernels at the krylov path's shape (S=1024, m=64, d=300), at an
+   unaligned shape (m=10, d=37) and on an all-zero slab; the flash
+   forward at llama3-8b's prefill shapes (buckets 512 and 256, bf16),
+   smollm's (G=3, dh=64, bf16), qwen1.5's (G=1, f32) and one non-causal
+   case, beside ``scaled_dot_product_attention`` as the library yardstick.
+3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
    ``submit_many`` with 8 unit-norm rows per user per tick for 2.5·N rows
@@ -21,6 +25,16 @@ Phases, each printing its seconds on a line of its own:
    goes (SVD, each kernel, other) on the host clock.
 4. fast    — a short ``mode="fast"`` run (the users' default) at the same
    width, checked and split the same way.
+5. serve   — the dense serving path at full width: llama3-8b (32 layers,
+   bf16 weights from a seeded ``torch.Generator`` on the card) with
+   ``use_flash=True`` in ``ServeEngine(slots=4, s_max=1024,
+   prefill_buckets=(256, 512))``, 8 greedy requests of 200-512 prompt
+   tokens and 16 new tokens.  Every request must finish with 17 tokens in
+   [0, vocab), the flash kernel must launch exactly 32 × 8 times, and the
+   last-position logits must be finite.  Then a 2-layer f32 model at full
+   width prefills one 512-token prompt through the kernel and through its
+   plain version: the last-position logits must agree within 1e-4
+   relative (Frobenius).
 
 Then it prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -31,6 +45,8 @@ a checkout of the repository, it exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -48,8 +64,9 @@ ITERS = 24
 # threads); at these unit-scale inputs that moves results by ~1e-6, and 24
 # power steps on a gapped spectrum do not amplify it past 1e-4.
 RTOL_LAM, ATOL = 1e-4, 1e-4
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 non-tensor rate
-PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 non-tensor rate,
+# dense bf16 tensor-core rate
+PEAK_BYTES_S, PEAK_F32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def log(msg: str) -> None:
@@ -203,6 +220,93 @@ def check_kernels(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (cont.): the flash-attention forward
+# ---------------------------------------------------------------------------
+
+# (label, B, S, H, Hkv, dh, dtype, causal); the first is the timed one
+FLASH_SHAPES = [
+    ("llama3-8b bucket 512", 1, 512, 32, 8, 128, "bfloat16", True),
+    ("llama3-8b bucket 256", 1, 256, 32, 8, 128, "bfloat16", True),
+    ("smollm G=3", 2, 256, 9, 3, 64, "bfloat16", True),
+    ("qwen1.5 G=1", 1, 512, 16, 16, 64, "float32", True),
+    ("non-causal", 1, 512, 32, 8, 128, "bfloat16", False),
+]
+# o: one rounding to bf16 of outputs of unit scale (~4e-3 relative; the
+# reference's own kernel test allows 2e-2); f32: the same arithmetic in
+# another summation order.  lse is f32 in both types.
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_TOL = 1e-3
+
+
+def flash_bound(B, S, H, Hkv, dh, dtype, causal):
+    """Least time (ms) of the flash forward: q, k, v read once and o, lse
+    written once over HBM bandwidth; 4·dh FLOPs per (query, key) pair that
+    the mask keeps over the peak rate of the inputs' type."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * (2 * B * H * S * dh + 2 * B * Hkv * S * dh) + 4 * B * H * S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * dh * H * pairs * B
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
+    return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def check_flash(rng) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    timed = {}
+    for label, B, S, H, Hkv, dh, dtype, causal in FLASH_SHAPES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B * h, S, dh)).astype(np.float32)).to(dev, getattr(torch, dtype))
+            for h in (H, Hkv, Hkv))
+        o, lse = kernel.flash_fwd(q, k, v, causal)
+        o_p, lse_p = ref.flash_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(o).all())
+                and bool(torch.isfinite(lse).all())):
+            raise AssertionError(f"flash_fwd {label}: output not finite")
+        err = float((o.float() - o_p.float()).abs().max())
+        err_lse = float((lse - lse_p).abs().max())
+        if err > FLASH_TOL[dtype] or err_lse > LSE_TOL:
+            raise AssertionError(
+                f"flash_fwd {label}: max |kernel − plain| o {err:.3e} "
+                f"(tol {FLASH_TOL[dtype]:.0e}), lse {err_lse:.3e} "
+                f"(tol {LSE_TOL:.0e})")
+        worst = max(worst, err)
+        log(f"kernels flash_fwd {label} (B,S,H,Hkv,dh)=({B},{S},{H},{Hkv},"
+            f"{dh}) {dtype} causal={causal}: o err {err:.3e}, lse err "
+            f"{err_lse:.3e}")
+        if not label.startswith("llama3-8b"):
+            continue
+        q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+        lib_err = float((library().reshape_as(o).float()
+                         - o_p.float()).abs().max())
+        t = time_in_turns({
+            "kernel": lambda: kernel.flash_fwd(q, k, v, causal),
+            "plain": lambda: ref.flash_ref(q, k, v, causal=causal),
+            "library": library})
+        bound, by = flash_bound(B, S, H, Hkv, dh, dtype, causal)
+        log(f"kernels time flash_fwd {label}: kernel_ms {t['kernel']:.4f} "
+            f"plain_ms {t['plain']:.4f} library_ms (sdpa) "
+            f"{t['library']:.4f} bound_ms {bound:.4f} ({by}); sdpa vs "
+            f"plain max err {lib_err:.3e}")
+        timed.setdefault("row", dict(
+            ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
+            bound_by=by, library_ms=t["library"]))
+    return dict(max_abs_err=worst, **timed["row"])
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -353,6 +457,200 @@ def breakdown(eng, mode: str, ticks: int, feed) -> None:
         f"other {other:.3f} s ({100 * other / wall:.1f}%)")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the dense serving path at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH, SERVE_REQUESTS, SERVE_MAX_NEW = "llama3-8b", 8, 16
+SERVE_ENGINE = dict(slots=4, s_max=1024, prefill_buckets=(256, 512))
+PLAIN_RTOL = 1e-4   # f32 throughout, TF32 off: only summation order differs
+
+
+def run_serve(seed: int, device: str = "cuda") -> dict:
+    """ServeEngine over 8 requests at llama3-8b's full width; returns the
+    flash launches of the run."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel, ops
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), use_flash=True)
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed),
+                         dtype=torch.bfloat16, device=dev)
+    eng = ServeEngine(cfg, params, EngineConfig(**SERVE_ENGINE), device=dev)
+    rng = np.random.default_rng(seed)
+    for uid, n in enumerate(rng.integers(200, 513, SERVE_REQUESTS)):
+        eng.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab, int(n)).astype(np.int32), max_new=SERVE_MAX_NEW))
+
+    # host-clock timers around each model step (synchronised), CUDA events
+    # around each flash call; the last-position logits are kept
+    prefill_ms, decode_ms, flash_events, last_logits = {}, [], [], []
+    saved = {"prefill": api.forward_prefill, "decode": api.forward_decode,
+             "flash": ops.flash_forward}
+
+    def timed(name):
+        def wrapper(cfg_, params_, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, caches = saved[name](cfg_, params_, *args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if name == "prefill":
+                prefill_ms.setdefault(args[0]["tokens"].shape[1],
+                                      []).append(ms)
+            else:
+                decode_ms.append(ms)
+            last_logits.append(lg[:, -1])
+            return lg, caches
+        return wrapper
+
+    def flash_timed(*a, **k):
+        ev = torch.cuda.Event(True), torch.cuda.Event(True)
+        ev[0].record()
+        out = saved["flash"](*a, **k)
+        ev[1].record()
+        flash_events.append(ev)
+        return out
+
+    kernel.flash_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        api.forward_prefill, api.forward_decode = (timed("prefill"),
+                                                   timed("decode"))
+        ops.flash_forward = flash_timed
+        done = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        api.forward_prefill, api.forward_decode = (saved["prefill"],
+                                                   saved["decode"])
+        ops.flash_forward = saved["flash"]
+    wall = time.perf_counter() - t0
+    launches = kernel.flash_fwd.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_prefills = sum(len(v) for v in prefill_ms.values())
+    want = cfg.n_layers * SERVE_REQUESTS
+    if launches != want or n_prefills != SERVE_REQUESTS:
+        raise AssertionError(f"flash_fwd launched {launches} times in "
+                             f"{n_prefills} prefills; expected {want}")
+    if sorted(done) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"requests done: {sorted(done)}")
+    for uid, r in done.items():
+        toks = np.asarray(r.out_tokens)
+        if len(toks) != SERVE_MAX_NEW + 1 or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            raise AssertionError(f"request {uid}: {len(toks)} tokens, range "
+                                 f"[{toks.min()}, {toks.max()}]")
+    if not all(bool(torch.isfinite(lg).all()) for lg in last_logits):
+        raise AssertionError("last-position logits not finite")
+    flash_ms = sum(a.elapsed_time(b) for a, b in flash_events)
+    pre_total = sum(sum(v) for v in prefill_ms.values())
+    tokens = sum(len(r.out_tokens) for r in done.values())
+    for b, v in sorted(prefill_ms.items()):
+        log(f"serve prefill bucket {b}: {len(v)} prefills, "
+            f"{float(np.median(v)):.3f} ms median ({min(v):.3f}-"
+            f"{max(v):.3f})")
+    log(f"serve decode: {len(decode_ms)} ticks of {SERVE_ENGINE['slots']} "
+        f"slots, {float(np.median(decode_ms)):.3f} ms median per tick "
+        f"({min(decode_ms):.3f}-{max(decode_ms):.3f})")
+    log(f"serve {SERVE_REQUESTS} requests, {tokens} tokens in {wall:.3f} s:"
+        f" {tokens / wall:.1f} generated tokens/s; flash {flash_ms:.3f} ms "
+        f"of {pre_total:.3f} ms prefill ({100 * flash_ms / pre_total:.2f}%); "
+        f"flash launches {launches}; peak memory {peak_gib:.2f} GiB")
+    serve_breakdown(eng, params)
+    del eng, params
+    return {"launches": launches}
+
+
+def serve_breakdown(eng, params) -> None:
+    """Where a decode tick and a 512-token prefill spend their time, after
+    the counted run, on a warm engine whose slots hold the last requests'
+    caches: each is timed once on the host clock, then run once under
+    ``torch.profiler``.  Prints both walls, the device's busy time (the sum
+    of the kernels' own times), its idle share of the unprofiled wall, and
+    the kernels that take most of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.zeros((1, 512), dtype=torch.int32, device=eng.device)
+    for label, fn in (
+            ("decode tick", lambda: eng._decode(eng.params, eng.tokens,
+                                                eng.caches)),
+            ("prefill 512", lambda: eng._prefill_b1(params,
+                                                    {"tokens": toks}))):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_prof = (time.perf_counter() - t) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        parts = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+                          f" ms ({e.count}x)" for e in top)
+        log(f"serve breakdown {label}: wall {wall:.3f} ms ({wall_prof:.3f} "
+            f"ms profiled), device busy {busy:.3f} ms, idle "
+            f"{100 * (1 - busy / wall):.1f}%; top kernels: {parts}")
+
+
+def check_plain_prefill(seed: int, device: str = "cuda") -> None:
+    """Full width, 2 layers, f32: one 512-token prefill through the flash
+    kernel and through its plain version."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel, ops, ref
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2,
+                              use_flash=True, param_dtype="float32",
+                              act_dtype="float32")
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed + 1),
+                         dtype=torch.float32, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (1, 512)).astype(np.int32)).to(dev)
+    n0 = kernel.flash_fwd.launches
+    lg_kernel, _ = api.forward_prefill(cfg, params, {"tokens": toks})
+    fwd = ops.flash_forward
+    ops.flash_forward = ref.flash_ref          # the plain version, by name
+    try:
+        lg_plain, _ = api.forward_prefill(cfg, params, {"tokens": toks})
+    finally:
+        ops.flash_forward = fwd
+    torch.cuda.synchronize()
+    n = kernel.flash_fwd.launches - n0
+    if n != cfg.n_layers:
+        raise AssertionError(f"{n} flash launches in a {cfg.n_layers}-layer "
+                             "prefill and its plain twin")
+    rel = float(torch.linalg.norm(lg_kernel - lg_plain)
+                / torch.linalg.norm(lg_plain))
+    if not rel <= PLAIN_RTOL:
+        raise AssertionError(f"2-layer f32 prefill: kernel vs plain "
+                             f"relative error {rel:.3e} > {PLAIN_RTOL:.0e}")
+    log(f"serve 2-layer f32 prefill at full width, S=512: kernel vs plain "
+        f"last-position logits relative error {rel:.3e} (tol "
+        f"{PLAIN_RTOL:.0e})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -392,6 +690,7 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     stats = check_kernels(rng)
+    stats["flash_fwd"] = check_flash(rng)
     log(f"phase kernels: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -406,14 +705,26 @@ def main(argv=None) -> int:
     run_engine("fast", args.fast_ticks, args.seed + 100)
     log(f"phase fast: {time.perf_counter() - t:.3f} s")
 
-    src = "src/repro_torch/csrc/fused_tick.cu"
-    replaces = {"gram_power": "src/repro/kernels/fused_tick/kernel.py:66",
-                "fused_krylov_step":
-                    "src/repro/kernels/fused_tick/kernel.py:110"}
-    rows = [dict(name=name, route="cuda", source=src,
-                 replaces=replaces[name], launches=kry["launches"][name],
-                 **stats[name]) for name in ("gram_power",
-                                             "fused_krylov_step")]
+    gc.collect()                       # the fleets' tensors
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    srv = run_serve(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_plain_prefill(args.seed)
+    log(f"phase serve: {time.perf_counter() - t:.3f} s")
+
+    launches = dict(kry["launches"], flash_fwd=srv["launches"])
+    where = {
+        "gram_power": ("fused_tick.cu", "fused_tick/kernel.py:66"),
+        "fused_krylov_step": ("fused_tick.cu", "fused_tick/kernel.py:110"),
+        "flash_fwd": ("flash_attn.cu", "flash_attn/kernel.py:86"),
+    }
+    rows = [dict(name=name, route="cuda",
+                 source=f"src/repro_torch/csrc/{src}",
+                 replaces=f"src/repro/kernels/{tpu}",
+                 launches=launches[name], **stats[name])
+            for name, (src, tpu) in where.items()]
     print(json.dumps({"kernels": rows}))
     print(f"gpu: {gpu}")
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,7 @@
+"""minitron-4b [dense] — pruned nemotron (arXiv:2407.14679)."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="minitron-4b", family="dense",
+    n_layers=32, d_model=3072, n_heads=24, n_kv=8, d_ff=9216, vocab=256000,
+    head_dim=128, tied_embeddings=False, rope_theta=10_000.0))

@@ -1,0 +1,7 @@
+"""smollm-135m [dense] — llama-arch small (hf:HuggingFaceTB/SmolLM-135M)."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv=3, d_ff=1536, vocab=49152,
+    tied_embeddings=True, rope_theta=10_000.0))

@@ -1,23 +1,183 @@
-"""Fleet serving: S per-user sliding-window sketches on one device.
+"""Batched serving engines.
 
-Counterpart of ``repro/serve/engine.py::SketchFleetEngine`` (admission,
-ticks and the user and global queries; topology, history, scoring,
-checkpoints and cohort queries come in later slices).
+Counterpart of ``repro/serve/engine.py``.  Two serving paths live here:
+
+* ``ServeEngine`` — fixed-slot continuous batching of a language model
+  over the prefill and decode steps: B slots advance in lockstep (one
+  decode step per tick), and an empty slot is refilled by prefilling the
+  next queued request and splicing its caches into the batch at the slot
+  index.
+* ``SketchFleetEngine`` — S per-user sliding-window sketches on one
+  device (admission, ticks and the user and global queries; topology,
+  history, scoring, checkpoints and cohort queries come in later slices).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 import warnings
-from typing import Optional
+from collections import deque
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import api
+from repro_torch.models.layers.attention import KVCache
 from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
     SlabTransfer, make_pipeline
+from repro_torch.serve.serve_step import build_decode_step, \
+    build_prefill_step
 from repro_torch.sketch.api import fleet_streams, make_sketch, query_all
 from repro_torch.tree import take
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                 # (len,) int32
+    max_new: int = 16
+    eos_id: Optional[int] = None
+    # filled by the engine:
+    out_tokens: Optional[List[int]] = None
+    latency_s: float = 0.0
+    t_submit: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    slots: int = 4                     # decode batch width
+    s_max: int = 256                   # cache capacity
+    prefill_buckets: tuple = (32, 64, 128)
+    temperature: float = 0.0
+
+
+class ServeEngine:
+    """Continuous batching of one model on one device.
+
+    A prompt is right-aligned in the smallest prefill bucket that holds it,
+    with token 0 before it, and the whole bucket is prefilled with no
+    padding mask, as in the reference; its caches (``length`` = the bucket)
+    are spliced left-aligned into the slot.  Every tick decodes all slots,
+    empty ones included.  The caches are held in ``dtype`` (f32 by default,
+    as in the reference).  As in the reference, the engine passes the
+    decode step no generator, so it decodes greedily whatever
+    ``temperature`` says.  Runs on the card unless ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
+                 dtype=torch.float32, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.ecfg = ecfg
+        self.params = params
+        self.dtype = dtype
+        self.queue: deque = deque()
+        self.done: Dict[int, Request] = {}
+        self.slot_req: List[Optional[Request]] = [None] * ecfg.slots
+        self.slot_left: np.ndarray = np.zeros(ecfg.slots, np.int32)
+        self.tokens = torch.zeros((ecfg.slots, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.caches = api.init_cache(cfg, ecfg.slots, ecfg.s_max, dtype,
+                                     self.device)
+        self._decode = build_decode_step(cfg, temperature=ecfg.temperature)
+        self._prefill_b1 = build_prefill_step(cfg)
+        self.ticks = 0
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        b_max = max(self.ecfg.prefill_buckets)
+        if len(req.prompt) > b_max:
+            raise ValueError(
+                f"prompt of {len(req.prompt)} tokens exceeds the largest "
+                f"prefill bucket ({b_max}); admitting it would silently "
+                f"drop all but the last {b_max} tokens — chunk the prompt "
+                "or enlarge EngineConfig.prefill_buckets")
+        req.t_submit = time.perf_counter()
+        req.out_tokens = []
+        self.queue.append(req)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.ecfg.prefill_buckets:
+            if n <= b:
+                return b
+        # unreachable through submit(), which rejects over-long prompts
+        raise ValueError(
+            f"no prefill bucket holds {n} tokens "
+            f"(buckets={self.ecfg.prefill_buckets})")
+
+    def _admit(self, slot: int, req: Request) -> None:
+        b = self._bucket(len(req.prompt))
+        prompt = np.zeros((1, b), np.int32)
+        prompt[0, -len(req.prompt):] = req.prompt
+        with torch.no_grad():
+            tok, caches1 = self._prefill_b1(
+                self.params,
+                {"tokens": torch.from_numpy(prompt).to(self.device)})
+        _splice_caches(self.caches, caches1, slot)
+        self.tokens[slot] = tok[0]
+        self.slot_req[slot] = req
+        self.slot_left[slot] = req.max_new
+        req.out_tokens.append(int(tok[0, 0]))
+
+    # -- main loop ----------------------------------------------------------
+
+    def step(self) -> None:
+        """One engine tick: refill slots, one decode step, harvest."""
+        for s in range(self.ecfg.slots):
+            if self.slot_req[s] is None and self.queue:
+                self._admit(s, self.queue.popleft())
+        if all(r is None for r in self.slot_req):
+            return
+        with torch.no_grad():
+            self.tokens, self.caches = self._decode(self.params, self.tokens,
+                                                    self.caches)
+        self.ticks += 1
+        toks = self.tokens[:, 0].cpu().numpy()
+        for s, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            req.out_tokens.append(int(toks[s]))
+            self.slot_left[s] -= 1
+            hit_eos = req.eos_id is not None and toks[s] == req.eos_id
+            if self.slot_left[s] <= 0 or hit_eos:
+                req.latency_s = time.perf_counter() - req.t_submit
+                self.done[req.uid] = req
+                self.slot_req[s] = None
+
+    def run(self, max_ticks: int = 10_000) -> Dict[int, Request]:
+        """Serve until the queue and the slots are empty, at most
+        ``max_ticks`` ticks of this call; warns if requests are left."""
+        t0 = self.ticks
+        while (self.queue or any(r is not None for r in self.slot_req)) \
+                and self.ticks - t0 < max_ticks:
+            self.step()
+        left = len(self.queue) + sum(r is not None for r in self.slot_req)
+        if left:
+            warnings.warn(
+                f"ServeEngine.run() exhausted max_ticks={max_ticks} with "
+                f"{left} request(s) unfinished — `done` is incomplete",
+                RuntimeWarning, stacklevel=2)
+        return self.done
+
+
+def _splice_caches(big: KVCache, one: KVCache, slot: int) -> None:
+    """Write a batch-1 prefill cache into batch slot ``slot`` of the
+    engine's stacked caches, left-aligned: entries [0, b) hold the prefill,
+    zeros follow up to s_max, and ``length`` becomes b, so the next decode
+    token lands at position b (``kv_cache_append`` writes at ``length``,
+    ``decode_attention`` masks ``kpos < length``).  The reference returns a
+    new cache; here the engine's own tensors are written in place, which
+    saves a copy of the whole cache per admission."""
+    b = one.k.shape[2]
+    for dst, src in ((big.k, one.k), (big.v, one.v)):
+        dst[:, slot, :b] = src[:, 0].to(dst.dtype)
+        dst[:, slot, b:] = 0
+    big.length[:, slot] = one.length[:, 0]
 
 
 class SketchFleetEngine:

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions,
-and the krylov engine through them against the same engine on the CPU.
+the krylov engine through them, and the dense serving path through the
+flash kernel against the same engine on the CPU.
 
 Every test here needs an NVIDIA card (the kernels have no CPU or
 interpret mode) and skips without one.  The file imports neither JAX nor
@@ -8,16 +9,28 @@ the reference, so it also runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerance: kernel and plain version run the same float32 arithmetic in
-another summation order (~1e-6 at unit-scale inputs), hence 1e-4.
+another summation order (~1e-6 at unit-scale inputs), hence 1e-4.  The
+flash kernel's bf16 output is one bf16 rounding from the plain version's
+(~4e-3 relative at unit scale), hence 2e-2 there; lse stays f32, 1e-3.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import dsfd
+from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.flash_attn import ref as flash_ref
 from repro_torch.kernels.fused_tick import kernel, ops, ref
-from repro_torch.serve.engine import SketchFleetEngine
+from repro_torch.models import api
+from repro_torch.models.params import init_params
+from repro_torch.serve.engine import EngineConfig, Request, ServeEngine, \
+    SketchFleetEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -118,3 +131,67 @@ def test_krylov_engine_on_the_card_holds_theorem_3_1(cuda):
         B = eng.query_user(u).astype(np.float64)
         err = np.max(np.abs(np.linalg.eigvalsh(A[u].T @ A[u] - B.T @ B)))
         assert err <= 4 * eps * N, f"user {u}: {err:.3f} > 4εN"
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,dh,dtype,causal", [
+    (1, 512, 32, 8, 128, torch.bfloat16, True),    # llama3-8b at bucket 512
+    (2, 256, 9, 3, 64, torch.bfloat16, True),      # smollm, G = 3
+    (1, 512, 16, 16, 64, torch.float32, True),     # qwen1.5, G = 1
+    (2, 128, 4, 2, 128, torch.float32, False),
+])
+def test_flash_kernel_matches_plain_version(cuda, B, S, H, Hkv, dh, dtype,
+                                            causal):
+    g = torch.Generator(device=cuda).manual_seed(S + H + dh)
+    q, k, v = (torch.randn((B * h, S, dh), generator=g, device=cuda,
+                           dtype=torch.float32).to(dtype)
+               for h in (H, Hkv, Hkv))
+    n0 = flash_kernel.flash_fwd.launches
+    o, lse = flash_ops.flash_forward(q, k, v, causal=causal)
+    assert flash_kernel.flash_fwd.launches == n0 + 1
+    o_p, lse_p = flash_ref.flash_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((2, 100, 64), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_kernel.flash_fwd(q, q[:1], q[:1])
+    q = torch.zeros((2, 128, 32), device=cuda)
+    with pytest.raises(ValueError, match="dh in"):
+        flash_kernel.flash_fwd(q, q, q)
+    q = torch.zeros((2, 128, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        flash_kernel.flash_fwd(q, q, q)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_serve_engine_on_the_card_goes_through_flash(cuda):
+    """Reduced llama3-8b with head_dim 64: every prefill launches the flash
+    kernel once per layer, and the greedy tokens equal the CPU run's."""
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              head_dim=64, use_flash=True)
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(100, 256, 3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev),
+                          EngineConfig(slots=2, s_max=320,
+                                       prefill_buckets=(256,)), device=dev)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new=4))
+        n0 = flash_kernel.flash_fwd.launches
+        done = eng.run()
+        launched = flash_kernel.flash_fwd.launches - n0
+        assert launched == (cfg.n_layers * len(prompts) if dev == "cuda"
+                            else 0)
+        out[dev] = ({u: r.out_tokens for u, r in done.items()}, eng.ticks)
+    assert out["cuda"] == out["cpu"]

@@ -13,8 +13,13 @@ import torch
 
 from repro_torch.core import dsfd, fd
 from repro_torch import convert
+from repro_torch.configs.base import get_config
 from repro_torch.kernels import dispatch
-from repro_torch.serve.engine import SketchFleetEngine
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import api
+from repro_torch.models.params import init_params
+from repro_torch.serve.engine import EngineConfig, ServeEngine, \
+    SketchFleetEngine
 from repro_torch.sketch.api import make_sketch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -37,7 +42,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15       # every module was imported
+    assert int(out.stdout.strip()) >= 41       # every module was imported
+
+
+def _tiny_model():
+    cfg = get_config("smollm-135m").reduced()
+    return cfg, init_params(api.param_defs(cfg),
+                            torch.Generator().manual_seed(0), device="cpu")
 
 
 @pytest.fixture
@@ -58,8 +69,12 @@ def no_cuda(monkeypatch):
         dsfd.make_config(8, 0.25, 16),
         convert.dsfd_state_to_numpy(dsfd.dsfd_init(
             dsfd.make_config(8, 0.25, 16), device="cpu"))),
+    lambda: ServeEngine(*_tiny_model(), EngineConfig(slots=1, s_max=32)),
+    lambda: launch_serve.main(["--requests", "1"]),
+    lambda: convert.model_params_from_reference({}, _tiny_model()[0]),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
-        "fd_init", "dsfd_run_stream", "convert"])
+        "fd_init", "dsfd_run_stream", "convert", "serve-engine",
+        "launch-serve", "convert-model"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -71,6 +86,16 @@ def test_cpu_runs_only_when_named(no_cuda):
     assert eng.state.main.buf.device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         dispatch.resolve_device("meta")
+    serve = ServeEngine(*_tiny_model(), EngineConfig(slots=1, s_max=32),
+                        device="cpu")
+    assert serve.caches.k.device.type == "cpu"
+
+
+def test_launch_serve_runs_on_the_cpu_when_named(no_cuda, capsys):
+    launch_serve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                       "--max-new", "2", "--s-max", "48"])
+    out = capsys.readouterr().out
+    assert out.startswith("3 requests, 9 tokens") and "on cpu" in out
 
 
 def test_convert_round_trip_and_shape_checks():
