@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--ticks 320] [--fast-ticks 16]
+                          [--fine-ticks 320]
 
 Phases, each printing its seconds on a line of its own:
 
@@ -10,22 +11,38 @@ Phases, each printing its seconds on a line of its own:
 2. kernels — hold each CUDA kernel against its plain PyTorch version on
    the card and time both in turns with CUDA events: the fused-tick
    kernels at the krylov path's shape (S=1024, m=64, d=300), at an
-   unaligned shape (m=10, d=37) and on an all-zero slab; the flash
-   forward at llama3-8b's prefill shapes (buckets 512 and 256, bf16),
-   smollm's (G=3, dh=64, bf16), qwen1.5's (G=1, f32) and one non-causal
-   case, beside ``scaled_dot_product_attention`` as the library yardstick.
+   unaligned shape (m=10, d=37) and on an all-zero slab; gram,
+   rank1_downdate and power_iter at the fine path's shape (S=256, m=256,
+   d=300), power_iter also at m = 40 and 512, under both norm floors and
+   on an all-zero K, window_gram at the fine phase's window (S=256,
+   N=1024, d=300), each at an unaligned shape (3, 10, 37) and gram,
+   rank1_downdate and window_gram in bf16 too, beside ``torch.bmm`` and
+   ``torch.linalg.eigh`` as the library yardsticks; the flash forward at
+   llama3-8b's prefill shapes (buckets 512 and 256, bf16), smollm's (G=3,
+   dh=64, bf16), qwen1.5's (G=1, f32) and one non-causal case, beside
+   ``scaled_dot_product_attention``.
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
    ``submit_many`` with 8 unit-norm rows per user per tick for 2.5·N rows
-   per user.  Both kernels' launch counts must be > 0; Theorem 3.1
-   (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) is checked for 8 users against float64 Grams
-   of their windows on the host; ``query_global`` must be finite with
-   Frobenius mass ≤ Σ‖A_W‖_F².  Then 8 more ticks split where their time
-   goes (SVD, each kernel, other) on the host clock.
+   per user.  Both fused kernels' launch counts must be > 0 and the split
+   kernels' 0; Theorem 3.1 (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) is checked for 8
+   users against float64 Grams of their windows on the host;
+   ``query_global`` must be finite with Frobenius mass ≤ Σ‖A_W‖_F².  Then
+   8 more ticks split where their time goes (SVD, each kernel, other) on
+   the host clock.
 4. fast    — a short ``mode="fast"`` run (the users' default) at the same
    width, checked and split the same way.
-5. serve   — the dense serving path at full width: llama3-8b (32 layers,
+5. fine    — the krylov fleet at ε = 1/128 (m = 256, whose D and K do not
+   fit one CTA): ``SketchFleetEngine("dsfd", d=300, streams=256,
+   eps=1/128, window=1024, block=8, mode="krylov", use_kernel=True)``,
+   fed as phase 3.  gram, power_iter and rank1_downdate must launch and
+   the fused kernels must not; every one of the 256 users is held to
+   Theorem 3.1 against the exact window Gram from ``window_gram`` on the
+   card (the script keeps every user's last N rows on the device), and 8
+   of them against float64 Grams on the host as a cross-check.  Then the
+   same split of 8 more ticks, with the three kernels timed.
+6. serve   — the dense serving path at full width: llama3-8b (32 layers,
    bf16 weights from a seeded ``torch.Generator`` on the card) with
    ``use_flash=True`` in ``ServeEngine(slots=4, s_max=1024,
    prefill_buckets=(256, 512))``, 8 greedy requests of 200-512 prompt
@@ -111,6 +128,22 @@ def time_in_turns(fns: dict, rounds: int = 5, reps: int = 10) -> dict:
     return {k: float(np.median(v)) for k, v in samples.items()}
 
 
+def unit_rows(rng, shape, dtype: str = "float32"):
+    """A CUDA tensor of unit-norm rows (the scale of the engine's rows)."""
+    import torch
+
+    x = rng.standard_normal(shape).astype(np.float32)
+    x /= np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-30)
+    return torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+
+
+def roofline(nbytes: float, flops: float):
+    """(bound_ms, bound_by) of work that moves ``nbytes`` and does ``flops``
+    f32 operations."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
 def kernel_bounds(S: int, m: int, d: int, iters: int) -> dict:
     """Least time (ms) for each kernel's work at (S, m, d): every input
     read once, every output written once, over HBM bandwidth; the f32
@@ -123,12 +156,8 @@ def kernel_bounds(S: int, m: int, d: int, iters: int) -> dict:
     flops_gp = S * (gram + power)
     bytes_st = 4 * S * ((m * d + 1 + m) + (d + m * d + 1 + m))
     flops_st = S * (2 * m * d + 3 * d + 2 * m * d + 2 * m * d + gram + power)
-    out = {}
-    for name, b, f in (("gram_power", bytes_gp, flops_gp),
-                       ("fused_krylov_step", bytes_st, flops_st)):
-        tb, tf = b / PEAK_BYTES_S * 1e3, f / PEAK_F32_FLOPS * 1e3
-        out[name] = (max(tb, tf), "bytes" if tb >= tf else "operations")
-    return out
+    return {"gram_power": roofline(bytes_gp, flops_gp),
+            "fused_krylov_step": roofline(bytes_st, flops_st)}
 
 
 def check_kernels(rng) -> dict:
@@ -141,13 +170,8 @@ def check_kernels(rng) -> dict:
     shapes = [("main", MAIN_SHAPE), ("unaligned", (7, 10, 37)),
               ("zeros", (4, 64, 300))]
     for label, (S, m, d) in shapes:
-        if label == "zeros":
-            D = torch.zeros((S, m, d), device=dev)
-        else:
-            # unit-norm rows, the scale of the engine's buffers
-            Dn = rng.standard_normal((S, m, d)).astype(np.float32)
-            Dn /= np.linalg.norm(Dn, axis=2, keepdims=True)
-            D = torch.from_numpy(Dn).to(dev)
+        D = (torch.zeros((S, m, d), device=dev) if label == "zeros"
+             else unit_rows(rng, (S, m, d)))
         # both norm floors: fused (Σw²) and the reference's inline (‖w‖)
         outs = {"gram_power": [], "fused_krylov_step": []}
         for fl in (False, True):
@@ -177,9 +201,7 @@ def check_kernels(rng) -> dict:
             f"{errs['fused_krylov_step']:.3e}")
 
     S, m, d = MAIN_SHAPE
-    Dn = rng.standard_normal((S, m, d)).astype(np.float32)
-    Dn /= np.linalg.norm(Dn, axis=2, keepdims=True)
-    D = torch.from_numpy(Dn).to(dev)
+    D = unit_rows(rng, (S, m, d))
     lam, u = ref.gram_power_ref(D, ITERS)
     t_gp = time_in_turns({
         "kernel": lambda: kernel.gram_power_cuda(D, ITERS),
@@ -217,6 +239,157 @@ def check_kernels(rng) -> dict:
             bound_ms=bounds["fused_krylov_step"][0],
             bound_by=bounds["fused_krylov_step"][1], library_ms=None),
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (cont.): the split dump step's kernels and the window Gram
+# ---------------------------------------------------------------------------
+
+SPLIT_SHAPE = (256, 256, 300)     # S, m = 2ℓ at ε = 1/128, d (the fine path)
+WINDOW_SHAPE = (256, 1024, 300)   # S, n = N, d (the fine phase's window)
+UNALIGNED = (3, 10, 37)
+# bf16: the reference's own kernel tests (tests/kernels/test_kernels.py:22-24
+# for gram and rank1_downdate, :78-87 for window_gram), as (rtol, atol)
+BF16_TOL = {"gram": (2e-2, 2e-2), "rank1_downdate": (2e-2, 2e-2),
+            "window_gram": (5e-2, 5e-1)}
+
+
+def split_bounds(S: int, m: int, d: int, n: int, iters: int) -> dict:
+    """Least time (ms) of each unfused kernel's work in f32: gram and
+    window_gram count the m(m+1)/2 (d(d+1)/2) dot products a symmetric
+    result needs; power_iter reads K once."""
+    return {
+        "gram": roofline(4 * S * (m * d + m * m), S * m * (m + 1) * d),
+        "power_iter": roofline(
+            4 * S * (m * m + 1 + m),
+            S * ((iters + 1) * 2 * m * m + iters * 3 * m + 2 * m)),
+        "rank1_downdate": roofline(4 * S * (2 * m * d + d), S * 4 * m * d),
+        "window_gram": roofline(4 * S * (n * d + d * d), S * d * (d + 1) * n),
+    }
+
+
+def _held(name: str, label: str, got, want, rtol: float, atol: float) -> float:
+    """max |kernel − plain|; raises unless finite and within
+    atol + rtol·|plain| everywhere."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name} {label}: output not finite")
+    if not g.numel():
+        return 0.0
+    err = float((g - w).abs().max())
+    excess = float(((g - w).abs() - (atol + rtol * w.abs())).max())
+    if excess > 0:
+        raise AssertionError(f"{name} {label}: max |kernel − plain| = "
+                             f"{err:.3e} beyond atol {atol:.0e} + rtol "
+                             f"{rtol:.0e}·|plain|")
+    return err
+
+
+def check_split_kernels(rng) -> dict:
+    """The kernels of the split dump step (gram, power_iter,
+    rank1_downdate) and of the exact-window check (window_gram) against
+    their plain versions on the card, then timed in turns with the plain
+    version and the library call that computes the same function."""
+    import torch
+
+    from repro_torch.kernels.gram import kernel as gk, ref as gr
+    from repro_torch.kernels.power_iter import kernel as pk, ref as pr
+    from repro_torch.kernels.rank1_downdate import kernel as rk, ref as rr
+    from repro_torch.kernels.window_gram import kernel as wk, ref as wr
+
+    errs = dict.fromkeys(("gram", "power_iter", "rank1_downdate",
+                          "window_gram"), 0.0)
+    bf16 = dict.fromkeys(BF16_TOL, 0.0)
+
+    def held(name, label, got, want, dtype="float32"):
+        if dtype == "bfloat16":
+            bf16[name] = max(bf16[name], _held(name, label, got, want,
+                                               *BF16_TOL[name]))
+        else:       # as phase 2's fused kernels: rtol on λ̂ only
+            rtol = RTOL_LAM if got.dim() == 1 else 0.0
+            errs[name] = max(errs[name], _held(name, label, got, want,
+                                               rtol, ATOL))
+
+    for label, (S, m, d) in (("path", SPLIT_SHAPE), ("unaligned", UNALIGNED)):
+        for dtype in ("float32", "bfloat16"):
+            X = unit_rows(rng, (S, m, d), dtype)
+            held("gram", f"{label} {dtype}", gk.gram_cuda(X), gr.gram_ref(X),
+                 dtype)
+            v = unit_rows(rng, (S, d))
+            held("rank1_downdate", f"{label} {dtype}",
+                 rk.rank1_downdate_cuda(X, v), rr.rank1_downdate_ref(X, v),
+                 dtype)
+    for label, (S, n, d) in (("path", WINDOW_SHAPE),
+                             ("unaligned", UNALIGNED)):
+        for dtype in ("float32", "bfloat16"):
+            A = unit_rows(rng, (S, n, d), dtype)
+            held("window_gram", f"{label} {dtype}", wk.window_gram_cuda(A),
+                 wr.window_gram_ref(A), dtype)
+    # power_iter on the Grams the path gives it (K = DDᵀ of unit rows),
+    # at m = 40, 256 (the path, 32 rows of K outside shared memory), 512
+    # and an unaligned m, under both floors, and on an all-zero K
+    for label, (S, m, d) in (("m=40", (256, 40, 300)),
+                             ("path", SPLIT_SHAPE), ("m=512", (64, 512, 300)),
+                             ("unaligned", UNALIGNED),
+                             ("zeros", (4, 256, 300))):
+        X = (torch.zeros((S, m, d), device="cuda") if label == "zeros"
+             else unit_rows(rng, (S, m, d)))
+        K = gr.gram_ref(X)
+        for fl in (False, True):
+            lam, u = pk.power_iter_cuda(K, ITERS, fl)
+            lam_p, u_p = pr.power_iter_ref(K, ITERS, fl)
+            held("power_iter", f"{label} floor_norm={fl} λ̂", lam, lam_p)
+            held("power_iter", f"{label} floor_norm={fl} û", u, u_p)
+        if label == "zeros" and bool(lam.any() or u.any()):
+            raise AssertionError("power_iter: an all-zero K must give 0, 0")
+    torch.cuda.synchronize()
+    log(f"kernels split f32 max |kernel − plain|: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {ATOL:.0e}, "
+        f"+ {RTOL_LAM:.0e}·|λ̂|); bf16: " + ", ".join(
+        f"{k} {v:.3e} (rtol {BF16_TOL[k][0]:.0e}, atol {BF16_TOL[k][1]:.0e})"
+        for k, v in bf16.items()))
+    log(f"kernels power_iter keeps {pk.resident_rows(SPLIT_SHAPE[1], X.device)}"
+        f" of {SPLIT_SHAPE[1]} rows of K in shared memory at the path's m")
+
+    S, m, d = SPLIT_SHAPE
+    X, v = unit_rows(rng, (S, m, d)), unit_rows(rng, (S, d))
+    K = gr.gram_ref(X)
+    A = unit_rows(rng, WINDOW_SHAPE)
+    times = {
+        "gram": time_in_turns({
+            "kernel": lambda: gk.gram_cuda(X),
+            "plain": lambda: gr.gram_ref(X),
+            "library": lambda: torch.bmm(X, X.mT)}),
+        "power_iter": time_in_turns({
+            "kernel": lambda: pk.power_iter_cuda(K, ITERS),
+            "plain": lambda: pr.power_iter_ref(K, ITERS)}),
+        "rank1_downdate": time_in_turns({
+            "kernel": lambda: rk.rank1_downdate_cuda(X, v),
+            "plain": lambda: rr.rank1_downdate_ref(X, v)}),
+        "window_gram": time_in_turns({
+            "kernel": lambda: wk.window_gram_cuda(A),
+            "plain": lambda: wr.window_gram_ref(A),
+            "library": lambda: torch.bmm(A.mT, A)}),
+    }
+    # the top eigenpairs of K from cuSOLVER (it loops over the batch)
+    times["power_iter"].update(time_in_turns(
+        {"library": lambda: torch.linalg.eigh(K)}, rounds=3, reps=1))
+    times["rank1_downdate"]["library"] = None
+    bounds = split_bounds(S, m, d, WINDOW_SHAPE[1], ITERS)
+    out = {}
+    for name, t in times.items():
+        shape = WINDOW_SHAPE if name == "window_gram" else SPLIT_SHAPE
+        lib_ms = t["library"]
+        log(f"kernels time {name} {shape}: kernel_ms {t['kernel']:.4f} "
+            f"plain_ms {t['plain']:.4f} library_ms "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
+            f"{bounds[name][0]:.4f} ({bounds[name][1]})")
+        out[name] = dict(max_abs_err=errs[name], ms=t["kernel"],
+                         plain_ms=t["plain"], bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1], library_ms=lib_ms)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -307,14 +480,62 @@ def check_flash(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: the engine at full width
+# phases krylov, fast and fine: the sketch fleet at full width
 # ---------------------------------------------------------------------------
 
-S_FLEET, D, EPS, WINDOW, BLOCK = 1024, 300, 1 / 32, 1024, 8
-CHECKED = (0, 170, 341, 511, 512, 682, 853, 1023)
+D, WINDOW, BLOCK = 300, 1024, 8
 
 
-def run_engine(mode: str, ticks: int, seed: int, device: str = "cuda",
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """One fleet configuration the script drives, and what its run must
+    show: the kernels it must launch and those it must not, the users held
+    to Theorem 3.1 in float64 on the host, and whether every user is held
+    to it through ``window_gram`` on the card."""
+    label: str
+    mode: str
+    streams: int
+    eps: float
+    checked: tuple
+    launched: tuple = ()
+    idle: tuple = ()
+    every_user: bool = False
+
+    @property
+    def split(self) -> bool:
+        return "rank1_downdate" in self.launched
+
+
+FUSED = ("gram_power", "fused_krylov_step")
+SPLIT = ("gram", "power_iter", "rank1_downdate")
+# ε = 1/32: m = 64, whose D and K fit one CTA (the fused kernels)
+KRYLOV = Cell("krylov", "krylov", 1024, 1 / 32,
+              (0, 170, 341, 511, 512, 682, 853, 1023), launched=FUSED,
+              idle=SPLIT)
+FAST = Cell("fast", "fast", 1024, 1 / 32, KRYLOV.checked)
+# ε = 1/128: m = 256, 575,696 B for D and K, past one CTA (the split path)
+FINE = Cell("fine", "krylov", 256, 1 / 128,
+            (0, 43, 85, 127, 128, 170, 213, 255),
+            launched=SPLIT + ("window_gram",), idle=FUSED, every_user=True)
+
+
+def launch_counters() -> dict:
+    """The counted wrapper of every kernel, by name."""
+    from repro_torch.kernels.flash_attn import kernel as fa
+    from repro_torch.kernels.fused_tick import kernel as ft
+    from repro_torch.kernels.gram import kernel as gk
+    from repro_torch.kernels.power_iter import kernel as pk
+    from repro_torch.kernels.rank1_downdate import kernel as rk
+    from repro_torch.kernels.window_gram import kernel as wk
+
+    return {"gram_power": ft.gram_power_cuda,
+            "fused_krylov_step": ft.fused_krylov_step_cuda,
+            "gram": gk.gram_cuda, "power_iter": pk.power_iter_cuda,
+            "rank1_downdate": rk.rank1_downdate_cuda,
+            "window_gram": wk.window_gram_cuda, "flash_fwd": fa.flash_fwd}
+
+
+def run_engine(cell: Cell, ticks: int, seed: int, device: str = "cuda",
                **hyper) -> dict:
     """Feed the engine ``ticks`` ticks of 8 rows per user and check it."""
     import torch
@@ -323,107 +544,154 @@ def run_engine(mode: str, ticks: int, seed: int, device: str = "cuda",
         if device == "cuda":
             torch.cuda.synchronize()
 
-    from repro_torch.core import dsfd
+    from repro_torch.core import dsfd, errors
     from repro_torch.data.streams import SyntheticSource
-    from repro_torch.kernels.fused_tick import kernel
     from repro_torch.serve.engine import SketchFleetEngine
 
-    eng = SketchFleetEngine("dsfd", d=D, streams=S_FLEET, eps=EPS,
-                            window=WINDOW, block=BLOCK, mode=mode,
-                            ingest="async", device=device, **hyper)
-    # users [0, 512): the paper's SYNTHETIC set (signal dimension k = d);
-    # users [512, 1024): the same model with k = 10, whose top directions
-    # exceed εN in a window and so are dumped into snapshots
-    half = S_FLEET // 2
+    S, eps = cell.streams, cell.eps
+    eng = SketchFleetEngine("dsfd", d=D, streams=S, eps=eps, window=WINDOW,
+                            block=BLOCK, mode=cell.mode, ingest="async",
+                            device=device, **hyper)
+    # the first half of the users: the paper's SYNTHETIC set (signal
+    # dimension k = d); the second half: the same model with k = 10, whose
+    # top directions exceed εN in a window and so are dumped into snapshots
+    half = S // 2
     srcs = (SyntheticSource(D, seed=seed),
             SyntheticSource(D, k=10, seed=seed + 1))
-    users = np.repeat(np.arange(S_FLEET), BLOCK)
-    kept = {u: [] for u in CHECKED}
+    users = np.repeat(np.arange(S), BLOCK)
+    kept = {u: [] for u in cell.checked}
+    # every user's last N rows on the device, a ring of WINDOW // BLOCK
+    # ticks (the Gram does not depend on the rows' order)
+    win = (torch.zeros((S, WINDOW, D), device=device) if cell.every_user
+           else None)
+    fed = [0]
 
     def next_tick():
         rows = np.concatenate([s.rows(half * BLOCK) for s in srcs])
-        for u in CHECKED:
+        for u in cell.checked:
             kept[u].append(rows[u * BLOCK:(u + 1) * BLOCK])
             kept[u] = kept[u][-(WINDOW // BLOCK):]
+        if win is not None:
+            slot = fed[0] % (WINDOW // BLOCK) * BLOCK
+            slab = torch.from_numpy(rows.reshape(S, BLOCK, D))
+            if device == "cuda":
+                slab = slab.pin_memory()
+            win[:, slot:slot + BLOCK].copy_(slab, non_blocking=True)
+        fed[0] += 1
         return rows
 
+    counters = launch_counters()
     eng.submit_many(users, next_tick())         # one tick ahead: async
-    kernel.gram_power_cuda.launches = 0
-    kernel.fused_krylov_step_cuda.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     dsfd.host_indices.count = 0
     sync()
     t0 = time.perf_counter()
     for tick in range(ticks):
         if tick + 1 < ticks:
             eng.submit_many(users, next_tick())
-        if eng.step() != S_FLEET * BLOCK:
+        if eng.step() != S * BLOCK:
             raise AssertionError(f"tick {tick} ingested a partial slab")
     sync()
     elapsed = time.perf_counter() - t0
-    launches = {"gram_power": kernel.gram_power_cuda.launches,
-                "fused_krylov_step": kernel.fused_krylov_step_cuda.launches}
     syncs = dsfd.host_indices.count
-    if eng.backlog or eng.rows_ingested != ticks * S_FLEET * BLOCK:
+    if eng.backlog or eng.rows_ingested != ticks * S * BLOCK:
         raise AssertionError(f"{eng.backlog} rows left; ingested "
                              f"{eng.rows_ingested}")
-    log(f"{mode} engine: {ticks} ticks, {eng.rows_ingested} rows in "
+    log(f"{cell.label} engine: {ticks} ticks, {eng.rows_ingested} rows in "
         f"{elapsed:.3f} s: {eng.rows_ingested / elapsed:.1f} rows/s, "
         f"{elapsed / ticks * 1e3:.3f} ms/tick, "
-        f"{syncs / ticks:.2f} host syncs/tick, launches {launches}")
+        f"{syncs / ticks:.2f} host syncs/tick")
 
-    bound = 4 * EPS * min(eng.t, WINDOW)
-    worst = 0.0
-    for u in CHECKED:
+    n_win = min(eng.t, WINDOW)
+    bound = 4 * eps * n_win
+    worst, host_err = 0.0, {}
+    for u in cell.checked:
         A = np.concatenate(kept[u]).astype(np.float64)[-WINDOW:]
         B = eng.query_user(u).astype(np.float64)
         if not np.isfinite(B).all():
             raise AssertionError(f"user {u}: query not finite")
         err = float(np.max(np.abs(np.linalg.eigvalsh(A.T @ A - B.T @ B))))
-        worst = max(worst, err / (EPS * min(eng.t, WINDOW)))
+        host_err[u] = err
+        worst = max(worst, err / (eps * n_win))
         if err > bound:
             raise AssertionError(f"user {u}: ‖A_WᵀA_W − BᵀB‖₂ = {err:.3f} "
                                  f"> 4εN = {bound:.1f}")
-    log(f"{mode} Theorem 3.1 on users {CHECKED}: worst error "
-        f"{worst:.4f}·εN (bound 4·εN)")
+    log(f"{cell.label} Theorem 3.1 on users {cell.checked} (float64, host): "
+        f"worst error {worst:.4f}·εN (bound 4·εN)")
+    if win is not None:
+        # every user: the exact window Gram from window_gram on the card,
+        # every user's query in one batch, batched eigvalsh
+        t1 = time.perf_counter()
+        G = errors.window_gram(win)
+        B = eng.base.query(eng.state, eng.t)
+        err_all = errors.cova_error_gram(G, B).cpu().numpy()
+        t_chk = time.perf_counter() - t1
+        if not np.isfinite(err_all).all():
+            raise AssertionError("every-user check: error not finite")
+        over = np.flatnonzero(err_all > bound)
+        if over.size:
+            raise AssertionError(
+                f"users {over[:8].tolist()}: ‖A_WᵀA_W − BᵀB‖₂ up to "
+                f"{err_all.max():.3f} > 4εN = {bound:.1f}")
+        diff = max(abs(host_err[u] - float(err_all[u])) for u in host_err)
+        log(f"{cell.label} Theorem 3.1 on all {S} users (window_gram on the "
+            f"card, f32): worst error {err_all.max() / (eps * n_win):.4f}·εN"
+            f" (bound 4·εN), {t_chk:.3f} s; largest |float64 host − f32 "
+            f"card| error over the {len(host_err)} host-checked users "
+            f"{diff:.3e} (εN = {eps * n_win:.1f})")
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"{cell.label} launches {launches}")
+    for name in cell.launched:
+        if launches[name] <= 0:
+            raise AssertionError(f"{cell.label}: {name} was never launched "
+                                 "on its path")
+    for name in cell.idle:
+        if launches[name]:
+            raise AssertionError(f"{cell.label}: {name} launched "
+                                 f"{launches[name]} times off its path")
     live = eng.state.main.snap_valid.sum(dim=1).cpu().numpy()
-    log(f"{mode} live snapshots at the end: users [0, {half}) (k = d) "
-        f"{int(live[:half].sum())}, users [{half}, {S_FLEET}) (k = 10) "
+    log(f"{cell.label} live snapshots at the end: users [0, {half}) (k = d) "
+        f"{int(live[:half].sum())}, users [{half}, {S}) (k = 10) "
         f"{int(live[half:].sum())}")
 
     t1 = time.perf_counter()
     g = eng.query_global()
     t_q = time.perf_counter() - t1
     mass = float(np.sum(g.astype(np.float64) ** 2))
-    total = S_FLEET * min(eng.t, WINDOW) * (1 + 1e-4)   # unit-norm rows
+    total = S * n_win * (1 + 1e-4)              # unit-norm rows
     if not np.isfinite(g).all() or mass > total:
         raise AssertionError(f"query_global: finite={np.isfinite(g).all()}"
                              f" mass {mass:.1f} > Σ‖A_W‖² {total:.1f}")
-    log(f"{mode} query_global: {t_q:.3f} s, ‖B‖_F² {mass:.1f} ≤ "
+    log(f"{cell.label} query_global: {t_q:.3f} s, ‖B‖_F² {mass:.1f} ≤ "
         f"{total:.1f}")
     if device == "cuda":
-        breakdown(eng, mode, BREAKDOWN_TICKS, lambda: (users, next_tick()))
+        breakdown(eng, cell, BREAKDOWN_TICKS, lambda: (users, next_tick()))
     return {"launches": launches, "elapsed": elapsed, "syncs": syncs}
 
 
 BREAKDOWN_TICKS = 8
 
 
-def breakdown(eng, mode: str, ticks: int, feed) -> None:
+def breakdown(eng, cell: Cell, ticks: int, feed) -> None:
     """Where a tick's time goes, on the host clock: ``ticks`` more ticks
-    (after the checks, outside the counted run) with the SVDs and the two
-    kernels timed between device synchronisations.  The syncs add a little
-    time of their own; ``other`` is everything else (small ops, host
-    syncs, ingest)."""
+    (after the checks, outside the counted run) with the SVDs and the
+    kernels of the cell's krylov route timed between device
+    synchronisations.  The syncs add a little time of their own; ``other``
+    is everything else (small ops, host syncs, ingest; on the split route
+    also the v-extraction)."""
     import torch
 
     from repro_torch.core import dsfd
+    from repro_torch.kernels.fused_tick import ops as ft_ops
 
-    spent = {"svd": 0.0, "gram_power": 0.0, "fused_krylov_step": 0.0}
+    names = [(dsfd, "fd_shrink", "svd"), (dsfd, "fd_rotate", "svd")]
+    names += ([(ft_ops, n, n) for n in SPLIT] if cell.split
+              else [(dsfd, n, n) for n in FUSED])
+    spent = {key: 0.0 for _, _, key in names}
     calls = dict.fromkeys(spent, 0)
-    names = {"fd_shrink": "svd", "fd_rotate": "svd",
-             "gram_power": "gram_power",
-             "fused_krylov_step": "fused_krylov_step"}
-    saved = {n: getattr(dsfd, n) for n in names}
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in names]
 
     def timed(fn, key):
         def wrapper(*a, **k):
@@ -437,8 +705,8 @@ def breakdown(eng, mode: str, ticks: int, feed) -> None:
         return wrapper
 
     try:
-        for n, key in names.items():
-            setattr(dsfd, n, timed(saved[n], key))
+        for (mod, n, fn), (_, _, key) in zip(saved, names):
+            setattr(mod, n, timed(fn, key))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(ticks):
@@ -448,12 +716,12 @@ def breakdown(eng, mode: str, ticks: int, feed) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for n, fn in saved.items():
-            setattr(dsfd, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
     parts = ", ".join(f"{k} {v:.3f} s ({100 * v / wall:.1f}%, {calls[k]} "
                       f"calls)" for k, v in spent.items())
     other = wall - sum(spent.values())
-    log(f"{mode} breakdown: {ticks} ticks, wall {wall:.3f} s: {parts}, "
+    log(f"{cell.label} breakdown: {ticks} ticks, wall {wall:.3f} s: {parts}, "
         f"other {other:.3f} s ({100 * other / wall:.1f}%)")
 
 
@@ -657,6 +925,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int,
                     default=math.ceil(2.5 * WINDOW / BLOCK))
     ap.add_argument("--fast-ticks", type=int, default=16)
+    ap.add_argument("--fine-ticks", type=int,
+                    default=math.ceil(2.5 * WINDOW / BLOCK))
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -690,22 +960,25 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     stats = check_kernels(rng)
+    stats.update(check_split_kernels(rng))
     stats["flash_fwd"] = check_flash(rng)
     log(f"phase kernels: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
-    kry = run_engine("krylov", args.ticks, args.seed, use_kernel=True)
-    for name, n in kry["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main "
-                                 "path")
+    kry = run_engine(KRYLOV, args.ticks, args.seed, use_kernel=True)
     log(f"phase krylov: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
-    run_engine("fast", args.fast_ticks, args.seed + 100)
+    run_engine(FAST, args.fast_ticks, args.seed + 100)
     log(f"phase fast: {time.perf_counter() - t:.3f} s")
 
     gc.collect()                       # the fleets' tensors
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fine = run_engine(FINE, args.fine_ticks, args.seed + 200, use_kernel=True)
+    log(f"phase fine: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     srv = run_serve(args.seed)
@@ -714,10 +987,17 @@ def main(argv=None) -> int:
     check_plain_prefill(args.seed)
     log(f"phase serve: {time.perf_counter() - t:.3f} s")
 
-    launches = dict(kry["launches"], flash_fwd=srv["launches"])
+    # each kernel's launches on the path that runs it
+    launches = {n: kry["launches"][n] for n in FUSED}
+    launches.update({n: fine["launches"][n] for n in FINE.launched})
+    launches["flash_fwd"] = srv["launches"]
     where = {
         "gram_power": ("fused_tick.cu", "fused_tick/kernel.py:66"),
         "fused_krylov_step": ("fused_tick.cu", "fused_tick/kernel.py:110"),
+        "gram": ("gram.cu", "gram/kernel.py:39"),
+        "power_iter": ("power_iter.cu", "power_iter/kernel.py:42"),
+        "rank1_downdate": ("rank1_downdate.cu", "rank1_downdate/kernel.py:43"),
+        "window_gram": ("window_gram.cu", "window_gram/kernel.py:34"),
         "flash_fwd": ("flash_attn.cu", "flash_attn/kernel.py:86"),
     }
     rows = [dict(name=name, route="cuda",

@@ -14,8 +14,9 @@ the batching is written out:
   them: the per-stream decisions of a row are read to the host in one
   transfer, and the branch gathers its streams by index;
 * the krylov loop is bounded by m and keeps a per-stream active mask
-  ``lam ≥ θ``; each iteration is one launch of the fused step over the
-  active streams;
+  ``lam ≥ θ``; each iteration is one dump step over the active streams
+  (one fused launch, or the split route's three where a buffer outgrows
+  one CTA);
 * the main and auxiliary sketch of every stream absorb the same row, so a
   block update stacks them into one batch of 2S sketches.
 
@@ -234,9 +235,12 @@ def _krylov_dumps(cfg: DSFDConfig, sk: SketchState, idx: torch.Tensor,
     (Algorithm 3 lines 14-22 with power iteration, §3.1), for the sketches
     ``idx``, in place.
 
-    The loop entry is one ``gram_power`` launch and each iteration one
-    ``fused_krylov_step`` launch over the sketches still active;
-    ``cfg.use_kernel`` picks only the norm floor.  The loop runs at most m
+    The loop entry is one ``gram_power`` call and each iteration one
+    ``fused_krylov_step`` call over the sketches still active: one launch
+    of the fused kernel where a buffer fits one CTA, else the split route's
+    launches of ``rank1_downdate``, ``gram`` and ``power_iter``
+    (``kernels/fused_tick/ops.py::route``).  ``cfg.use_kernel`` picks only
+    the norm floor, for either route.  The loop runs at most m
     iterations, like the reference's ``while_loop`` under vmap: a sketch
     leaves it when ``lam < θ`` and its state stays as it was then."""
     buf = sk.buf[idx]

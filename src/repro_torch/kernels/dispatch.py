@@ -131,3 +131,31 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
     return lib
+
+
+def cuda_stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s card, as the ``void*`` a kernel
+    entry takes."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_tensor(t: torch.Tensor, what: str, dtypes, dim: int,
+                      device: Optional[torch.device] = None) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``dim``-d CUDA
+    tensor of one of ``dtypes`` (on ``device`` when given)."""
+    if not t.is_cuda or (device is not None and t.device != device) \
+            or t.dtype not in dtypes or t.dim() != dim \
+            or not t.is_contiguous():
+        names = " or ".join(str(x).replace("torch.", "") for x in dtypes)
+        raise ValueError(
+            f"{what} must be a contiguous {dim}-d {names} CUDA tensor"
+            f"{'' if device is None else f' on {device}'}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def raise_on_launch(err: int, error_string, name: str) -> None:
+    """Raise if a kernel entry returned a nonzero ``cudaError_t``."""
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{error_string(err).decode()}")

@@ -92,12 +92,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = lib.flash_attn_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), BH, k.shape[0], S, dh, _DTYPES[q.dtype],
-                int(causal), 1.0 / math.sqrt(dh),
-                torch.cuda.current_stream(q.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                "flash_fwd launch failed: "
-                f"{lib.flash_attn_error_string(err).decode()}")
+                int(causal), 1.0 / math.sqrt(dh), dispatch.cuda_stream(q))
+        dispatch.raise_on_launch(err, lib.flash_attn_error_string,
+                                 "flash_fwd")
         flash_fwd.launches += 1
     return o, lse
 

@@ -46,22 +46,29 @@ def _check(lib, D: torch.Tensor, name: str) -> None:
             f"{'' if D.is_contiguous() else ' (not contiguous)'}")
     _, m, d = D.shape
     need = lib.fused_tick_smem_bytes(m, d)
-    have = lib.fused_tick_max_smem(D.device.index)
+    have = max_smem(D.device)
     if need > have:
         raise ValueError(
             f"{name}: a buffer of m={m} rows by d={d} needs {need} B of shared "
             f"memory for D and K in one CTA, more than the {have} B this card "
-            "gives a block; the split path for large buffers is not ported")
+            "gives a block; ops.gram_power and ops.fused_krylov_step take "
+            "the split path for such buffers")
 
 
-def _raise_on(lib, err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.fused_tick_error_string(err).decode()}")
+def max_smem(device: torch.device) -> int:
+    """Shared memory a block may opt in to on ``device`` (bytes)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    have = _lib().fused_tick_max_smem(index)
+    if have < 0:
+        raise RuntimeError(f"cannot read the shared-memory limit of {device}")
+    return have
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def smem_bytes(m: int, d: int) -> int:
+    """``fused_tick_smem_bytes`` of the C library (the card tests hold the
+    Python copy of the formula in ``ops`` to it)."""
+    return _lib().fused_tick_smem_bytes(m, d)
 
 
 def gram_power_cuda(D: torch.Tensor, iters: int, floor_norm: bool = False):
@@ -76,8 +83,10 @@ def gram_power_cuda(D: torch.Tensor, iters: int, floor_norm: bool = False):
         with torch.cuda.device(D.device):
             err = lib.fused_tick_gram_power(D.data_ptr(), lam.data_ptr(),
                                             u.data_ptr(), S, m, d, int(iters),
-                                            int(floor_norm), _stream(D))
-        _raise_on(lib, err, "gram_power")
+                                            int(floor_norm),
+                                            dispatch.cuda_stream(D))
+        dispatch.raise_on_launch(err, lib.fused_tick_error_string,
+                                 "gram_power")
         gram_power_cuda.launches += 1
     return lam, u
 
@@ -109,8 +118,9 @@ def fused_krylov_step_cuda(D: torch.Tensor, lam: torch.Tensor,
             err = lib.fused_tick_step(
                 D.data_ptr(), lam.data_ptr(), u.data_ptr(), snap.data_ptr(),
                 D2.data_ptr(), lam2.data_ptr(), u2.data_ptr(), S, m, d,
-                int(iters), int(floor_norm), _stream(D))
-        _raise_on(lib, err, "fused_krylov_step")
+                int(iters), int(floor_norm), dispatch.cuda_stream(D))
+        dispatch.raise_on_launch(err, lib.fused_tick_error_string,
+                                 "fused_krylov_step")
         fused_krylov_step_cuda.launches += 1
     return snap, D2, lam2, u2
 

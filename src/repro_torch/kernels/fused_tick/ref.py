@@ -13,37 +13,14 @@ from __future__ import annotations
 
 import torch
 
-
-def _matvec(K: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    return torch.bmm(K, u.unsqueeze(-1)).squeeze(-1)
-
-
-def _normalise(w: torch.Tensor, floor_norm: bool) -> torch.Tensor:
-    """Rows of w over their norms, with the fused (Σw²) or inline (‖w‖)
-    floor at 1e-30."""
-    if floor_norm:
-        return w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True),
-                               min=1e-30)
-    return w / torch.sqrt(torch.clamp(torch.sum(w * w, dim=1, keepdim=True),
-                                      min=1e-30))
-
-
-def power_ref(K: torch.Tensor, iters: int, floor_norm: bool = False):
-    """Top eigenpair (λ̂ (S,), û (S, m)) of each PSD K (S, m, m)."""
-    S, m = K.shape[0], K.shape[1]
-    u0 = 1.0 / torch.sqrt(torch.tensor(float(m), dtype=torch.float32,
-                                       device=K.device))
-    u = u0.expand(S, m).clone()
-    for _ in range(iters):
-        u = _normalise(_matvec(K, u), floor_norm)
-    lam = torch.sum(u * _matvec(K, u), dim=1)
-    return lam, u
+from repro_torch.kernels.power_iter.ref import matvec, normalise, \
+    power_iter_ref
 
 
 def gram_power_ref(D: torch.Tensor, iters: int = 24, floor_norm: bool = False):
     """(λ̂ (S,), û (S, m)) of K = DDᵀ for each D of the (S, m, d) slab."""
     Df = D.to(torch.float32)
-    return power_ref(Df @ Df.mT, iters, floor_norm)
+    return power_iter_ref(Df @ Df.mT, iters, floor_norm)
 
 
 def fused_krylov_step_ref(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
@@ -54,8 +31,8 @@ def fused_krylov_step_ref(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
     sigma = torch.sqrt(torch.clamp(lam.to(torch.float32), min=1e-30))
     v = torch.bmm(u.to(torch.float32).unsqueeze(1), Df).squeeze(1) \
         / sigma[:, None]
-    v = _normalise(v, floor_norm)
+    v = normalise(v, floor_norm)
     snap = sigma[:, None] * v
-    D2 = Df - _matvec(Df, v)[:, :, None] * v[:, None, :]
-    lam2, u2 = power_ref(D2 @ D2.mT, iters, floor_norm)
+    D2 = Df - matvec(Df, v)[:, :, None] * v[:, None, :]
+    lam2, u2 = power_iter_ref(D2 @ D2.mT, iters, floor_norm)
     return snap, D2.to(D.dtype), lam2, u2

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, not_ported
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import transformer
 
 _FAMILY = {"dense": transformer}
@@ -35,5 +36,8 @@ def forward_decode(cfg: ModelConfig, params, tokens, caches):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, device="cpu"):
-    return model_module(cfg).init_cache(cfg, batch, s_max, dtype, device)
+               dtype=torch.bfloat16, device="cuda"):
+    """The family's empty decode caches, on the card unless ``device``
+    names the CPU."""
+    return model_module(cfg).init_cache(cfg, batch, s_max, dtype,
+                                        resolve_device(device))

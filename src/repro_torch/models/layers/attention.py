@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.flash_attn import ops as flash_ops
 
 NEG_INF = -1e30
@@ -143,7 +144,9 @@ class KVCache(NamedTuple):
 
 
 def kv_cache_init(batch: int, s_max: int, n_kv: int, dh: int,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
+                  dtype=torch.bfloat16, device="cuda") -> KVCache:
+    """An empty cache, on the card unless ``device`` names the CPU."""
+    device = resolve_device(device)
     return KVCache(
         k=torch.zeros((batch, s_max, n_kv, dh), dtype=dtype, device=device),
         v=torch.zeros((batch, s_max, n_kv, dh), dtype=dtype, device=device),

@@ -106,9 +106,9 @@ def _attn_out_and_mlp(cfg: ModelConfig, lp, x, attn):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, device="cpu") -> KVCache:
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
     """Stacked per-layer KV caches: k, v (L, B, s_max, Hkv, dh), length
-    (L, B)."""
+    (L, B); on the card unless ``device`` names the CPU."""
     one = kv_cache_init(batch, s_max, cfg.n_kv, cfg.dh, dtype, device)
     return KVCache(*(t.expand((cfg.n_layers,) + t.shape).clone()
                      for t in one))

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels against their plain versions,
-the krylov engine through them, and the dense serving path through the
+the krylov engine through them (the fused kernels at ε = 1/4, the split
+route's kernels at ε = 1/128), and the dense serving path through the
 flash kernel against the same engine on the CPU.
 
 Every test here needs an NVIDIA card (the kernels have no CPU or
@@ -12,6 +13,8 @@ Tolerance: kernel and plain version run the same float32 arithmetic in
 another summation order (~1e-6 at unit-scale inputs), hence 1e-4.  The
 flash kernel's bf16 output is one bf16 rounding from the plain version's
 (~4e-3 relative at unit scale), hence 2e-2 there; lse stays f32, 1e-3.
+The unfused kernels' bf16 outputs take the reference tests' tolerances
+(2e-2; the window Gram 5e-2 relative, 5e-1 absolute).
 """
 
 import dataclasses
@@ -27,6 +30,18 @@ from repro_torch.kernels.flash_attn import kernel as flash_kernel
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.flash_attn import ref as flash_ref
 from repro_torch.kernels.fused_tick import kernel, ops, ref
+from repro_torch.kernels.gram import kernel as gram_kernel
+from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.gram import ref as gram_ref
+from repro_torch.kernels.power_iter import kernel as power_kernel
+from repro_torch.kernels.power_iter import ops as power_ops
+from repro_torch.kernels.power_iter import ref as power_ref
+from repro_torch.kernels.rank1_downdate import kernel as downdate_kernel
+from repro_torch.kernels.rank1_downdate import ops as downdate_ops
+from repro_torch.kernels.rank1_downdate import ref as downdate_ref
+from repro_torch.kernels.window_gram import kernel as wgram_kernel
+from repro_torch.kernels.window_gram import ops as wgram_ops
+from repro_torch.kernels.window_gram import ref as wgram_ref
 from repro_torch.models import api
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine, \
@@ -79,9 +94,17 @@ def test_cuda_kernels_on_a_zero_slab(cuda, floor_norm):
 
 
 def test_buffer_too_large_for_one_cta_raises(cuda):
+    """The fused kernels' own wrappers refuse a buffer past one CTA; the
+    public wrappers take the split route for it instead."""
     D = torch.zeros((1, 512, 512), device=cuda)
+    lam, u = torch.zeros(1, device=cuda), torch.zeros((1, 512), device=cuda)
     with pytest.raises(ValueError, match="split path"):
-        ops.gram_power(D, iters=1)
+        kernel.gram_power_cuda(D, 1)
+    with pytest.raises(ValueError, match="split path"):
+        kernel.fused_krylov_step_cuda(D, lam, u, 1)
+    assert ops.route(512, 512, cuda) == "split"
+    lam, u = ops.gram_power(D, iters=1)
+    assert not lam.any() and not u.any()
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
@@ -131,6 +154,131 @@ def test_krylov_engine_on_the_card_holds_theorem_3_1(cuda):
         B = eng.query_user(u).astype(np.float64)
         err = np.max(np.abs(np.linalg.eigvalsh(A[u].T @ A[u] - B.T @ B)))
         assert err <= 4 * eps * N, f"user {u}: {err:.3f} > 4εN"
+
+
+def _counted(wrapper, call):
+    """``call()``, asserting it launched ``wrapper``'s kernel once."""
+    n0 = wrapper.launches
+    out = call()
+    assert wrapper.launches == n0 + 1
+    return out
+
+
+_BF16_TOL = {"gram": 2e-2, "rank1_downdate": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,m,d", [(16, 256, 300), (3, 10, 37), (2, 1, 1),
+                                   (2, 130, 65)])
+def test_gram_and_downdate_kernels_match_plain_versions(cuda, S, m, d, dtype):
+    X = _unit_slab(S, m, d, S + m + d, cuda).to(dtype)
+    v = _unit_slab(1, S, d, m, cuda)[0]
+    K = _counted(gram_kernel.gram_cuda, lambda: gram_ops.gram(X))
+    D2 = _counted(downdate_kernel.rank1_downdate_cuda,
+                  lambda: downdate_ops.rank1_downdate(X, v))
+    assert K.dtype == D2.dtype == dtype
+    assert torch.equal(K, K.mT)                    # the mirror is exact
+    for name, got, want in (("gram", K, gram_ref.gram_ref(X)),
+                            ("rank1_downdate", D2,
+                             downdate_ref.rank1_downdate_ref(X, v))):
+        tol = _BF16_TOL[name] if dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("floor_norm", [False, True])
+@pytest.mark.parametrize("S,m", [(64, 40), (16, 256), (4, 512), (3, 10),
+                                 (2, 1)])
+def test_power_iter_kernel_matches_plain_version(cuda, S, m, floor_norm):
+    X = _unit_slab(S, m, 300, S + m, cuda)
+    K = gram_ref.gram_ref(X)
+    lam, u = _counted(power_kernel.power_iter_cuda,
+                      lambda: power_ops.power_iter(K, iters=24,
+                                                   floor_norm=floor_norm))
+    lam_p, u_p = power_ref.power_iter_ref(K, 24, floor_norm)
+    torch.testing.assert_close(lam, lam_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(u, u_p, rtol=0, atol=1e-4)
+    lam0, u0 = power_ops.power_iter(torch.zeros_like(K), iters=24,
+                                    floor_norm=floor_norm)
+    assert not lam0.any() and not u0.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,n,d", [(16, 1024, 300), (3, 10, 37), (2, 129, 90)])
+def test_window_gram_kernel_matches_plain_version(cuda, S, n, d, dtype):
+    A = _unit_slab(S, n, d, S + n + d, cuda).to(dtype)
+    G = _counted(wgram_kernel.window_gram_cuda,
+                 lambda: wgram_ops.window_gram(A))
+    assert G.dtype == torch.float32 and torch.equal(G, G.mT)
+    tol = dict(rtol=5e-2, atol=5e-1) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(G, wgram_ref.window_gram_ref(A), **tol)
+
+
+def test_unfused_kernels_refuse_what_they_cannot_take(cuda):
+    X = torch.zeros((2, 8, 16), device=cuda)
+    v = torch.zeros((2, 16), device=cuda)
+    K = torch.zeros((2, 8, 8), device=cuda)
+    calls = {
+        "gram": lambda x: gram_kernel.gram_cuda(x),
+        "rank1_downdate": lambda x: downdate_kernel.rank1_downdate_cuda(x, v),
+        "window_gram": lambda x: wgram_kernel.window_gram_cuda(x),
+        "power_iter": lambda x: power_kernel.power_iter_cuda(x, 4),
+    }
+    for name, call in calls.items():
+        x = K if name == "power_iter" else X
+        for bad in (x.double(), x.cpu(), x[0], x.transpose(1, 2)):
+            with pytest.raises(ValueError, match=name):
+                call(bad)
+    with pytest.raises(ValueError, match="float32"):
+        downdate_kernel.rank1_downdate_cuda(X, v.double())
+    with pytest.raises(ValueError, match="must be"):
+        downdate_kernel.rank1_downdate_cuda(X, v[:, :8].contiguous())
+    with pytest.raises(ValueError, match="power_iter"):
+        power_kernel.power_iter_cuda(X, 4)             # not square
+
+
+def test_smem_formula_matches_the_c_library(cuda):
+    for m, d in [(64, 300), (128, 300), (128, 317), (128, 318), (256, 300),
+                 (10, 37), (1, 1)]:
+        assert kernel.smem_bytes(m, d) == ops.fused_tick_smem_bytes(m, d)
+        assert ops.route(m, d, cuda) == ops.route(m, d)   # an H100's limit
+
+
+def test_fine_krylov_engine_takes_the_split_kernels(cuda):
+    """ε = 1/128 at d = 300 (m = 256, past one CTA): the engine launches
+    gram, power_iter and rank1_downdate, not the fused kernels, and every
+    user's window sketch is within 4εN of the exact window covariance
+    (from window_gram on the card)."""
+    from repro_torch.core.errors import cova_error_gram, window_gram
+    from repro_torch.data.streams import SyntheticSource
+
+    S, d, block, N, eps = 4, 300, 8, 256, 1 / 128
+    eng = SketchFleetEngine("dsfd", d=d, streams=S, eps=eps, window=N,
+                            block=block, mode="krylov", use_kernel=True)
+    wrappers = {"gram": gram_kernel.gram_cuda,
+                "power_iter": power_kernel.power_iter_cuda,
+                "rank1_downdate": downdate_kernel.rank1_downdate_cuda,
+                "gram_power": kernel.gram_power_cuda,
+                "fused_krylov_step": kernel.fused_krylov_step_cuda}
+    n0 = {k: w.launches for k, w in wrappers.items()}
+    srcs = (SyntheticSource(d, seed=0), SyntheticSource(d, k=10, seed=1))
+    users = np.repeat(np.arange(S), block)
+    hist = []
+    for _ in range(int(2.5 * N) // block):
+        rows = np.concatenate([s.rows(S // 2 * block) for s in srcs])
+        eng.submit_many(users, rows)
+        eng.step()
+        hist.append(rows.reshape(S, block, d))
+    ran = {k: w.launches - n0[k] for k, w in wrappers.items()}
+    assert ran["gram"] > 0 and ran["power_iter"] > 0 \
+        and ran["rank1_downdate"] > 0, ran
+    assert ran["gram_power"] == ran["fused_krylov_step"] == 0, ran
+    A = torch.from_numpy(np.concatenate(hist, axis=1)[:, -N:]).to(cuda)
+    n_w = wgram_kernel.window_gram_cuda.launches
+    err = cova_error_gram(window_gram(A), eng.base.query(eng.state, eng.t))
+    assert wgram_kernel.window_gram_cuda.launches == n_w + 1
+    assert bool((err <= 4 * eps * N).all()), err
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,dh,dtype,causal", [

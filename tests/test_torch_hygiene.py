@@ -16,7 +16,8 @@ from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import dispatch
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import api
+from repro_torch.models import api, transformer
+from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import EngineConfig, ServeEngine, \
     SketchFleetEngine
@@ -72,9 +73,13 @@ def no_cuda(monkeypatch):
     lambda: ServeEngine(*_tiny_model(), EngineConfig(slots=1, s_max=32)),
     lambda: launch_serve.main(["--requests", "1"]),
     lambda: convert.model_params_from_reference({}, _tiny_model()[0]),
+    lambda: api.init_cache(get_config("smollm-135m").reduced(), 1, 8),
+    lambda: transformer.init_cache(get_config("smollm-135m").reduced(), 1, 8),
+    lambda: kv_cache_init(1, 8, 2, 4),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
-        "launch-serve", "convert-model"])
+        "launch-serve", "convert-model", "init-cache", "init-cache-dense",
+        "kv-cache-init"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -89,6 +94,14 @@ def test_cpu_runs_only_when_named(no_cuda):
     serve = ServeEngine(*_tiny_model(), EngineConfig(slots=1, s_max=32),
                         device="cpu")
     assert serve.caches.k.device.type == "cpu"
+
+
+def test_init_cache_runs_on_the_cpu_when_named(no_cuda):
+    cfg = get_config("smollm-135m").reduced()
+    caches = api.init_cache(cfg, 2, 8, torch.float32, "cpu")
+    assert caches.k.shape == (cfg.n_layers, 2, 8, cfg.n_kv, cfg.dh)
+    assert caches.k.device.type == "cpu" and not caches.length.any()
+    assert kv_cache_init(1, 8, 2, 4, device="cpu").k.device.type == "cpu"
 
 
 def test_launch_serve_runs_on_the_cpu_when_named(no_cuda, capsys):
