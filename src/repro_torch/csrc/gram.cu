@@ -13,36 +13,76 @@
 // reading X once and writing K once.  At the split dump step's shape
 // (m = 256, d = 300, f32) that is 19.7 MFLOP for 0.57 MB a stream,
 // ~34 FLOP per byte, above the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20:
-// the f32 rate bounds a fleet launch (no TF32: the caller compares λ̂
-// against θ).
+// the f32 FMA rate bounds a fleet launch (no TF32: the caller compares λ̂
+// against θ).  A kernel gets near that rate only if shared memory feeds
+// the FMAs faster than they retire and the copies hide behind them.
 //
 // Design.  The Pallas kernel ran its d-blocks in order on one core with K
 // resident in VMEM; here one CTA owns one 64×64 tile of K's upper
-// triangle (blockIdx.y) of one stream (blockIdx.x), so a (256, 256, 300)
-// slab gives 2,560 CTAs for 132 SMs.  The CTA streams d in 32-column
-// chunks through shared memory (both 64-row panels, stored k-major with
-// an odd stride so the transposing store and the reads are free of bank
-// conflicts; a diagonal tile loads its panel once) and accumulates a 4×4
-// register patch per thread in f32 FMA.  It writes its tile and, off the
-// diagonal, the mirror, so K is exactly symmetric and the lower triangle
-// costs no operations.  Ragged m and d need no padding: loads past them
-// read zero and stores past m are skipped.
+// triangle (blockIdx.y) of one stream (blockIdx.x) and loops over d
+// itself.  It writes its tile and, off the diagonal, the mirror, so K is
+// exactly symmetric and the lower triangle costs no operations (a
+// diagonal tile computes both of its halves).  Ragged m and d need no
+// padding: copies past them read zero and stores past m are skipped.
+// - A register-tiled SGEMM inner loop: each thread accumulates an 8×8
+//   patch (rows ty + side·j, columns tx + side·c) in f32 FMA.  The two
+//   panels are stored row-major with d contiguous (the layout of X, so
+//   16-byte copies land as they are), and a 16-byte shared read gives 4
+//   steps of d for one row: per 4 steps a thread does 8 reads of its
+//   columns and 8 of its rows for 256 FMAs.  Row strides are an odd
+//   number of 16-byte units, so the reads of a warp's distinct rows are
+//   free of bank conflicts; threads that share rows read them as
+//   broadcasts.
+// - The d-chunks are double-buffered and copied with cp.async, so the
+//   next chunk's copy runs while this chunk's FMAs do: 16-byte copies
+//   where every row is 16-byte aligned (f32 with d % 4 == 0, bf16 with
+//   d % 8 == 0), 4-byte copies where rows are 4-byte aligned (f32 at any
+//   d, bf16 at even d), zero-filled past m and d through cp.async's
+//   source size.  bf16 rows at odd d are 2-byte aligned only, which no
+//   cp.async takes: they go through plain loads into the same buffers.
+// - bf16 stays bf16 in shared memory (a raw copy) and is widened to f32
+//   as it is read.
+// - Tiles are 64×64 (64 threads, 32 columns of d per chunk).  At m = 256
+//   they give 10 CTAs a stream and waste 24 % of their FMAs on diagonal
+//   tiles' lower halves; 128-row tiles (3 CTAs a stream, 49 % waste) were
+//   slower at (S, m, d) = (256, 256, 300) on the H100 (PERF.md).  The
+//   kernel runs at 4 CTAs an SM and may take ~230 registers a thread,
+//   which the compiler spends on loading ahead; capped at 168 (6 CTAs an
+//   SM) it spilled and ran slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kChunk = 32;
-constexpr int kThreads = 256;
-constexpr int kLd = kTile + 1;
+constexpr int kTile = 64;                   // rows and columns of a tile
+constexpr int kSide = kTile / 8;            // threads per side
+constexpr int kThreads = kSide * kSide;
+constexpr int kChunk = 32;                  // columns of d a chunk
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Row stride of a panel in elements: an odd number of 16-byte units.
+template <typename T>
+constexpr int kLdOf = kChunk + 16 / (int)sizeof(T);
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
 }
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -63,75 +103,141 @@ __device__ __forceinline__ void tile_of(int t, int nt, int* ti, int* tj) {
   *tj = i + t;
 }
 
-// Rows [r0, r0 + 64) of X, columns [k0, k0 + 32), into s[k][r] as f32.
-template <typename T>
-__device__ __forceinline__ void load_panel(const T* __restrict__ X, float* s,
+// cp.async of BYTES (4 or 16) from src to shared dst, of which the first
+// `valid` bytes are read and the rest zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int valid) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(src), "r"(valid)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+                 "l"(src), "r"(valid)
+                 : "memory");
+}
+
+// Rows [r0, r0 + kTile) of X, columns [k0, k0 + kChunk), into the panel s
+// (row-major, stride kLdOf<T>).  BYTES = 16 or 4: cp.async of that width;
+// BYTES = 0: plain loads and stores.  A thread keeps one column group and
+// walks its rows with one pointer.
+template <typename T, int BYTES>
+__device__ __forceinline__ void load_panel(const T* __restrict__ X, T* s,
                                            int r0, int k0, int m, int d) {
-  for (int idx = threadIdx.x; idx < kTile * kChunk; idx += kThreads) {
-    const int r = idx / kChunk, k = idx % kChunk;
-    const int gr = r0 + r, gk = k0 + k;
-    s[k * kLd + r] =
-        (gr < m && gk < d) ? to_f32(X[(size_t)gr * d + gk]) : 0.f;
+  constexpr int kLd = kLdOf<T>;
+  constexpr int E = BYTES ? BYTES / (int)sizeof(T) : 1;  // elements a copy
+  constexpr int per_row = kChunk / E;
+  constexpr int step = kThreads / per_row;           // rows a pass
+  const int e = (threadIdx.x % per_row) * E;
+  const int nk = max(0, min(E, d - (k0 + e)));   // valid elements a copy
+  int r = threadIdx.x / per_row;
+  const T* src = X + (size_t)(r0 + r) * d + k0 + e;
+  T* dst = s + r * kLd + e;
+  for (; r < kTile; r += step, src += (size_t)step * d, dst += step * kLd) {
+    const int n = r0 + r < m ? nk : 0;
+    if constexpr (BYTES == 0)
+      *dst = n ? *src : from_f32<T>(0.f);
+    else
+      cp_async<BYTES>((uint32_t)__cvta_generic_to_shared(dst), n ? src : X,
+                      n * (int)sizeof(T));
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int BYTES>
+__global__ void __launch_bounds__(kThreads, 4)
 gram_kernel(const T* __restrict__ X, T* __restrict__ K, int m, int d,
             int nt) {
-  __shared__ float sa[kChunk * kLd];
-  __shared__ float sb[kChunk * kLd];
+  constexpr int kLd = kLdOf<T>;
+  // [buffer][panel a, b]
+  __shared__ __align__(16) T smem[2][2][kTile * kLd];
   int ti, tj;
   tile_of(blockIdx.y, nt, &ti, &tj);
   const bool diag = ti == tj;
   const int bi = ti * kTile, bj = tj * kTile;
   const size_t b = blockIdx.x;
   const T* Xb = X + b * (size_t)m * d;
-  const float* pb = diag ? sa : sb;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / kSide, tx = threadIdx.x % kSide;
+  const int n_chunks = (d + kChunk - 1) / kChunk;
 
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    load_panel(Xb, sa, bi, k0, m, d);
-    if (!diag) load_panel(Xb, sb, bj, k0, m, d);
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      float x[4], y[4];
+  auto issue = [&](int chunk) {
+    T* buf = smem[chunk & 1][0];
+    load_panel<T, BYTES>(Xb, buf, bi, chunk * kChunk, m, d);
+    if (!diag)
+      load_panel<T, BYTES>(Xb, smem[chunk & 1][1], bj, chunk * kChunk, m, d);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  float acc[8][8];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        x[a] = sa[k * kLd + ty + 16 * a];
-        y[a] = pb[k * kLd + tx + 16 * a];
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
+
+  issue(0);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks)
+      issue(ch + 1);  // into the buffer chunk ch − 1 was read from
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // chunk ch landed
+    __syncthreads();
+    const T* pa = smem[ch & 1][0];
+    const T* pb = diag ? pa : smem[ch & 1][1];
+#pragma unroll 1
+    for (int k = 0; k < kChunk; k += 4) {
+      float y[8][4];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        load4(pb + (tx + kSide * c) * kLd + k, y[c]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x[4];
+        load4(pa + (ty + kSide * j) * kLd + k, x);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[j][c] = fmaf(x[kk], y[c][kk], acc[j][c]);
       }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(x[a], y[c], acc[a][c]);
     }
-    __syncthreads();
+    __syncthreads();  // this buffer is free for chunk ch + 2
   }
 
   T* Kb = K + b * (size_t)m * m;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = bi + ty + 16 * a, j = bj + tx + 16 * c;
-      if (i < m && j < m) {
-        const T v = from_f32<T>(acc[a][c]);
-        Kb[(size_t)i * m + j] = v;
-        if (!diag) Kb[(size_t)j * m + i] = v;
+    for (int c = 0; c < 8; ++c) {
+      const int i = bi + ty + kSide * j, jj = bj + tx + kSide * c;
+      if (i < m && jj < m) {
+        const T v = from_f32<T>(acc[j][c]);
+        Kb[(size_t)i * m + jj] = v;
+        if (!diag) Kb[(size_t)jj * m + i] = v;
       }
     }
   }
 }
 
+int tiles(int m) {
+  const int nt = (m + kTile - 1) / kTile;
+  return nt * (nt + 1) / 2;
+}
+
 template <typename T>
 int launch(const void* X, void* K, int S, int m, int d, cudaStream_t stream) {
   const int nt = (m + kTile - 1) / kTile;
-  const dim3 grid(S, nt * (nt + 1) / 2);
-  gram_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(X), static_cast<T*>(K), m, d, nt);
+  const dim3 grid(S, tiles(m));
+  const T* x = static_cast<const T*>(X);
+  T* k = static_cast<T*>(K);
+  const uintptr_t row = (uintptr_t)d * sizeof(T);
+  const uintptr_t at = (uintptr_t)X;
+  if (row % 16 == 0 && at % 16 == 0)
+    gram_kernel<T, 16><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
+  else if (row % 4 == 0 && at % 4 == 0)
+    gram_kernel<T, 4><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
+  else
+    gram_kernel<T, 0><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
   return (int)cudaGetLastError();
 }
 
@@ -139,11 +245,8 @@ int launch(const void* X, void* K, int S, int m, int d, cudaStream_t stream) {
 
 extern "C" {
 
-// Upper-triangle tiles of K one stream needs (the grid's y extent).
-int gram_tiles(int m) {
-  const int nt = (m + kTile - 1) / kTile;
-  return nt * (nt + 1) / 2;
-}
+// Upper-triangle tiles of K one stream needs (gram_xxt's grid y extent).
+int gram_tiles(int m) { return tiles(m); }
 
 const char* gram_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -152,8 +255,9 @@ const char* gram_error_string(int err) {
 // K (S, m, m) = X Xᵀ per stream; bf16 != 0 for bf16 X and K, else f32.
 int gram_xxt(const void* X, void* K, int S, int m, int d, int bf16,
              void* stream) {
-  return bf16 ? launch<__nv_bfloat16>(X, K, S, m, d, (cudaStream_t)stream)
-              : launch<float>(X, K, S, m, d, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch<__nv_bfloat16>(X, K, S, m, d, st)
+              : launch<float>(X, K, S, m, d, st);
 }
 
 }  // extern "C"

@@ -23,6 +23,7 @@ never loaded.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -135,8 +136,22 @@ def load(name: str) -> ctypes.CDLL:
 
 def cuda_stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s card, as the ``void*`` a kernel
-    entry takes."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    entry takes.  Read with the private ``torch._C._cuda_getCurrentRawStream``
+    (what ``torch.cuda.current_stream`` builds its ``Stream`` from), which
+    skips building that object on every launch; known to work with torch
+    2.11 (CUDA 12.8)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """A context in which ``t``'s card is the current one, for every kernel
+    wrapper's launch; a no-op when it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(t.device)
 
 
 def check_cuda_tensor(t: torch.Tensor, what: str, dtypes, dim: int,

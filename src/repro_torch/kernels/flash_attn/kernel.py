@@ -1,4 +1,5 @@
-"""ctypes binding of ``csrc/flash_attn.cu`` (one CTA per (bh, q-tile)).
+"""ctypes binding of ``csrc/flash_attn.cu`` (bf16 on the tensor cores, f32
+on the CUDA cores; one CTA per (bh, q-tile)).
 
 ``flash_fwd`` checks what the kernel takes (contiguous bf16 or f32 CUDA
 tensors of one type and device, dh ∈ {64, 128}, S a multiple of the
@@ -20,6 +21,7 @@ from repro_torch.kernels import dispatch
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _bound = {}
+_fit = {}                    # (dh, card) -> (tile, smem needed, smem given)
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
@@ -66,13 +68,17 @@ def _check_tensors(q: torch.Tensor, k: torch.Tensor,
 
 def _check_fit(lib, q: torch.Tensor) -> None:
     _, S, dh = q.shape
-    tile = lib.flash_attn_tile()
+    key = (dh, q.device.index)
+    fit = _fit.get(key)
+    if fit is None:
+        fit = _fit[key] = (lib.flash_attn_tile(),
+                           lib.flash_attn_smem_bytes(dh),
+                           lib.flash_attn_max_smem(q.device.index))
+    tile, need, have = fit
     if dh not in HEAD_DIMS or S % tile:
         raise ValueError(
             f"flash_fwd: the kernel takes dh in {HEAD_DIMS} and S a multiple "
             f"of {tile}, got dh={dh}, S={S}")
-    need = lib.flash_attn_smem_bytes(dh)
-    have = lib.flash_attn_max_smem(q.device.index)
     if need > have:
         raise ValueError(f"flash_fwd: tiles at dh={dh} need {need} B of "
                          f"shared memory, this card gives a block {have} B")
@@ -88,7 +94,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
     if BH and S:
-        with torch.cuda.device(q.device):
+        with dispatch.on_device(q):
             err = lib.flash_attn_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), BH, k.shape[0], S, dh, _DTYPES[q.dtype],

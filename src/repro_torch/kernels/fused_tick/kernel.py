@@ -80,7 +80,7 @@ def gram_power_cuda(D: torch.Tensor, iters: int, floor_norm: bool = False):
     lam = torch.empty((S,), dtype=torch.float32, device=D.device)
     u = torch.empty((S, m), dtype=torch.float32, device=D.device)
     if S:
-        with torch.cuda.device(D.device):
+        with dispatch.on_device(D):
             err = lib.fused_tick_gram_power(D.data_ptr(), lam.data_ptr(),
                                             u.data_ptr(), S, m, d, int(iters),
                                             int(floor_norm),
@@ -114,7 +114,7 @@ def fused_krylov_step_cuda(D: torch.Tensor, lam: torch.Tensor,
     lam2 = torch.empty((S,), dtype=torch.float32, device=D.device)
     u2 = torch.empty((S, m), dtype=torch.float32, device=D.device)
     if S:
-        with torch.cuda.device(D.device):
+        with dispatch.on_device(D):
             err = lib.fused_tick_step(
                 D.data_ptr(), lam.data_ptr(), u.data_ptr(), snap.data_ptr(),
                 D2.data_ptr(), lam2.data_ptr(), u2.data_ptr(), S, m, d,

@@ -1,5 +1,5 @@
-"""ctypes binding of ``csrc/gram.cu`` (one CTA per 64×64 upper-triangle
-tile of K per stream).
+"""ctypes binding of ``csrc/gram.cu`` (one CTA per upper-triangle tile of
+K per stream, an 8×8 patch of the tile per thread).
 
 ``gram_cuda`` checks what the kernel takes (a contiguous f32 or bf16 CUDA
 slab), allocates K, launches on PyTorch's current stream without
@@ -46,7 +46,7 @@ def gram_cuda(X: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gram: m={m} needs more than {MAX_TILES} tiles")
     K = torch.empty((S, m, m), dtype=X.dtype, device=X.device)
     if S and m:
-        with torch.cuda.device(X.device):
+        with dispatch.on_device(X):
             err = lib.gram_xxt(X.data_ptr(), K.data_ptr(), S, m, d,
                                int(X.dtype == torch.bfloat16),
                                dispatch.cuda_stream(X))

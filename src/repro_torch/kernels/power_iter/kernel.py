@@ -56,7 +56,7 @@ def power_iter_cuda(K: torch.Tensor, iters: int, floor_norm: bool = False):
     lam = torch.empty((S,), dtype=torch.float32, device=K.device)
     u = torch.empty((S, m), dtype=torch.float32, device=K.device)
     if S and m:
-        with torch.cuda.device(K.device):
+        with dispatch.on_device(K):
             err = lib.power_iter_topvec(K.data_ptr(), lam.data_ptr(),
                                         u.data_ptr(), S, m, int(iters),
                                         int(floor_norm), K.device.index,

@@ -45,7 +45,7 @@ def rank1_downdate_cuda(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     out = torch.empty_like(D)
     if S and m and d:
-        with torch.cuda.device(D.device):
+        with dispatch.on_device(D):
             err = lib.rank1_downdate(D.data_ptr(), v.data_ptr(),
                                      out.data_ptr(), S, m, d,
                                      int(D.dtype == torch.bfloat16),

@@ -46,7 +46,7 @@ def window_gram_cuda(A: torch.Tensor) -> torch.Tensor:
                          "tiles")
     G = torch.empty((S, d, d), dtype=torch.float32, device=A.device)
     if S and d:
-        with torch.cuda.device(A.device):
+        with dispatch.on_device(A):
             err = lib.window_gram_ata(A.data_ptr(), G.data_ptr(), S, n, d,
                                       int(A.dtype == torch.bfloat16),
                                       dispatch.cuda_stream(A))

@@ -11,7 +11,17 @@ Inputs are drawn in f32 with numpy and rounded to bf16 by both packages
 the same way (round to nearest even).  The CUDA kernel itself is held
 against the plain version on the card (``test_torch_cuda.py``, ``gpu``
 marker, and ``chip_smoke.py``).
+
+The bf16 kernel computes on the tensor cores, which take bf16 operands:
+``_tensor_core_model`` repeats its arithmetic in torch (bf16 q·kᵀ
+accumulated in f32 and scaled after, the online softmax over its 128-key
+tiles, p split into bf16 hi + lo, each times v accumulated in f32) and is
+held to the reference's Pallas kernel, run in f32 on the same
+bf16-valued inputs, at the f32 tolerance: the split keeps the reference's
+f32 p, where a single bf16 rounding of p would not.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,3 +119,55 @@ def test_argument_checks():
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.flash_fwd(q, k, v)            # checked before any build
+
+
+KV_TILE = 128       # keys per KV tile of the bf16 kernel
+
+
+def _tensor_core_model(q, k, v, causal, split=True):
+    """(o before its cast to bf16, lse) of the bf16 kernel's arithmetic on
+    f32 tensors that hold bf16 values; ``split=False`` rounds p to bf16
+    once instead."""
+    BH, S, dh = q.shape
+    G = BH // k.shape[0]
+    k, v = (t.repeat_interleave(G, 0) for t in (k, v))
+    m = torch.full((BH, S), ref.NEG_INF)
+    l = torch.zeros((BH, S))
+    acc = torch.zeros((BH, S, dh))
+    rows = torch.arange(S)[:, None]
+    for j0 in range(0, S, KV_TILE):
+        kt, vt = k[:, j0:j0 + KV_TILE], v[:, j0:j0 + KV_TILE]
+        s = (q @ kt.mT) * (1.0 / math.sqrt(dh))   # exact products, f32 sums
+        if causal:
+            keys = torch.arange(j0, j0 + kt.shape[1])[None, :]
+            s = torch.where(keys > rows, torch.tensor(ref.NEG_INF), s)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        acc = acc * corr[..., None] + hi @ vt
+        if split:
+            acc = acc + (p - hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    return acc / lc[..., None], m + torch.log(lc)
+
+
+@pytest.mark.parametrize("BH,BHkv,S,dh,causal,dtype", CASES)
+def test_tensor_core_arithmetic_matches_pallas(BH, BHkv, S, dh, causal,
+                                               dtype):
+    """Every case in bf16 values (the kernel's operands), whatever its
+    dtype."""
+    (q, k, v), _ = _inputs(BH, BHkv, S, dh, "bfloat16", seed=5)
+    q, k, v = (t.float() for t in (q, k, v))          # bf16 values, in f32
+    o_r, lse_r = flash_fwd_pallas(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                  causal=causal, cq=128, ckv=128,
+                                  interpret=True)
+    o, lse = _tensor_core_model(q, k, v, causal)
+    np.testing.assert_allclose(o.numpy(), _f32(o_r), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), _f32(lse_r), atol=2e-5,
+                               rtol=2e-5)
+    # the tolerance tells the split from one bf16 rounding of p
+    o1, _ = _tensor_core_model(q, k, v, causal, split=False)
+    assert np.abs(o1.numpy() - _f32(o_r)).max() > 2e-5
