@@ -13,18 +13,21 @@ Phases, each printing its seconds on a line of its own:
    kernels at the krylov path's shape (S=1024, m=64, d=300), at an
    unaligned shape (m=10, d=37) and on an all-zero slab; gram,
    rank1_downdate and power_iter at the fine path's shape (S=256, m=256,
-   d=300), power_iter also at m = 40 and 512, under both norm floors and
-   on an all-zero K, window_gram at the fine phase's window (S=256,
-   N=1024, d=300), each at an unaligned shape (3, 10, 37) and gram,
-   rank1_downdate and window_gram in bf16 too, gram and rank1_downdate
-   also at (4, 200, 301) (m and d past a tile), beside ``torch.bmm`` and
-   ``torch.linalg.eigh`` as the library yardsticks; the flash forward at
-   llama3-8b's prefill shapes (buckets 512 and 256, bf16), smollm's (G=3,
-   dh=64, bf16), qwen1.5's (G=1, f32), one non-causal case and a 64-row
-   query tail (S=192, bf16), beside ``scaled_dot_product_attention``, with
-   the device times of both under ``torch.profiler``; and how far the bf16
-   kernel's o lies from the plain version's on inputs scaled ×8, against
-   a single bf16 rounding of p.
+   d=300), power_iter also over 8 and 1 streams (clusters of 8 CTAs) and
+   at m = 40 and 512, under both norm floors and on an all-zero K, with
+   its cluster plans logged (all of K on chip up to m = 512), window_gram
+   at the fine phase's window (S=256, N=1024, d=300) and at d = 301, each
+   at an unaligned shape (3, 10, 37) and gram, rank1_downdate and
+   window_gram in bf16 too, gram and rank1_downdate also at (4, 200, 301)
+   (m and d past a tile), beside ``torch.bmm`` and ``torch.linalg.eigh``
+   as the library yardsticks (window_gram and power_iter also by device
+   time under ``torch.profiler``); the flash forward at llama3-8b's
+   prefill shapes (buckets 512 and 256, bf16, and the 2-layer f32
+   prefill's), smollm's (G=3, dh=64, bf16), qwen1.5's (G=1, f32), one
+   non-causal case and a 64-row query tail (S=192, bf16), beside
+   ``scaled_dot_product_attention``, with the device times of both; and
+   how far the bf16 kernel's o lies from the plain version's on inputs
+   scaled ×8, against a single bf16 rounding of p.
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
@@ -32,9 +35,13 @@ Phases, each printing its seconds on a line of its own:
    per user.  Both fused kernels' launch counts must be > 0 and the split
    kernels' 0; Theorem 3.1 (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) is checked for 8
    users against float64 Grams of their windows on the host;
-   ``query_global`` must be finite with Frobenius mass ≤ Σ‖A_W‖_F².  Then
-   8 more ticks split where their time goes (SVD, each kernel, other) on
-   the host clock.
+   ``query_global`` must be finite with Frobenius mass ≤ Σ‖A_W‖_F².  The
+   run records how many streams each dump-step launch took (median, p90,
+   max).  Then 8 more ticks split where their time goes (SVD, each
+   kernel, other) on the host clock, and each dump-step kernel is timed
+   at the fewest, the median, the 90th-percentile and the most streams
+   its launches took, beside its bound there, to sum the time it loses
+   over its bound on the path.
 4. fast    — a short ``mode="fast"`` run (the users' default) at the same
    width, checked and split the same way.
 5. fine    — the krylov fleet at ε = 1/128 (m = 256, whose D and K do not
@@ -45,7 +52,8 @@ Phases, each printing its seconds on a line of its own:
    Theorem 3.1 against the exact window Gram from ``window_gram`` on the
    card (the script keeps every user's last N rows on the device), and 8
    of them against float64 Grams on the host as a cross-check.  Then the
-   same split of 8 more ticks, with the three kernels timed.
+   same split of 8 more ticks and the same timings at the launches'
+   sizes.
 6. serve   — the dense serving path at full width: llama3-8b (32 layers,
    bf16 weights from a seeded ``torch.Generator`` on the card) with
    ``use_flash=True`` in ``ServeEngine(slots=4, s_max=1024,
@@ -66,6 +74,7 @@ a checkout of the repository, it exits nonzero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -119,21 +128,58 @@ def _time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def _device_events(fn, calls: int, warm: int) -> dict:
+    """{name: (count, µs)} of the device work (kernels, copies) that
+    ``calls`` calls of ``fn`` recorded under ``torch.profiler``, after a
+    warm-up batch of ``warm`` calls in the same session: once a session
+    has profiled thousands of kernels (eigh's), a session without warm-up
+    recorded 16 of 20 launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    out = {}
+
+    def ready(prof):
+        out.update((e.key, (e.count, e.self_device_time_total))
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for n in (warm, calls):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return out
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3):
     """Mean device time (ms) of one call of ``fn``: the sum of its
     kernels' own times under ``torch.profiler``, free of the host's launch
-    cost that ``time_in_turns`` sees when a call is shorter than it."""
+    cost that ``time_in_turns`` sees when a call is shorter than it.  One
+    session records a single call, to name the kernels (and copies) a call
+    launches and how often; a second records ``reps`` calls and counts
+    only those names, each of which must appear exactly ``reps`` times as
+    often, and no other.  A pair of sessions that disagree (the profiler
+    dropped events) is run again; after ``tries`` of them the time is
+    None, "not measured"."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    for _ in range(tries):
+        once = _device_events(fn, 1, reps)
+        batch = _device_events(fn, reps, reps)
+        if once and batch.keys() == once.keys() and all(
+                batch[k][0] == reps * once[k][0] for k in once):
+            return sum(us for _, us in batch.values()) / 1e3 / reps
+    return None
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
 
 
 def time_in_turns(fns: dict, rounds: int = 5, reps: int = 10) -> dict:
@@ -344,17 +390,23 @@ def check_split_kernels(rng) -> dict:
             held("rank1_downdate", f"{label} {dtype}",
                  rk.rank1_downdate_cuda(X, v), rr.rank1_downdate_ref(X, v),
                  dtype)
+    # f32 copies 16-byte at d = 300, 4-byte at d = 301 and 37; bf16 8-byte
+    # at d = 300, 4-byte at 301's even neighbour, plain loads at odd d
     for label, (S, n, d) in (("path", WINDOW_SHAPE),
-                             ("unaligned", UNALIGNED)):
+                             ("unaligned", UNALIGNED),
+                             ("d=301", (2, 1024, 301))):
         for dtype in ("float32", "bfloat16"):
             A = unit_rows(rng, (S, n, d), dtype)
             held("window_gram", f"{label} {dtype}", wk.window_gram_cuda(A),
                  wr.window_gram_ref(A), dtype)
     # power_iter on the Grams the path gives it (K = DDᵀ of unit rows),
-    # at m = 40, 256 (the path, 32 rows of K outside shared memory), 512
-    # and an unaligned m, under both floors, and on an all-zero K
+    # at m = 40, 256 (the path) over 256 streams and over the few a dump
+    # launch takes (clusters of 2 and 8 CTAs), 512 and an unaligned m,
+    # under both floors, and on an all-zero K
     for label, (S, m, d) in (("m=40", (256, 40, 300)),
-                             ("path", SPLIT_SHAPE), ("m=512", (64, 512, 300)),
+                             ("path", SPLIT_SHAPE), ("S=8", (8, 256, 300)),
+                             ("S=1", (1, 256, 300)),
+                             ("m=512", (64, 512, 300)),
                              ("unaligned", UNALIGNED),
                              ("zeros", (4, 256, 300))):
         X = (torch.zeros((S, m, d), device="cuda") if label == "zeros"
@@ -373,8 +425,15 @@ def check_split_kernels(rng) -> dict:
         f"+ {RTOL_LAM:.0e}·|λ̂|); bf16: " + ", ".join(
         f"{k} {v:.3e} (rtol {BF16_TOL[k][0]:.0e}, atol {BF16_TOL[k][1]:.0e})"
         for k, v in bf16.items()))
-    log(f"kernels power_iter keeps {pk.resident_rows(SPLIT_SHAPE[1], X.device)}"
-        f" of {SPLIT_SHAPE[1]} rows of K in shared memory at the path's m")
+    for S, m in ((SPLIT_SHAPE[0], SPLIT_SHAPE[1]), (8, 256), (1, 256),
+                 (64, 512)):
+        c, rows, resident = pk.plan(m, S, X.device)
+        held_rows = min(m, c * resident)
+        log(f"kernels power_iter plan (S, m) = ({S}, {m}): a cluster of {c} "
+            f"CTAs a stream, {rows} rows of K a CTA, {held_rows} of {m} rows "
+            f"of K held on chip")
+        if held_rows < m:
+            raise AssertionError(f"power_iter: K at m = {m} not held on chip")
 
     S, m, d = SPLIT_SHAPE
     X, v = unit_rows(rng, (S, m, d)), unit_rows(rng, (S, d))
@@ -400,18 +459,37 @@ def check_split_kernels(rng) -> dict:
     times["power_iter"].update(time_in_turns(
         {"library": lambda: torch.linalg.eigh(K)}, rounds=3, reps=1))
     times["rank1_downdate"]["library"] = None
+    # device times (torch.profiler) beside the events of the two kernels
+    # redesigned for the card, and of their library calls.  eigh is not
+    # profiled: cuSOLVER's Jacobi sweeps launch a different number of
+    # kernels from call to call (~31,100 at this shape), so no session of
+    # it can be checked to hold every launch, and its time is "not
+    # measured"; each of its calls takes over a second, far past the host
+    # cost a device time removes.
+    device = {
+        "window_gram": (device_ms(lambda: wk.window_gram_cuda(A)),
+                        device_ms(lambda: torch.bmm(A.mT, A))),
+        "power_iter": (device_ms(lambda: pk.power_iter_cuda(K, ITERS)),
+                       None),
+    }
     bounds = split_bounds(S, m, d, WINDOW_SHAPE[1], ITERS)
     out = {}
     for name, t in times.items():
         shape = WINDOW_SHAPE if name == "window_gram" else SPLIT_SHAPE
         lib_ms = t["library"]
+        dev = (f"; device time (torch.profiler) kernel "
+               f"{fmt_ms(device[name][0])} ms, library "
+               f"{fmt_ms(device[name][1])} ms" if name in device else "")
         log(f"kernels time {name} {shape}: kernel_ms {t['kernel']:.4f} "
             f"plain_ms {t['plain']:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
-            f"{bounds[name][0]:.4f} ({bounds[name][1]})")
+            f"{bounds[name][0]:.4f} ({bounds[name][1]}){dev}")
         out[name] = dict(max_abs_err=errs[name], ms=t["kernel"],
                          plain_ms=t["plain"], bound_ms=bounds[name][0],
                          bound_by=bounds[name][1], library_ms=lib_ms)
+        if name in device:
+            out[name].update(device_ms=device[name][0],
+                             library_device_ms=device[name][1])
     return out
 
 
@@ -419,10 +497,13 @@ def check_split_kernels(rng) -> dict:
 # phase 2 (cont.): the flash-attention forward
 # ---------------------------------------------------------------------------
 
-# (label, B, S, H, Hkv, dh, dtype, causal); the first is the timed one
+# (label, B, S, H, Hkv, dh, dtype, causal); llama3-8b's are timed, the
+# first in the kernels line, the f32 one (the 2-layer f32 prefill's
+# shape) beside it
 FLASH_SHAPES = [
     ("llama3-8b bucket 512", 1, 512, 32, 8, 128, "bfloat16", True),
     ("llama3-8b bucket 256", 1, 256, 32, 8, 128, "bfloat16", True),
+    ("llama3-8b f32 prefill", 1, 512, 32, 8, 128, "float32", True),
     ("smollm G=3", 2, 256, 9, 3, 64, "bfloat16", True),
     ("qwen1.5 G=1", 1, 512, 16, 16, 64, "float32", True),
     ("non-causal", 1, 512, 32, 8, 128, "bfloat16", False),
@@ -495,19 +576,21 @@ def check_flash(rng) -> dict:
         bound, by = flash_bound(B, S, H, Hkv, dh, dtype, causal)
         dev_k = device_ms(lambda: kernel.flash_fwd(q, k, v, causal))
         dev_lib = device_ms(library)
+        ratio = (f": the kernel {dev_k / dev_lib:.3f}× the library's"
+                 if dev_k and dev_lib else "")
         log(f"kernels time flash_fwd {label}: kernel_ms {t['kernel']:.4f} "
             f"plain_ms {t['plain']:.4f} library_ms (sdpa) "
             f"{t['library']:.4f} bound_ms {bound:.4f} ({by}); sdpa vs "
             f"plain max err {lib_err:.3e}; device time (torch.profiler) "
-            f"kernel {dev_k:.4f} ms, sdpa {dev_lib:.4f} ms: the kernel "
-            f"{dev_k / dev_lib:.3f}× the library's")
-        # the CUDA-event times of both calls are the host's at these
+            f"kernel {fmt_ms(dev_k)} ms, sdpa {fmt_ms(dev_lib)} ms{ratio}")
+        # the CUDA-event times of both calls are the host's at the bf16
         # shapes; the device times are what the kernel is judged on
-        timed.setdefault("row", dict(
+        timed.setdefault(dtype, dict(
             ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
             bound_by=by, library_ms=t["library"], device_ms=dev_k,
             library_device_ms=dev_lib))
-    return dict(max_abs_err=worst, **timed["row"])
+    return dict(max_abs_err=worst, **timed["bfloat16"],
+                f32=timed["float32"])
 
 
 def p_rounding(rng) -> None:
@@ -597,6 +680,37 @@ def launch_counters() -> dict:
             "window_gram": wk.window_gram_cuda, "flash_fwd": fa.flash_fwd}
 
 
+@contextlib.contextmanager
+def launch_sizes(names):
+    """The number of streams S of every launch of the named dump-step
+    kernels while the context is open: {name: [S, ...]}.  The engine
+    reaches each through one entry (``core/dsfd.py`` the fused kernels,
+    the split route of ``kernels/fused_tick/ops.py`` the others), one
+    launch a call with S > 0; each entry is wrapped in a recorder that
+    passes the call on.  The kernels' wrappers are not touched."""
+    from repro_torch.core import dsfd
+    from repro_torch.kernels.fused_tick import ops as ft_ops
+
+    sizes = {n: [] for n in names}
+    saved = {n: getattr(dsfd if n in FUSED else ft_ops, n) for n in names}
+
+    def recorder(fn, out):
+        def call(x, *a, **k):
+            if x.shape[0]:
+                out.append(x.shape[0])
+            return fn(x, *a, **k)
+        return call
+
+    try:
+        for n in names:
+            setattr(dsfd if n in FUSED else ft_ops, n,
+                    recorder(saved[n], sizes[n]))
+        yield sizes
+    finally:
+        for n, fn in saved.items():
+            setattr(dsfd if n in FUSED else ft_ops, n, fn)
+
+
 def run_engine(cell: Cell, ticks: int, seed: int, device: str = "cuda",
                **hyper) -> dict:
     """Feed the engine ``ticks`` ticks of 8 rows per user and check it."""
@@ -649,12 +763,14 @@ def run_engine(cell: Cell, ticks: int, seed: int, device: str = "cuda",
     dsfd.host_indices.count = 0
     sync()
     t0 = time.perf_counter()
-    for tick in range(ticks):
-        if tick + 1 < ticks:
-            eng.submit_many(users, next_tick())
-        if eng.step() != S * BLOCK:
-            raise AssertionError(f"tick {tick} ingested a partial slab")
-    sync()
+    with launch_sizes([n for n in cell.launched if n in FUSED + SPLIT]) \
+            as sizes:
+        for tick in range(ticks):
+            if tick + 1 < ticks:
+                eng.submit_many(users, next_tick())
+            if eng.step() != S * BLOCK:
+                raise AssertionError(f"tick {tick} ingested a partial slab")
+        sync()
     elapsed = time.perf_counter() - t0
     syncs = dsfd.host_indices.count
     if eng.backlog or eng.rows_ingested != ticks * S * BLOCK:
@@ -705,6 +821,14 @@ def run_engine(cell: Cell, ticks: int, seed: int, device: str = "cuda",
     sync()
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"{cell.label} launches {launches}")
+    spread = {}
+    for name, v in sizes.items():
+        if v:
+            spread[name] = dict(median=float(np.median(v)),
+                                p90=float(np.percentile(v, 90)), max=max(v))
+            log(f"{cell.label} {name} streams per launch over {len(v)} "
+                f"launches: median {spread[name]['median']:g}, p90 "
+                f"{spread[name]['p90']:g}, max {spread[name]['max']}")
     for name in cell.launched:
         if launches[name] <= 0:
             raise AssertionError(f"{cell.label}: {name} was never launched "
@@ -728,9 +852,14 @@ def run_engine(cell: Cell, ticks: int, seed: int, device: str = "cuda",
                              f" mass {mass:.1f} > Σ‖A_W‖² {total:.1f}")
     log(f"{cell.label} query_global: {t_q:.3f} s, ‖B‖_F² {mass:.1f} ≤ "
         f"{total:.1f}")
+    at_median = {}
     if device == "cuda":
         breakdown(eng, cell, BREAKDOWN_TICKS, lambda: (users, next_tick()))
-    return {"launches": launches, "elapsed": elapsed, "syncs": syncs}
+        at_median = time_at_launch_sizes(
+            cell, eng.state.main.buf.shape[1], sizes, launches,
+            np.random.default_rng(seed + 1))
+    return {"launches": launches, "elapsed": elapsed, "syncs": syncs,
+            "launch_streams": spread, "at_median": at_median}
 
 
 BREAKDOWN_TICKS = 8
@@ -785,6 +914,70 @@ def breakdown(eng, cell: Cell, ticks: int, feed) -> None:
     other = wall - sum(spent.values())
     log(f"{cell.label} breakdown: {ticks} ticks, wall {wall:.3f} s: {parts}, "
         f"other {other:.3f} s ({100 * other / wall:.1f}%)")
+
+
+def time_at_launch_sizes(cell: Cell, m: int, sizes: dict, launches: dict,
+                         rng) -> dict:
+    """Each dump-step kernel of the cell's route timed at the numbers of
+    streams its launches took in the counted run (the fewest, the median,
+    the 90th percentile, the most), by CUDA events and by device time,
+    beside its bound there.  The time it loses over its bound on the path
+    is the sum over its launches of (time − bound), interpolated in S
+    between those sizes (device time where the profiler gave one; which
+    clock each size's gap came from is kept as ``gap_from``)."""
+    import torch
+
+    from repro_torch.kernels.fused_tick import kernel as ft, ref as fr
+    from repro_torch.kernels.gram import kernel as gk, ref as gr
+    from repro_torch.kernels.power_iter import kernel as pk
+    from repro_torch.kernels.rank1_downdate import kernel as rk
+
+    def call(name, S):
+        """The kernel's call at S streams, on fresh inputs, and its
+        bound."""
+        X = unit_rows(rng, (S, m, D))
+        if name in FUSED:
+            lam, u = fr.gram_power_ref(X, ITERS)
+            return ((lambda: ft.gram_power_cuda(X, ITERS))
+                    if name == "gram_power" else
+                    (lambda: ft.fused_krylov_step_cuda(X, lam, u, ITERS)),
+                    kernel_bounds(S, m, D, ITERS)[name])
+        v, K = unit_rows(rng, (S, D)), gr.gram_ref(X)
+        return ({"gram": lambda: gk.gram_cuda(X),
+                 "rank1_downdate": lambda: rk.rank1_downdate_cuda(X, v),
+                 "power_iter": lambda: pk.power_iter_cuda(K, ITERS)}[name],
+                split_bounds(S, m, D, WINDOW, ITERS)[name])
+
+    out = {}
+    for name, v in sizes.items():
+        if not v:
+            continue
+        v = np.asarray(v)
+        med = int(round(float(np.median(v))))
+        points = sorted({int(v.min()), med,
+                         int(round(float(np.percentile(v, 90)))),
+                         int(v.max())})
+        gaps, gap_from = [], {}
+        for S in points:
+            fn, bound = call(name, S)
+            ms = time_in_turns({"kernel": fn})["kernel"]
+            dev = device_ms(fn)
+            gaps.append((ms if dev is None else dev) - bound[0])
+            gap_from[str(S)] = "events" if dev is None else "device"
+            plan = (f", a cluster of {pk.plan(m, S, torch.device('cuda'))[0]}"
+                    f" CTAs a stream" if name == "power_iter" else "")
+            log(f"{cell.label} {name} at S = {S} (m = {m}{plan}): kernel_ms "
+                f"{ms:.4f}, device_ms {fmt_ms(dev)}, bound_ms {bound[0]:.4f} "
+                f"({bound[1]})")
+            if S == med:
+                out[name] = dict(streams=S, ms=ms, device_ms=dev,
+                                 bound_ms=bound[0])
+        loss = float(np.interp(v, points, gaps).sum()) / 1e3
+        out[name].update(over_bound_s=loss, gap_from=gap_from)
+        log(f"{cell.label} {name}: Σ over its {launches[name]} launches of "
+            f"(time − bound), interpolated in S between the timed sizes: "
+            f"{loss:.3f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1041,7 +1234,8 @@ def main(argv=None) -> int:
     gc.collect()                       # the fleets' tensors
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    fine = run_engine(FINE, args.fine_ticks, args.seed + 200, use_kernel=True)
+    fine = run_engine(FINE, args.fine_ticks, args.seed + 200,
+                      use_kernel=True)
     log(f"phase fine: {time.perf_counter() - t:.3f} s")
 
     gc.collect()
@@ -1053,10 +1247,15 @@ def main(argv=None) -> int:
     check_plain_prefill(args.seed)
     log(f"phase serve: {time.perf_counter() - t:.3f} s")
 
-    # each kernel's launches on the path that runs it
+    # each kernel's launches on the path that runs it, and for the dump
+    # step's kernels the streams a launch took and their time at the median
     launches = {n: kry["launches"][n] for n in FUSED}
     launches.update({n: fine["launches"][n] for n in FINE.launched})
     launches["flash_fwd"] = srv["launches"]
+    for run in (kry, fine):
+        for name, spread in run["launch_streams"].items():
+            stats[name].update(launch_streams=spread,
+                               at_median=run["at_median"][name])
     where = {
         "gram_power": ("fused_tick.cu", "fused_tick/kernel.py:66"),
         "fused_krylov_step": ("fused_tick.cu", "fused_tick/kernel.py:110"),

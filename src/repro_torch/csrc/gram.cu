@@ -55,6 +55,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tile_copy.cuh"
+
 namespace {
 
 constexpr int kTile = 64;                   // rows and columns of a tile
@@ -65,58 +67,6 @@ constexpr int kChunk = 32;                  // columns of d a chunk
 // Row stride of a panel in elements: an odd number of 16-byte units.
 template <typename T>
 constexpr int kLdOf = kChunk + 16 / (int)sizeof(T);
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  x[0] = a.x;
-  x[1] = a.y;
-  x[2] = b.x;
-  x[3] = b.y;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// (ti, tj), ti ≤ tj, of upper-triangle tile number t of an nt × nt grid.
-__device__ __forceinline__ void tile_of(int t, int nt, int* ti, int* tj) {
-  int i = 0;
-  while (t >= nt - i) {
-    t -= nt - i;
-    ++i;
-  }
-  *ti = i;
-  *tj = i + t;
-}
-
-// cp.async of BYTES (4 or 16) from src to shared dst, of which the first
-// `valid` bytes are read and the rest zero-filled.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int valid) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
-                 "l"(src), "r"(valid)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-                 "l"(src), "r"(valid)
-                 : "memory");
-}
 
 // Rows [r0, r0 + kTile) of X, columns [k0, k0 + kChunk), into the panel s
 // (row-major, stride kLdOf<T>).  BYTES = 16 or 4: cp.async of that width;
@@ -230,14 +180,16 @@ int launch(const void* X, void* K, int S, int m, int d, cudaStream_t stream) {
   const dim3 grid(S, tiles(m));
   const T* x = static_cast<const T*>(X);
   T* k = static_cast<T*>(K);
-  const uintptr_t row = (uintptr_t)d * sizeof(T);
-  const uintptr_t at = (uintptr_t)X;
-  if (row % 16 == 0 && at % 16 == 0)
-    gram_kernel<T, 16><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
-  else if (row % 4 == 0 && at % 4 == 0)
-    gram_kernel<T, 4><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
-  else
-    gram_kernel<T, 0><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
+  switch (copy_bytes(X, (size_t)d * sizeof(T), 16 | 4)) {
+    case 16:
+      gram_kernel<T, 16><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
+      break;
+    case 4:
+      gram_kernel<T, 4><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
+      break;
+    default:
+      gram_kernel<T, 0><<<grid, kThreads, 0, stream>>>(x, k, m, d, nt);
+  }
   return (int)cudaGetLastError();
 }
 

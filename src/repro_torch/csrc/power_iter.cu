@@ -14,26 +14,73 @@
 // stream) and (iters + 1)·2m² operations, ~13 FLOP per byte at 24 steps,
 // under the f32 ridge of 20: device memory bounds it.  But every step
 // needs all of K, and at m = 256 one stream's K is 256 KB (1 MiB at
-// m = 512), more than the 227 KB of shared memory a block may have, so K
-// cannot stay resident as it did in VMEM or as D and K do in
-// fused_tick.cu.
+// m = 512), more than the 227 KB of shared memory a block may have; and
+// the dump loop launches it over few streams at a time, so one CTA a
+// stream leaves most SMs idle through `iters` dependent steps, each as
+// long as its chain of latencies.
 //
-// Design.  One CTA per stream, 16 warps, u and w in shared memory, one
-// warp per row of K (w_i = Σ_j K_ij u_j with coalesced row reads and a
-// shuffle sum).  The CTA copies the first R rows of K into shared memory
-// once, R as many as fit under the card's opt-in limit (all of them up to
-// m = 240), and reads the remaining m − R rows from device memory (mostly
-// L2) at every step.  A cluster of 2-8 CTAs holding K's row slices in
-// distributed shared memory would keep all of K on chip; that is later
-// work.  All arithmetic is plain f32 FMA, no TF32.
+// Design.  Each stream gets a thread-block cluster of c CTAs (c ∈ {1, 2,
+// 4, 8}, 8 the portable limit).  CTA r of the cluster owns rows
+// [r·rows, (r + 1)·rows) of K, rows = ⌈m/c⌉, and copies them once into
+// its shared memory with cp.async, at a row stride ld (m rounded up to 4,
+// the pad zero).  A CTA has a warp for each 8 of its rows, up to 16.
+// Every CTA keeps two whole vectors x, one for each step parity, each
+// with an mbarrier.  u_t = x_t / n_t is never stored: step t reads x_t
+// and sends x_{t+1} = K x_t / n_t (x₀ = u₀, n₀ = 1), which is K u_t up to
+// rounding.  A step:
+// 1. every warp waits on its CTA's mbarrier for x_t (t ≥ 1); a warp with
+//    rows (every warp at the last step) sums Σx_t² in one fixed order
+//    (16-byte reads, lane-strided, then an xor butterfly, whose every lane
+//    ends with the same bits), so all of them, in every CTA, get the
+//    identical n_t; the loads of step 2 overlap it;
+// 2. each warp takes 8 of the CTA's rows; a lane owns the columns
+//    4·lane + 128·q and reads them with 16-byte loads of K's rows and of
+//    x_t, then the warp reduces its 8 partial sums, halving the rows at
+//    each shuffle level (9 shuffles), and divides them by n_t;
+// 3. the lanes that hold a row send it to every CTA of the cluster,
+//    itself included, with st.async into x_{t+1}'s buffer; the bytes
+//    count on that buffer's mbarrier in the receiving CTA, whose thread 0
+//    has announced the step's m·4.  No cluster barrier: a CTA waits only
+//    for the data it needs;
+// 4. one block barrier, so that no warp of a CTA falls a step behind (an
+//    mbarrier phase is then never passed by a warp still waiting on it).
+// Two buffers suffice: a CTA sends x_{t+2} only after it has received all
+// of x_{t+1}, including every peer's slice, which each peer sent after it
+// had read x_t from the buffer x_{t+2} overwrites.  After `iters` steps
+// one more gives K û; rank 0 writes λ̂ = Σ (K û)_j û_j, every rank its
+// own slice of û = x / n.  A cluster barrier at the start (every CTA runs
+// and has initialised its mbarriers before a peer sends to it) and one at
+// the end are the only two: a cluster barrier a step, after plain stores
+// into the peers' shared memory, made each step markedly longer.
+//
+// The cluster size is a pure function of (m, S) and the card's limits
+// (power_iter_plan; kernels/power_iter/kernel.py mirrors it): the smallest
+// c whose rows of K fit a CTA's shared memory, then larger while c·S CTAs
+// fit one wave of the card's SMs (a launch over few streams spreads each
+// over up to 8 SMs), but not past ⌈m/8⌉ (8 rows a CTA).  At m = 256 K is
+// held whole by c = 2 (128 KB a CTA), at m = 512 by c = 8.  Where even 8
+// CTAs cannot hold their rows (m ≳ 640; the reference bounds m = 2ℓ ≤
+// 512) a CTA keeps as many as fit and reads the rest from device memory
+// at every step.  All arithmetic is plain f32 FMA, no TF32.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 8;           // rows a warp reduces at once
+constexpr int kMaxWarps = 16;       // a warp a group of rows, up to 16
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kRowsPerCta = 8;      // no larger cluster than ⌈m/8⌉ CTAs
+constexpr int kBarBytes = 16;       // the two mbarriers, before the floats
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -41,90 +88,324 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Sum over the block; every thread returns the same value.
-__device__ float block_sum(float x, float* red) {
-  x = warp_sum(x);
-  __syncthreads();  // `red` may still be read by the previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) t += red[i];
-  return t;
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// w = K u: one warp per row, rows [0, R) from shared memory.
-__device__ void matvec(const float* __restrict__ gK, const float* sK,
-                       const float* su, float* sw, int m, int R) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < m; i += kWarps) {
-    const float* row = i < R ? sK + (size_t)i * m : gK + (size_t)i * m;
-    float acc = 0.f;
-    for (int j = lane; j < m; j += 32) acc = fmaf(row[j], su[j], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) sw[i] = acc;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-power_iter_kernel(const float* __restrict__ K, float* __restrict__ lam_out,
-                  float* __restrict__ u_out, int m, int R, int iters,
-                  int floor_norm) {
-  extern __shared__ float smem[];
-  float* sK = smem;                    // R × m
-  float* su = sK + (size_t)R * m;      // m
-  float* sw = su + m;                  // m
-  float* red = sw + m;                 // kWarps
-  const int tid = threadIdx.x;
-  const size_t b = blockIdx.x;
-  const float* gK = K + b * (size_t)m * m;
-
-  for (size_t idx = tid; idx < (size_t)R * m; idx += kThreads) sK[idx] = gK[idx];
-  const float u0 = 1.0f / sqrtf((float)m);
-  for (int i = tid; i < m; i += kThreads) su[i] = u0;
-  __syncthreads();
-
-  for (int it = 0; it < iters; ++it) {
-    matvec(gK, sK, su, sw, m, R);
-    float ss = 0.f;
-    for (int j = tid; j < m; j += kThreads) ss = fmaf(sw[j], sw[j], ss);
-    ss = block_sum(ss, red);
-    const float nrm = floor_norm ? fmaxf(sqrtf(ss), 1e-30f)
-                                 : sqrtf(fmaxf(ss, 1e-30f));
-    for (int j = tid; j < m; j += kThreads) su[j] = sw[j] / nrm;
-    __syncthreads();
-  }
-  matvec(gK, sK, su, sw, m, R);
-  float ss = 0.f;
-  for (int j = tid; j < m; j += kThreads) ss = fmaf(sw[j], su[j], ss);
-  const float lam = block_sum(ss, red);
-  if (tid == 0) lam_out[b] = lam;
-  for (int i = tid; i < m; i += kThreads) u_out[b * m + i] = su[i];
-}
-
-int max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
+// Columns [j, j + 4) of a row of K in device memory, zeros past m;
+// `vec`: rows are 16-byte aligned (m % 4 == 0 and K aligned).
+__device__ __forceinline__ float4 global4(const float* __restrict__ row,
+                                          int j, int m, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(row + j));
+  float4 v;
+  v.x = j < m ? __ldg(row + j) : 0.f;
+  v.y = j + 1 < m ? __ldg(row + j + 1) : 0.f;
+  v.z = j + 2 < m ? __ldg(row + j + 2) : 0.f;
+  v.w = j + 3 < m ? __ldg(row + j + 3) : 0.f;
   return v;
+}
+
+// y_i = (Σ_j K_ij x_j) / nrm for this CTA's rows [g0, g0 + kGroup)
+// (local numbering), each sent into y[r0 + i] of every CTA of the
+// cluster, counted on the mbarrier at the same shared address `bar`
+// there.  FULL: all kGroup rows exist and are resident.
+template <bool FULL>
+__device__ __forceinline__ void group_rows(
+    const float* __restrict__ gK, const float* sK, const float* x,
+    const float* y, uint32_t bar, int peers, float nrm, int g0, int nr,
+    int R, int m, int ld, int r0, bool vec) {
+  const int lane = threadIdx.x & 31;
+  float acc[kGroup];
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) acc[r] = 0.f;
+  for (int j = lane * 4; j < ld; j += 128) {
+    const float4 xv = *reinterpret_cast<const float4*>(x + j);
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      const int i = g0 + r;
+      float4 kv;
+      if (FULL)
+        kv = *reinterpret_cast<const float4*>(sK + (size_t)i * ld + j);
+      else if (i >= nr)
+        continue;
+      else if (i < R)
+        kv = *reinterpret_cast<const float4*>(sK + (size_t)i * ld + j);
+      else
+        kv = global4(gK + (size_t)i * m, j, m, vec);
+      acc[r] = fmaf(kv.x, xv.x, acc[r]);
+      acc[r] = fmaf(kv.y, xv.y, acc[r]);
+      acc[r] = fmaf(kv.z, xv.z, acc[r]);
+      acc[r] = fmaf(kv.w, xv.w, acc[r]);
+    }
+  }
+  // reduce-scatter over the lanes: at offsets 16, 8, ... each lane keeps
+  // half of its rows and adds its partner's half of them, until one row
+  // is left a lane; the lanes that share it finish it with xors.
+  constexpr int kLevels = 3;  // log2(kGroup)
+  static_assert(kGroup >> kLevels == 1, "kGroup is 2^kLevels");
+#pragma unroll
+  for (int l = 0; l < kLevels; ++l) {
+    const int o = 16 >> l, half = kGroup >> (l + 1);
+    const bool hi = lane & o;
+#pragma unroll
+    for (int r = 0; r < half; ++r) {
+      const float give = hi ? acc[r] : acc[r + half];
+      const float keep = hi ? acc[r + half] : acc[r];
+      acc[r] = keep + __shfl_xor_sync(0xffffffffu, give, o);
+    }
+  }
+  float v = acc[0];
+#pragma unroll
+  for (int o = 16 >> kLevels; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  v /= nrm;
+  constexpr int kShare = 32 / kGroup;  // lanes that share a row
+  const int i = g0 + lane / kShare;
+  if (lane % kShare == 0 && i < nr) {
+    const uint32_t at = (uint32_t)__cvta_generic_to_shared(y + r0 + i);
+    for (int p = 0; p < peers; ++p) {
+      uint32_t ra, rb;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(ra) : "r"(at), "r"(p));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(rb) : "r"(bar), "r"(p));
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
+          "[%0], %1, [%2];" ::"r"(ra), "f"(v), "r"(rb)
+          : "memory");
+    }
+  }
+}
+
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred P;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, P;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// The norm of x (its m entries and zero pads) with the kernel's floor,
+// summed in one fixed order: the same bits in every lane, warp and CTA.
+__device__ __forceinline__ float norm(const float* x, int lane, int ld,
+                                      int floor_norm) {
+  float ss = 0.f;
+  for (int j = lane * 4; j < ld; j += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(x + j);
+    ss = fmaf(v.x, v.x, ss);
+    ss = fmaf(v.y, v.y, ss);
+    ss = fmaf(v.z, v.z, ss);
+    ss = fmaf(v.w, v.w, ss);
+  }
+  ss = warp_sum(ss);
+  return floor_norm ? fmaxf(sqrtf(ss), 1e-30f) : sqrtf(fmaxf(ss, 1e-30f));
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+power_iter_kernel(const float* __restrict__ K, float* __restrict__ lam_out,
+                  float* __restrict__ u_out, int m, int ld, int rows, int R,
+                  int iters, int floor_norm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(smem);
+  float* sK = reinterpret_cast<float*>(smem + kBarBytes);  // R × ld
+  float* sw = sK + (size_t)R * ld;                         // 2 × ld
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const size_t b = blockIdx.x / c;
+  const int r0 = rank * rows;                    // first row of this CTA
+  const int nr = max(0, min(rows, m - r0));      // its rows
+  const int nres = min(nr, R);                   // of them in shared memory
+  const float* gK = K + (b * m + r0) * (size_t)m;
+  const bool vec = m % 4 == 0 && (uintptr_t)K % 16 == 0;
+
+  // this CTA's resident rows, zero-padded to ld columns
+  if (vec) {
+    const int per_row = ld / 4;
+    for (int idx = tid; idx < nres * per_row; idx += nt) {
+      const int i = idx / per_row, j = idx % per_row * 4;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       (uint32_t)__cvta_generic_to_shared(sK + (size_t)i * ld + j)),
+                   "l"(gK + (size_t)i * m + j)
+                   : "memory");
+    }
+  } else {
+    for (int idx = tid; idx < nres * ld; idx += nt) {
+      const int i = idx / ld, j = idx % ld;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                       (uint32_t)__cvta_generic_to_shared(sK + (size_t)i * ld + j)),
+                   "l"(j < m ? gK + (size_t)i * m + j : gK), "r"(j < m ? 4 : 0)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const float u0 = 1.0f / sqrtf((float)m);
+  for (int j = tid; j < ld; j += nt) {
+    sw[j] = j < m ? u0 : 0.f;  // x₀ = u₀
+    sw[ld + j] = 0.f;          // the pad
+  }
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0)
+                 : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  cluster_sync();  // every CTA runs, with its rows, x₀ and mbarriers
+
+  // Step t reads x_t from sw[t & 1] and sends x_{t+1} = K x_t / n_t into
+  // sw[(t + 1) & 1] of every CTA (n₀ = 1, x₀ = u₀), so u_t = x_t / n_t is
+  // never stored.  x_t (t ≥ 1) is phase (t − 1) / 2 of mbarrier t & 1.
+  const bool busy = warp * kGroup < nr;  // the warp has rows
+  float nrm = 1.f;
+  for (int t = 0; t <= iters; ++t) {
+    const float* x = sw + (t & 1) * ld;
+    const uint32_t bar = bar0 + 8 * ((t + 1) & 1);  // counts x_{t+1}
+    if (t) __syncthreads();  // no warp is a step behind (see the wait)
+    if (tid == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+          "r"(4 * m)
+          : "memory");
+    if (t) {
+      wait_phase(bar0 + 8 * (t & 1), ((t - 1) >> 1) & 1);  // x_t landed
+      if (busy || t == iters) nrm = norm(x, lane, ld, floor_norm);
+    }
+    for (int g0 = warp * kGroup; g0 < nr; g0 += nw * kGroup) {
+      if (g0 + kGroup <= nres)
+        group_rows<true>(gK, sK, x, sw + ((t + 1) & 1) * ld, bar, c, nrm,
+                         g0, nr, R, m, ld, r0, vec);
+      else
+        group_rows<false>(gK, sK, x, sw + ((t + 1) & 1) * ld, bar, c, nrm,
+                          g0, nr, R, m, ld, r0, vec);
+    }
+  }
+  wait_phase(bar0 + 8 * ((iters + 1) & 1), (iters >> 1) & 1);  // K u landed
+  const float* x = sw + (iters & 1) * ld;  // û = x / n
+  const float* y = sw + ((iters + 1) & 1) * ld;  // K û
+  if (rank == 0 && warp == 0) {
+    float lam = 0.f;
+    for (int j = lane; j < m; j += 32) lam = fmaf(y[j], x[j] / nrm, lam);
+    lam = warp_sum(lam);
+    if (lane == 0) lam_out[b] = lam;
+  }
+  for (int i = tid; i < nr; i += nt)
+    u_out[b * m + r0 + i] = x[r0 + i] / nrm;
+  cluster_sync();  // no CTA leaves while a peer may still address it
+}
+
+struct Plan {
+  int c, rows, resident;  // cluster size, rows a CTA, of them in smem
+  size_t smem;            // dynamic shared memory a CTA
+};
+
+// The plan for a cluster of c CTAs over an (m, m) K, with `limit` bytes
+// of shared memory a block: every CTA keeps the mbarriers and two x
+// buffers, then as many of its rows as fit (resident −1: not even those).
+Plan plan_with(int m, int c, long limit) {
+  const long ld = (m + 3) / 4 * 4;
+  const long fixed = kBarBytes + 4 * 2 * ld, row = 4 * ld;
+  Plan p;
+  p.c = c;
+  p.rows = (m + c - 1) / c;
+  const long fit = limit >= fixed ? (limit - fixed) / row : -1;
+  p.resident = (int)(fit < p.rows ? fit : p.rows);
+  p.smem = (size_t)(fixed + (p.resident < 0 ? 0 : p.resident) * row);
+  return p;
+}
+
+// The plan for S streams on a card with `limit` bytes of shared memory a
+// block and `sms` SMs (kernels/power_iter/kernel.py::cluster_plan).
+Plan plan_for(int m, int S, long limit, int sms) {
+  int c = 1;  // the smallest cluster that holds K
+  while (c < kMaxCluster && plan_with(m, c, limit).resident < (m + c - 1) / c)
+    c *= 2;
+  int wide = 1;  // the widest cluster whose c·S CTAs fit one wave
+  while (wide < kMaxCluster && 2L * wide * S <= sms) wide *= 2;
+  int cap = 1;   // no cluster wider than ⌈m/8⌉ CTAs
+  while (cap < kMaxCluster && 2L * cap * kRowsPerCta < m + kRowsPerCta)
+    cap *= 2;
+  if (wide > cap) wide = cap;
+  return plan_with(m, wide > c ? wide : c, limit);
+}
+
+int device_plan(int m, int S, int device, Plan* p) {
+  int smem = 0, sms = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  *p = plan_for(m, S, smem, sms);
+  return p->resident < 0 ? (int)cudaErrorInvalidValue : 0;
+}
+
+// The (device, c, threads, smem) launch shapes that
+// cudaOccupancyMaxActiveClusters has placed at least once: the check then
+// costs a set lookup on later launches of the same shape.
+std::mutex placed_mutex;
+std::set<std::tuple<int, int, int, size_t>> placed;
+
+int launch(const Plan& p, const float* K, float* lam_out, float* u_out,
+           int S, int m, int iters, int floor_norm, int device,
+           cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      power_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.c * S));
+  cfg.blockDim = dim3(32 * min(kMaxWarps, max(1, (p.rows + kGroup - 1) / kGroup)));
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster that cannot be placed is refused, never run another way
+  const auto shape = std::make_tuple(device, p.c, (int)cfg.blockDim.x, p.smem);
+  {
+    std::lock_guard<std::mutex> lock(placed_mutex);
+    if (!placed.count(shape)) {
+      int clusters = 0;
+      e = cudaOccupancyMaxActiveClusters(&clusters, power_iter_kernel, &cfg);
+      if (e != cudaSuccess) return (int)e;
+      if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+      placed.insert(shape);
+    }
+  }
+  const int ld = (m + 3) / 4 * 4;
+  e = cudaLaunchKernelEx(&cfg, power_iter_kernel, K, lam_out, u_out, m, ld,
+                         p.rows, p.resident, iters, floor_norm);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of an (m, m) K that the kernel keeps in shared memory on `device`,
-// or -1 if the card's limit cannot be read or u and w do not fit.
-int power_iter_resident_rows(int m, int device) {
-  const int have = max_smem(device);
-  if (have < 0) return -1;
-  // u, w and the reduction first, then as many rows of K as fit
-  const long rest = (long)have - (long)sizeof(float) * (2L * m + kWarps);
-  if (rest < 0) return -1;
-  const long fit = rest / ((long)m * (long)sizeof(float));
-  return (int)(fit < 0 ? 0 : (fit < m ? fit : m));
+// The launch plan for S streams of an (m, m) K on `device`: out[0] the
+// cluster size c, out[1] the rows a CTA owns, out[2] the rows of them it
+// keeps in shared memory.  Returns a cudaError_t (nonzero if the card's
+// limits cannot be read or the mbarriers and x buffers do not fit).
+int power_iter_plan(int m, int S, int device, int* out) {
+  Plan p = {1, 0, -1, 0};
+  const int err = device_plan(m, S, device, &p);
+  out[0] = p.c;
+  out[1] = p.rows;
+  out[2] = p.resident;
+  return err;
 }
 
 const char* power_iter_error_string(int err) {
@@ -134,17 +415,11 @@ const char* power_iter_error_string(int err) {
 int power_iter_topvec(const float* K, float* lam_out, float* u_out, int S,
                       int m, int iters, int floor_norm, int device,
                       void* stream) {
-  const int R = power_iter_resident_rows(m, device);
-  if (R < 0) return (int)cudaErrorInvalidDevice;
-  const size_t smem =
-      sizeof(float) * ((size_t)R * m + 2 * (size_t)m + kWarps);
-  cudaError_t e = cudaFuncSetAttribute(
-      power_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  power_iter_kernel<<<S, kThreads, smem, (cudaStream_t)stream>>>(
-      K, lam_out, u_out, m, R, iters, floor_norm);
-  return (int)cudaGetLastError();
+  Plan p;
+  const int err = device_plan(m, S, device, &p);
+  if (err) return err;
+  return launch(p, K, lam_out, u_out, S, m, iters, floor_norm, device,
+                (cudaStream_t)stream);
 }
 
 }  // extern "C"

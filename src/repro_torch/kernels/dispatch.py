@@ -17,8 +17,8 @@ into a shared library with a plain C interface under ``build/repro_torch/``
 of the checkout, and ``ctypes`` loads it.  It runs at the first call on a
 CUDA tensor (or an explicit :func:`build`), never at import, so the package
 imports on machines without ``nvcc``.  Library names carry a digest of the
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+source, the headers under ``csrc/`` (``*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# an H100's opt-in shared memory a block (bytes) and its SMs: the limits
+# the launch plans assume for CPU tensors and where no card is given
+H100_SMEM_PER_BLOCK, H100_SMS = 232_448, 132
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -83,8 +86,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -32,16 +32,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import use_kernel
+# H100_SMEM_PER_BLOCK: the limit the route compares against for a CPU tensor
+from repro_torch.kernels.dispatch import H100_SMEM_PER_BLOCK, use_kernel
 from repro_torch.kernels.fused_tick import kernel, ref
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.power_iter.ops import power_iter
 from repro_torch.kernels.power_iter.ref import normalise
 from repro_torch.kernels.rank1_downdate.ops import rank1_downdate
 
-# Shared memory an H100 lets one block opt in to (bytes): the limit the
-# route compares against for a CPU tensor.
-H100_SMEM_PER_BLOCK = 232_448
 # csrc/fused_tick.cu's block: threads and warps (scratch of the reductions)
 _THREADS, _WARPS = 256, 8
 

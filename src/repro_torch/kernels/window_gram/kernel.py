@@ -1,5 +1,5 @@
 """ctypes binding of ``csrc/window_gram.cu`` (one CTA per 64×64
-upper-triangle tile of G per stream).
+upper-triangle tile of G per stream, an 8×8 patch of the tile per thread).
 
 ``window_gram_cuda`` checks what the kernel takes (a contiguous f32 or
 bf16 CUDA slab), allocates G, launches on PyTorch's current stream without
@@ -19,15 +19,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _bound = {}
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_TILES = 65535            # the grid's y extent
+MAX_STREAMS = 65535          # the grid's y extent
 
 
 def _lib() -> ctypes.CDLL:
     lib = _bound.get("lib")
     if lib is None:
         lib = dispatch.load("window_gram")
-        lib.window_gram_tiles.argtypes = [_I]
-        lib.window_gram_tiles.restype = _I
         lib.window_gram_error_string.argtypes = [_I]
         lib.window_gram_error_string.restype = ctypes.c_char_p
         lib.window_gram_ata.argtypes = [_P, _P] + [_I] * 4 + [_P]
@@ -41,9 +39,9 @@ def window_gram_cuda(A: torch.Tensor) -> torch.Tensor:
     dispatch.check_cuda_tensor(A, "window_gram: A", DTYPES, 3)
     lib = _lib()
     S, n, d = A.shape
-    if lib.window_gram_tiles(d) > MAX_TILES:
-        raise ValueError(f"window_gram: d={d} needs more than {MAX_TILES} "
-                         "tiles")
+    if S > MAX_STREAMS:
+        raise ValueError(f"window_gram: S={S} streams, more than "
+                         f"{MAX_STREAMS} in one launch")
     G = torch.empty((S, d, d), dtype=torch.float32, device=A.device)
     if S and d:
         with dispatch.on_device(A):

@@ -194,9 +194,14 @@ def test_gram_and_downdate_kernels_match_plain_versions(cuda, S, m, d, dtype):
                                    atol=tol, msg=name)
 
 
+# every cluster size the plan picks: 8 at (1, 256), (8, 256), (16, 256),
+# (4, 512); 2 at (256, 256), (64, 40), (3, 10); 1 at (2, 1); and at
+# m = 700, 702 and 1030, past what 8 CTAs hold, rows read from device
+# memory each step (16-byte reads at m % 4 == 0, scalar ones otherwise)
 @pytest.mark.parametrize("floor_norm", [False, True])
 @pytest.mark.parametrize("S,m", [(64, 40), (16, 256), (4, 512), (3, 10),
-                                 (2, 1)])
+                                 (2, 1), (1, 256), (8, 256), (256, 256),
+                                 (2, 700), (2, 702), (1, 1030)])
 def test_power_iter_kernel_matches_plain_version(cuda, S, m, floor_norm):
     X = _unit_slab(S, m, 300, S + m, cuda)
     K = gram_ref.gram_ref(X)
@@ -211,8 +216,13 @@ def test_power_iter_kernel_matches_plain_version(cuda, S, m, floor_norm):
     assert not lam0.any() and not u0.any()
 
 
+# window_gram's copies: f32 16-byte at d = 300 and 4-byte at d = 301 and
+# 37; bf16 8-byte at d = 300, 4-byte at d = 90, plain loads at odd d
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,n,d", [(16, 1024, 300), (3, 10, 37), (2, 129, 90)])
+@pytest.mark.parametrize("S,n,d", [(16, 1024, 300), (3, 10, 37), (2, 129, 90),
+                                   (1, 1, 301), (1, 31, 301), (1, 1024, 301),
+                                   (1, 1, 300), (1, 31, 300), (1, 1024, 300),
+                                   (1, 1, 37), (1, 31, 37), (1, 1024, 37)])
 def test_window_gram_kernel_matches_plain_version(cuda, S, n, d, dtype):
     A = _unit_slab(S, n, d, S + n + d, cuda).to(dtype)
     G = _counted(wgram_kernel.window_gram_cuda,
@@ -244,6 +254,23 @@ def test_unfused_kernels_refuse_what_they_cannot_take(cuda):
         downdate_kernel.rank1_downdate_cuda(X, v[:, :8].contiguous())
     with pytest.raises(ValueError, match="power_iter"):
         power_kernel.power_iter_cuda(X, 4)             # not square
+
+
+@pytest.mark.parametrize("S", [1, 8, 16, 33, 64, 256])
+def test_power_iter_plan_matches_the_c_library(cuda, S):
+    """The cluster size, the rows a CTA owns and the rows it keeps on chip
+    agree between csrc/power_iter.cu and its Python mirror, at this card's
+    limits; up to m = 512 every row of K is held on chip."""
+    props = torch.cuda.get_device_properties(cuda)
+    smem = kernel.max_smem(cuda)
+    for m in (1, 7, 10, 40, 64, 100, 128, 255, 256, 257, 300, 512, 700,
+              1030, 4096):
+        plan = power_kernel.plan(m, S, cuda)
+        assert plan == power_kernel.cluster_plan(
+            m, S, smem, props.multi_processor_count), (m, S, plan)
+        c, rows, resident = plan
+        if m <= 512:
+            assert resident == rows and c * rows >= m
 
 
 def test_smem_formula_matches_the_c_library(cuda):

@@ -30,6 +30,7 @@ from repro.kernels.rank1_downdate.ref import \
     rank1_downdate_ref as jax_downdate_ref
 from repro.kernels.window_gram.ops import window_gram as jax_wgram
 from repro.kernels.window_gram.ref import window_gram_ref as jax_wgram_ref
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.power_iter import kernel as power_kernel
@@ -205,3 +206,27 @@ def test_cpu_tensors_take_the_plain_versions():
         rank1_downdate(X, torch.ones(8))
     with pytest.raises(ValueError, match="slab"):
         window_gram(X[0])
+
+
+def test_power_iter_cluster_plan_holds_k_on_chip():
+    """The Python mirror of the CUDA kernel's launch plan, at an H100's
+    limits: the cluster size c never shrinks as m grows, and for every
+    m ≤ 512 (the reference's largest m = 2ℓ) c CTAs hold all of K, each
+    its ⌈m/c⌉ rows (⌈m/c⌉·m·4 B at a 4-float row stride) beside its two x
+    buffers and mbarriers.  Few streams get wide clusters, many the
+    smallest that holds K."""
+    plan, limit = power_kernel.cluster_plan, dispatch.H100_SMEM_PER_BLOCK
+    for S in (1, 8, 16, 33, 64, 256):
+        widest = 1
+        for m in range(1, 513):
+            c, rows, resident = plan(m, S)
+            assert c in (1, 2, 4, 8) and c >= widest, (m, S, c)
+            widest = c
+            ld = -(-m // 4) * 4
+            assert rows == -(-m // c) and resident == rows, (m, S)
+            assert 16 + 8 * ld + 4 * rows * ld <= limit, (m, S)
+    assert [plan(256, S)[0] for S in (1, 8, 16, 32, 64, 256)] == \
+        [8, 8, 8, 4, 2, 2]
+    assert plan(512, 64)[0] == 8 and plan(512, 1)[0] == 8
+    assert plan(40, 64)[0] == 2 and plan(10, 3)[0] == 2 and plan(1, 2)[0] == 1
+    assert plan(1030, 1) == (8, 129, 54)   # past 8 CTAs: rows in HBM
