@@ -27,7 +27,8 @@
 // Every CTA keeps two whole vectors x, one for each step parity, each
 // with an mbarrier.  u_t = x_t / n_t is never stored: step t reads x_t
 // and sends x_{t+1} = K x_t / n_t (x₀ = u₀, n₀ = 1), which is K u_t up to
-// rounding.  A step:
+// rounding.  A step (the norm and the row groups of 1-2 are
+// power_steps.cuh's, shared with fused_tick.cu):
 // 1. every warp waits on its CTA's mbarrier for x_t (t ≥ 1); a warp with
 //    rows (every warp at the last step) sums Σx_t² in one fixed order
 //    (16-byte reads, lane-strided, then an xor butterfly, whose every lane
@@ -72,21 +73,16 @@
 #include <set>
 #include <tuple>
 
+#include "power_steps.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kGroup = 8;           // rows a warp reduces at once
 constexpr int kMaxWarps = 16;       // a warp a group of rows, up to 16
 constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr int kRowsPerCta = 8;      // no larger cluster than ⌈m/8⌉ CTAs
 constexpr int kBarBytes = 16;       // the two mbarriers, before the floats
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
@@ -107,78 +103,6 @@ __device__ __forceinline__ float4 global4(const float* __restrict__ row,
   return v;
 }
 
-// y_i = (Σ_j K_ij x_j) / nrm for this CTA's rows [g0, g0 + kGroup)
-// (local numbering), each sent into y[r0 + i] of every CTA of the
-// cluster, counted on the mbarrier at the same shared address `bar`
-// there.  FULL: all kGroup rows exist and are resident.
-template <bool FULL>
-__device__ __forceinline__ void group_rows(
-    const float* __restrict__ gK, const float* sK, const float* x,
-    const float* y, uint32_t bar, int peers, float nrm, int g0, int nr,
-    int R, int m, int ld, int r0, bool vec) {
-  const int lane = threadIdx.x & 31;
-  float acc[kGroup];
-#pragma unroll
-  for (int r = 0; r < kGroup; ++r) acc[r] = 0.f;
-  for (int j = lane * 4; j < ld; j += 128) {
-    const float4 xv = *reinterpret_cast<const float4*>(x + j);
-#pragma unroll
-    for (int r = 0; r < kGroup; ++r) {
-      const int i = g0 + r;
-      float4 kv;
-      if (FULL)
-        kv = *reinterpret_cast<const float4*>(sK + (size_t)i * ld + j);
-      else if (i >= nr)
-        continue;
-      else if (i < R)
-        kv = *reinterpret_cast<const float4*>(sK + (size_t)i * ld + j);
-      else
-        kv = global4(gK + (size_t)i * m, j, m, vec);
-      acc[r] = fmaf(kv.x, xv.x, acc[r]);
-      acc[r] = fmaf(kv.y, xv.y, acc[r]);
-      acc[r] = fmaf(kv.z, xv.z, acc[r]);
-      acc[r] = fmaf(kv.w, xv.w, acc[r]);
-    }
-  }
-  // reduce-scatter over the lanes: at offsets 16, 8, ... each lane keeps
-  // half of its rows and adds its partner's half of them, until one row
-  // is left a lane; the lanes that share it finish it with xors.
-  constexpr int kLevels = 3;  // log2(kGroup)
-  static_assert(kGroup >> kLevels == 1, "kGroup is 2^kLevels");
-#pragma unroll
-  for (int l = 0; l < kLevels; ++l) {
-    const int o = 16 >> l, half = kGroup >> (l + 1);
-    const bool hi = lane & o;
-#pragma unroll
-    for (int r = 0; r < half; ++r) {
-      const float give = hi ? acc[r] : acc[r + half];
-      const float keep = hi ? acc[r + half] : acc[r];
-      acc[r] = keep + __shfl_xor_sync(0xffffffffu, give, o);
-    }
-  }
-  float v = acc[0];
-#pragma unroll
-  for (int o = 16 >> kLevels; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  v /= nrm;
-  constexpr int kShare = 32 / kGroup;  // lanes that share a row
-  const int i = g0 + lane / kShare;
-  if (lane % kShare == 0 && i < nr) {
-    const uint32_t at = (uint32_t)__cvta_generic_to_shared(y + r0 + i);
-    for (int p = 0; p < peers; ++p) {
-      uint32_t ra, rb;
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-                   : "=r"(ra) : "r"(at), "r"(p));
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-                   : "=r"(rb) : "r"(bar), "r"(p));
-      asm volatile(
-          "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
-          "[%0], %1, [%2];" ::"r"(ra), "f"(v), "r"(rb)
-          : "memory");
-    }
-  }
-}
-
 __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done)
@@ -187,22 +111,6 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
         "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P, [%1], "
         "%2;\n\tselp.u32 %0, 1, 0, P;\n\t}"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-
-// The norm of x (its m entries and zero pads) with the kernel's floor,
-// summed in one fixed order: the same bits in every lane, warp and CTA.
-__device__ __forceinline__ float norm(const float* x, int lane, int ld,
-                                      int floor_norm) {
-  float ss = 0.f;
-  for (int j = lane * 4; j < ld; j += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(x + j);
-    ss = fmaf(v.x, v.x, ss);
-    ss = fmaf(v.y, v.y, ss);
-    ss = fmaf(v.z, v.z, ss);
-    ss = fmaf(v.w, v.w, ss);
-  }
-  ss = warp_sum(ss);
-  return floor_norm ? fmaxf(sqrtf(ss), 1e-30f) : sqrtf(fmaxf(ss, 1e-30f));
 }
 
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -278,13 +186,36 @@ power_iter_kernel(const float* __restrict__ K, float* __restrict__ lam_out,
       wait_phase(bar0 + 8 * (t & 1), ((t - 1) >> 1) & 1);  // x_t landed
       if (busy || t == iters) nrm = norm(x, lane, ld, floor_norm);
     }
+    // rows of this CTA (local numbering): resident in shared memory, or
+    // (past R) read from device memory; each y_i goes into y[r0 + i] of
+    // every CTA of the cluster, counted on the mbarrier at `bar` there
+    const float* y = sw + ((t + 1) & 1) * ld;
+    auto resident = [&](int i, int j) {
+      return *reinterpret_cast<const float4*>(sK + (size_t)i * ld + j);
+    };
+    auto any_row = [&](int i, int j) {
+      return i < R ? resident(i, j) : global4(gK + (size_t)i * m, j, m, vec);
+    };
+    auto send = [&](int i, float v) {
+      v /= nrm;
+      const uint32_t at = (uint32_t)__cvta_generic_to_shared(y + r0 + i);
+      for (int p = 0; p < c; ++p) {
+        uint32_t ra, rb;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                     : "=r"(ra) : "r"(at), "r"(p));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                     : "=r"(rb) : "r"(bar), "r"(p));
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
+            "[%0], %1, [%2];" ::"r"(ra), "f"(v), "r"(rb)
+            : "memory");
+      }
+    };
     for (int g0 = warp * kGroup; g0 < nr; g0 += nw * kGroup) {
       if (g0 + kGroup <= nres)
-        group_rows<true>(gK, sK, x, sw + ((t + 1) & 1) * ld, bar, c, nrm,
-                         g0, nr, R, m, ld, r0, vec);
+        group_rows<true>(resident, any_row, x, g0, nr, ld, send);
       else
-        group_rows<false>(gK, sK, x, sw + ((t + 1) & 1) * ld, bar, c, nrm,
-                          g0, nr, R, m, ld, r0, vec);
+        group_rows<false>(resident, any_row, x, g0, nr, ld, send);
     }
   }
   wait_phase(bar0 + 8 * ((iters + 1) & 1), (iters >> 1) & 1);  // K u landed

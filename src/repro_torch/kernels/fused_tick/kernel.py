@@ -1,9 +1,10 @@
 """ctypes binding of ``csrc/fused_tick.cu`` (one CTA per stream).
 
 Each wrapper checks what the kernel takes (a contiguous f32 CUDA slab, a
-buffer whose D and K fit one CTA's shared memory), allocates the outputs,
-launches on PyTorch's current stream without synchronising, raises on a
-nonzero ``cudaGetLastError()``, and adds one to its ``launches`` count.
+buffer the route sends to one CTA: ``fused_tick_smem_bytes`` within the
+card's limit), allocates the outputs, launches on PyTorch's current stream
+without synchronising, raises on a nonzero ``cudaGetLastError()``, and
+adds one to its ``launches`` count.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ def _lib() -> ctypes.CDLL:
         lib = dispatch.load("fused_tick")
         lib.fused_tick_smem_bytes.argtypes = [_I, _I]
         lib.fused_tick_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_tick_kernel_smem.argtypes = [_I, _I, _I]
+        lib.fused_tick_kernel_smem.restype = ctypes.c_size_t
         lib.fused_tick_max_smem.argtypes = [_I]
         lib.fused_tick_max_smem.restype = _I
         lib.fused_tick_error_string.argtypes = [_I]
@@ -69,6 +72,14 @@ def smem_bytes(m: int, d: int) -> int:
     """``fused_tick_smem_bytes`` of the C library (the card tests hold the
     Python copy of the formula in ``ops`` to it)."""
     return _lib().fused_tick_smem_bytes(m, d)
+
+
+def kernel_smem(m: int, d: int, step: bool) -> int:
+    """Shared memory (bytes) a launch of the step (``step``) or of
+    gram_power requests for an (m, d) buffer, 0 where it has no layout
+    (``fused_tick_kernel_smem``; the card tests hold it within
+    ``smem_bytes`` at every shape the route sends to the kernels)."""
+    return _lib().fused_tick_kernel_smem(m, d, int(step))
 
 
 def gram_power_cuda(D: torch.Tensor, iters: int, floor_norm: bool = False):

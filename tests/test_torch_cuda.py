@@ -66,9 +66,22 @@ def _unit_slab(S, m, d, seed, device):
     return torch.from_numpy(D).to(device)
 
 
+# the fused kernels' shapes: the krylov path's m at 64 streams, the
+# median streams of its step launches (11) and past one wave of CTAs
+# (2048); unaligned and tiny; and the route's edges, where the kernels'
+# own layouts are tightest: the largest fused m at d = 300 and 317, m and
+# d past a 4-row block (rows past 128: more than 8 rows a warp, two or
+# four Gram patches a thread), the largest fused m at d = 1 (where K's
+# rows get no bank-conflict pad) and the largest fused d at m = 64
+FUSED_SHAPES = [(64, 64, 300), (11, 64, 300), (2048, 64, 300), (7, 10, 37),
+                (3, 1, 1), (2, 128, 300), (2, 128, 317), (2, 200, 37),
+                (3, 238, 1), (2, 64, 823)]
+
+
 @pytest.mark.parametrize("floor_norm", [False, True])
-@pytest.mark.parametrize("S,m,d", [(64, 64, 300), (7, 10, 37), (3, 1, 1)])
+@pytest.mark.parametrize("S,m,d", FUSED_SHAPES)
 def test_cuda_kernels_match_plain_versions(cuda, S, m, d, floor_norm):
+    assert ops.route(m, d, cuda) == "fused"
     D = _unit_slab(S, m, d, S + m + d, cuda)
     n0 = kernel.gram_power_cuda.launches
     lam, u = ops.gram_power(D, iters=24, floor_norm=floor_norm)
@@ -271,6 +284,32 @@ def test_power_iter_plan_matches_the_c_library(cuda, S):
         c, rows, resident = plan
         if m <= 512:
             assert resident == rows and c * rows >= m
+
+
+def test_fused_kernels_fit_the_routes_formula_everywhere(cuda):
+    """At every (m, d) the route sends to the fused kernels (all m, and d
+    densely up to 64, then in steps and at its largest), both kernels have
+    a layout, and neither asks for more shared memory than the formula
+    the route compares against the card's limit."""
+    limit = kernel.max_smem(cuda)
+    m = 1
+    while ops.fused_tick_smem_bytes(m, 1) <= limit:
+        d_max = 1
+        while ops.fused_tick_smem_bytes(m, 2 * d_max) <= limit:
+            d_max *= 2
+        step = d_max
+        while step:                   # the largest fused d at this m
+            if ops.fused_tick_smem_bytes(m, d_max + step) <= limit:
+                d_max += step
+            step //= 2
+        for d in sorted({*range(1, min(d_max, 64) + 1),
+                         *range(65, d_max + 1, 37), d_max}):
+            formula = ops.fused_tick_smem_bytes(m, d)
+            for step_kernel in (False, True):
+                need = kernel.kernel_smem(m, d, step_kernel)
+                assert 0 < need <= formula, (m, d, step_kernel, need)
+        m += 1
+    assert m == 239                   # m = 238 is the largest fused m
 
 
 def test_smem_formula_matches_the_c_library(cuda):

@@ -50,7 +50,11 @@ def split_everywhere(monkeypatch):
 
 @pytest.mark.parametrize("m,d,want", [(64, 300, "fused"), (128, 300, "fused"),
                                       (256, 300, "split"),
-                                      (128, 318, "split")])
+                                      (128, 318, "split"),
+                                      # the edges the fused kernels must take
+                                      (128, 317, "fused"), (200, 37, "fused"),
+                                      (238, 1, "fused"), (239, 1, "split"),
+                                      (64, 823, "fused"), (64, 824, "split")])
 def test_route_is_a_function_of_the_shape(m, d, want):
     assert ops.route(m, d) == want
     assert ops.route(m, d, torch.device("cpu")) == want
