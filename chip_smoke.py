@@ -2,7 +2,8 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--ticks 320] [--fast-ticks 16]
-                          [--fine-ticks 320]
+                          [--fine-ticks 160] [--layered-ticks 192]
+                          [--time-ticks 160] [--score-ticks 64]
 
 Phases, each printing its seconds on a line of its own:
 
@@ -39,7 +40,12 @@ Phases, each printing its seconds on a line of its own:
    on the device, 1.26 GB), and 8 of them against float64 Grams on the
    host as a cross-check; ``query_global`` must be finite with Frobenius
    mass ≤ Σ‖A_W‖_F².  The run records how many streams each dump-step
-   launch took (median, p90, max).  Then 8 more ticks split where their
+   launch took (median, p90, max).  Then the cohort queries of the cached
+   merge tree: the cold ``query_global`` must cost S − 1 = 1023 merges,
+   4 random contiguous cohorts ≤ 2⌈log₂S⌉ = 20 each and their repeats
+   none, and 8 users given a row at the same clock must make the ALL
+   query merge only their paths again; every answer within 1e-4 relative
+   Frobenius of a from-scratch fold.  Then 8 more ticks split where their
    time goes (SVD, each kernel, other) on the host clock.
 4. fast    — a short ``mode="fast"`` run (the users' default) at the same
    width, checked (every user too) and split the same way.
@@ -52,7 +58,24 @@ Phases, each printing its seconds on a line of its own:
    card (the script keeps every user's last N rows on the device), and 8
    of them against float64 Grams on the host as a cross-check.  Then the
    same split of 8 more ticks.
-6. serve   — the dense serving path at full width: llama3-8b (32 layers,
+6. layered — Seq-DS-FD at full width:
+   ``SketchFleetEngine("seq-dsfd", d=300, streams=128, eps=1/32,
+   window=1024, block=8, mode="krylov", R=64)`` (7 levels, θⱼ = 32·2ʲ)
+   for 192 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
+   with 2 % at 0.99·R; then Time-DS-FD, ``("time-dsfd", streams=32,
+   R=16)`` (10 levels, θⱼ = 2ʲ) for 160 ticks, half its users idle every
+   other 4 ticks.  Every user of both is held to βε‖A_W‖_F² (β = 4,
+   Theorem 4.1 / Corollary 5.1) through ``window_gram`` on the card; the
+   fused kernels must launch and the split ones not; the heavy-row bypass
+   must run at exactly the levels whose θ the rows reach; the selected
+   levels are printed.
+7. score   — ``SketchFleetEngine("dsfd", d=300, streams=256, eps=1/32,
+   window=1024, block=8, mode="krylov", score=True)`` for 64 ticks, each
+   user's rows in its own 10-dimensional subspace; at tick 48, 8 users
+   move to fresh subspaces and ``anomalies()`` must name all 8.  The same
+   rows without scoring give the tick's cost of scoring; the score's
+   ``gram`` kernel and ``eigh`` are timed at its shape.
+8. serve   — the dense serving path at full width: llama3-8b (32 layers,
    bf16 weights from a seeded ``torch.Generator`` on the card) with
    ``use_flash=True`` in ``ServeEngine(slots=4, s_max=1024,
    prefill_buckets=(256, 512))``, 8 greedy requests of 200-512 prompt
@@ -62,14 +85,16 @@ Phases, each printing its seconds on a line of its own:
    width prefills one 512-token prompt through the kernel and through its
    plain version: the last-position logits must agree within 1e-4
    relative (Frobenius).
-7. launch sizes — in a fresh process (``--launch-sizes``), each
+9. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
    sum the time it loses over its bound on the path.
 
-Then it prints one JSON line of per-kernel numbers, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
+Then it prints one JSON line of per-kernel numbers (``launches`` on the
+path that carries the kernel, ``launches_by_path`` on every path that ran
+it, each counted from 0 just before that path), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.  Any failure
 exits nonzero before the last line.  Without a CUDA device, or run outside
 a checkout of the repository, it exits nonzero at once.
 """
@@ -669,6 +694,7 @@ class Cell:
     launched: tuple = ()
     idle: tuple = ()
     every_user: bool = False
+    cohorts: bool = False
 
     @property
     def split(self) -> bool:
@@ -682,7 +708,8 @@ SPLIT = ("gram", "power_iter", "rank1_downdate")
 # loop's λ̂ ≥ θ decisions through the fused kernels are checked end to end
 KRYLOV = Cell("krylov", "krylov", 1024, 1 / 32,
               (0, 170, 341, 511, 512, 682, 853, 1023),
-              launched=FUSED + ("window_gram",), idle=SPLIT, every_user=True)
+              launched=FUSED + ("window_gram",), idle=SPLIT, every_user=True,
+              cohorts=True)
 FAST = Cell("fast", "fast", 1024, 1 / 32, KRYLOV.checked,
             launched=("window_gram",), every_user=True)
 # ε = 1/128: m = 256, 575,696 B for D and K, past one CTA (the split path)
@@ -869,23 +896,27 @@ def run_engine(cell: Cell, ticks: int, seed: int, device: str = "cuda",
         f"{int(live[:half].sum())}, users [{half}, {S}) (k = 10) "
         f"{int(live[half:].sum())}")
 
+    m0 = eng.tree.merges
     t1 = time.perf_counter()
     g = eng.query_global()
     t_q = time.perf_counter() - t1
+    cold = eng.tree.merges - m0
     mass = float(np.sum(g.astype(np.float64) ** 2))
     total = S * n_win * (1 + 1e-4)              # unit-norm rows
     if not np.isfinite(g).all() or mass > total:
         raise AssertionError(f"query_global: finite={np.isfinite(g).all()}"
                              f" mass {mass:.1f} > Σ‖A_W‖² {total:.1f}")
-    log(f"{cell.label} query_global: {t_q:.3f} s, ‖B‖_F² {mass:.1f} ≤ "
-        f"{total:.1f}")
+    log(f"{cell.label} query_global: {t_q:.3f} s, {cold} merges, ‖B‖_F² "
+        f"{mass:.1f} ≤ {total:.1f}")
+    cohorts = (cohort_queries(eng, cold, t_q, np.random.default_rng(seed + 3))
+               if cell.cohorts and device == "cuda" else None)
     if device == "cuda":
         breakdown(eng, cell, BREAKDOWN_TICKS, lambda: (users, next_tick()))
     # the launch sizes, for time_at_launch_sizes in a process of its own
     timing = dict(m=int(eng.state.main.buf.shape[1]), sizes=sizes,
                   launches=launches, seed=seed + 1)
     return {"launches": launches, "elapsed": elapsed, "syncs": syncs,
-            "launch_streams": spread, "timing": timing}
+            "launch_streams": spread, "timing": timing, "cohorts": cohorts}
 
 
 BREAKDOWN_TICKS = 8
@@ -1040,6 +1071,399 @@ def time_at_launch_sizes(cell: Cell, m: int, sizes: dict, launches: dict,
         log(f"{cell.label} {name}: Σ over its {launches[name]} launches of "
             f"(time − bound), interpolated in S between the timed sizes: "
             f"{loss:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the krylov fleet's cohort queries: the cached merge tree
+# ---------------------------------------------------------------------------
+
+COHORT_RTOL = 1e-4   # same association, same SVD inputs: rounding only
+# query_global of the krylov fleet (S = 1024) through the uncached
+# midpoint fold the port had before the node cache, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W
+FOLD_BEFORE_CACHE_S = 3.123
+
+
+def _sketch_gram(eng, g):
+    """BᵀB (float64) of the compressed sketch of a merged S = 1 state."""
+    B = eng.base.query(g, eng.t)[0].double()
+    return B.mT @ B
+
+
+def _from_scratch(eng, state, cohort, got, what: str) -> float:
+    """``got`` (a merged state) against a fresh tree's answer for the same
+    cohort (every node merged anew, the same association): the relative
+    Frobenius distance of their Grams; raises past COHORT_RTOL."""
+    import torch
+
+    from repro_torch.sketch.query import AggTree
+
+    want = AggTree(eng.base, eng.S).query(state, cohort, eng.t)
+    a, b = _sketch_gram(eng, got), _sketch_gram(eng, want)
+    rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    if not rel <= COHORT_RTOL:
+        raise AssertionError(f"cohort {what}: relative Frobenius distance "
+                             f"{rel:.3e} from the from-scratch fold > "
+                             f"{COHORT_RTOL:.0e}")
+    return rel
+
+
+def _path_nodes(S: int, users) -> set:
+    """The internal tree nodes holding any of ``users``."""
+    out = set()
+    for u in users:
+        lo, hi = 0, S
+        while hi - lo > 1:
+            out.add((lo, hi))
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if u < mid else (mid, hi)
+    return out
+
+
+def cohort_queries(eng, cold_merges: int, t_cold: float, rng) -> dict:
+    """The krylov fleet's query plane after its counted run: the cold ALL
+    query (``query_global``, just made) cost S − 1 merges; warm random
+    contiguous cohorts cost ≤ 2⌈log₂S⌉ each and a repeated one nothing;
+    8 users given a row at the same clock make ALL merge only their
+    paths again; each answer equals a from-scratch fold.  Last, one engine
+    tick over the same 8 users moves the clock, so every node is stale."""
+    import torch
+
+    from repro_torch.sketch.query import ALL, Cohort, full_reduce_streams
+    from repro_torch.tree import take, tree_map
+
+    S, t, tree = eng.S, eng.t, eng.tree
+    budget = 2 * math.ceil(math.log2(S))
+    if cold_merges != S - 1:
+        raise AssertionError(f"cold ALL took {cold_merges} merges, not "
+                             f"S − 1 = {S - 1}")
+    g = tree.query(eng.state, ALL, t)
+    rel_all = _from_scratch(eng, eng.state, ALL, g, "ALL")
+    full = full_reduce_streams(eng.fleet, eng.state, t)
+    a, b = _sketch_gram(eng, g), _sketch_gram(eng, full)
+    rel_full = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    log(f"krylov cohort ALL cold: {cold_merges} merges (S − 1), {t_cold:.3f}"
+        f" s (the uncached fold before the cache: {FOLD_BEFORE_CACHE_S} s); "
+        f"vs a from-scratch fold {rel_all:.3e} relative Frobenius; vs "
+        f"full_reduce_streams (another association) {rel_full:.3e}")
+
+    spent, walls, rels = [], [], []
+    for _ in range(4):
+        lo = int(rng.integers(0, S - 1))
+        c = Cohort.range(lo, int(rng.integers(lo + 1, S + 1)))
+        m0 = tree.merges
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = tree.query(eng.state, c, t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        spent.append(tree.merges - m0)
+        if spent[-1] > budget:
+            raise AssertionError(f"warm cohort {c}: {spent[-1]} merges > "
+                                 f"2⌈log₂S⌉ = {budget}")
+        m0 = tree.merges
+        if tree.query(eng.state, c, t) is not got or tree.merges != m0:
+            raise AssertionError(f"repeated cohort {c} was not free")
+        rels.append(_from_scratch(eng, eng.state, c, got, repr(c)))
+    log(f"krylov cohort warm: 4 random ranges took {spent} merges (budget "
+        f"{budget}), {max(walls):.3f} s at most; repeats 0 merges; vs "
+        f"from-scratch folds ≤ {max(rels):.3e} relative Frobenius")
+
+    users = np.sort(rng.choice(S, 8, replace=False))
+    idx = torch.from_numpy(users).to(eng.device)
+    rows = unit_rows(rng, (8, 1, D))
+    one = eng.base.update_block(take(eng.state, idx), rows,
+                                torch.full((1,), t, dtype=torch.int32,
+                                           device=eng.device))
+    state2 = tree_map(lambda x, y: x.index_copy(0, idx, y), eng.state, one)
+    paths = _path_nodes(S, users.tolist())
+    tree.advance(state2, users.tolist())
+    m0 = tree.merges
+    g2 = tree.query(state2, ALL, t)
+    touched = tree.merges - m0
+    if touched != len(paths):
+        raise AssertionError(f"ALL after 8 users moved: {touched} merges, "
+                             f"their paths hold {len(paths)} nodes")
+    rel8 = _from_scratch(eng, state2, ALL, g2, "ALL after 8 users moved")
+
+    for u in users:
+        eng.submit(int(u), rows[list(users).index(u), 0].cpu().numpy())
+    eng.step()
+    m0 = tree.merges
+    eng.query_cohort(None)
+    ticked = tree.merges - m0
+    log(f"krylov cohort after 8 users {users.tolist()} moved at the same "
+        f"clock: ALL merged {touched} nodes, their paths' {len(paths)}; vs "
+        f"a from-scratch fold {rel8:.3e}; after an engine tick over them "
+        f"(the clock moves, so every node is stale): {ticked} merges")
+    return {"cold_merges": cold_merges, "cold_s": t_cold,
+            "warm_merges": spent, "touched_merges": touched,
+            "tick_merges": ticked}
+
+
+# ---------------------------------------------------------------------------
+# phase layered: Seq-DS-FD and Time-DS-FD at full width
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Layered:
+    """One layered fleet the script drives: ``blink`` makes half the users
+    alternate 4 busy and 4 idle ticks (Time-DS-FD's shared clock ages an
+    idle user's window out)."""
+    label: str
+    streams: int
+    R: float
+    blink: bool = False
+
+
+SEQ = Layered("seq-dsfd", 128, 64.0)
+TIME = Layered("time-dsfd", 32, 16.0, blink=True)
+LAYERED_EPS, BETA, HEAVY_SHARE = 1 / 32, 4.0, 0.02
+
+
+@contextlib.contextmanager
+def bypass_calls():
+    """The sketch indices of every heavy-row bypass (``core/dsfd.py``
+    ``_bypass``) while the context is open, as device tensors (read after
+    the run: no host read in the loop)."""
+    from repro_torch.core import dsfd
+
+    calls, saved = [], dsfd._bypass
+
+    def record(P, idx, rows, now):
+        calls.append(idx)
+        return saved(P, idx, rows, now)
+
+    dsfd._bypass = record
+    try:
+        yield calls
+    finally:
+        dsfd._bypass = saved
+
+
+def run_layered(cell: Layered, ticks: int, seed: int,
+                device: str = "cuda") -> dict:
+    """Feed a layered engine ``ticks`` ticks of 8 rows per busy user with
+    ‖a‖² log-uniform on [1, R] (2 % at 0.99·R) and check every user
+    against Theorem 4.1 / Corollary 5.1 through ``window_gram``."""
+    import torch
+
+    from repro_torch.core import dsfd, errors, seq_dsfd
+    from repro_torch.data.streams import SyntheticSource
+    from repro_torch.serve.engine import SketchFleetEngine
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    S, eps = cell.streams, LAYERED_EPS
+    eng = SketchFleetEngine(cell.label, d=D, streams=S, eps=eps,
+                            window=WINDOW, block=BLOCK, mode="krylov",
+                            R=cell.R, ingest="async", device=device)
+    cfg = eng.base.meta["cfg"]
+    L, thetas = cfg.levels, np.asarray(cfg.thetas)
+    log(f"{cell.label}: S = {S}, R = {cell.R:g}, {L} levels, θ = "
+        f"{thetas[0]:g}..{thetas[-1]:g}, ℓ = {cfg.base.ell}, m = "
+        f"{cfg.base.m}, cap = {cfg.base.cap}")
+    half = S // 2
+    srcs = (SyntheticSource(D, seed=seed),
+            SyntheticSource(D, k=10, seed=seed + 1))
+    rng = np.random.default_rng(seed + 2)
+    win = torch.zeros((S, WINDOW, D), device=device)
+    heavy_rows = np.zeros(L, np.int64)       # rows with ‖a‖² ≥ θⱼ
+    fed = [0]
+
+    def next_tick():
+        tick = fed[0]
+        rows = np.concatenate([s.rows(half * BLOCK) for s in srcs])
+        norm2 = np.exp(rng.uniform(0.0, np.log(cell.R), rows.shape[0]))
+        norm2[rng.random(rows.shape[0]) < HEAVY_SHARE] = 0.99 * cell.R
+        slab = (rows * np.sqrt(norm2)[:, None]).astype(np.float32).reshape(
+            S, BLOCK, D)
+        busy = np.ones(S, bool)
+        if cell.blink and (tick // 4) % 2:
+            busy[half:] = False
+            slab[half:] = 0.0
+        e = np.sum(slab.astype(np.float64) ** 2, axis=2)[busy]
+        heavy_rows[:] += (e[..., None] >= thetas).sum(axis=(0, 1))
+        slot = tick % (WINDOW // BLOCK) * BLOCK
+        host = torch.from_numpy(slab)
+        if device == "cuda":
+            host = host.pin_memory()
+        win[:, slot:slot + BLOCK].copy_(host, non_blocking=True)
+        fed[0] += 1
+        users = np.repeat(np.flatnonzero(busy), BLOCK)
+        return users, slab[busy].reshape(-1, D)
+
+    # each tick's rows are submitted just before its step: submitted a tick
+    # ahead, an idle user's empty slab would be topped up with its next
+    # tick's rows (the async pipeline's contract), and the window ring
+    # would no longer be the engine's
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    dsfd.host_indices.count = 0
+    sync()
+    t0 = time.perf_counter()
+    with bypass_calls() as calls:
+        for tick in range(ticks):
+            users, rows = next_tick()
+            eng.submit_many(users, rows)
+            if eng.step() != users.size:
+                raise AssertionError(f"{cell.label} tick {tick} ingested a "
+                                     "partial slab")
+        sync()
+    elapsed = time.perf_counter() - t0
+    syncs = dsfd.host_indices.count
+    log(f"{cell.label} engine: {ticks} ticks, {eng.rows_ingested} rows in "
+        f"{elapsed:.3f} s: {eng.rows_ingested / elapsed:.1f} rows/s, "
+        f"{elapsed / ticks * 1e3:.3f} ms/tick, {syncs / ticks:.2f} host "
+        f"syncs/tick")
+
+    # the bypass: per level, one ring append in main and aux per heavy row
+    flat = (torch.cat(calls) if calls else torch.zeros(0, dtype=torch.long,
+                                                       device=device))
+    by_level = torch.bincount(flat % (S * L) % L, minlength=L).cpu().numpy()
+    log(f"{cell.label} bypass appends by level {by_level.tolist()}; 2 × the "
+        f"rows with ‖a‖² ≥ θⱼ {(2 * heavy_rows).tolist()}")
+    if not by_level[0] or np.any((by_level > 0) != (heavy_rows > 0)):
+        raise AssertionError(f"{cell.label}: the bypass ran at levels "
+                             f"{np.flatnonzero(by_level).tolist()}, the rows "
+                             f"reach {np.flatnonzero(heavy_rows).tolist()}")
+
+    t1 = time.perf_counter()
+    G = errors.window_gram(win)
+    fro = torch.diagonal(G, dim1=1, dim2=2).sum(dim=1)
+    B = eng.base.query(eng.state, eng.t)
+    err = errors.cova_error_gram(G, B)
+    ratio = (err / (BETA * eps * fro)).cpu().numpy()
+    t_chk = time.perf_counter() - t1
+    if not np.isfinite(ratio).all():
+        raise AssertionError(f"{cell.label}: error not finite")
+    over = np.flatnonzero(ratio > 1.0)
+    if over.size:
+        raise AssertionError(
+            f"{cell.label} users {over[:8].tolist()}: ‖A_WᵀA_W − BᵀB‖₂ up "
+            f"to {ratio.max():.3f}·βε‖A_W‖_F² (β = {BETA:g})")
+    diff = 0.0
+    for u in (0, S - 1):
+        A = win[u].double().cpu().numpy()
+        Bu = B[u].double().cpu().numpy()
+        e64 = float(np.max(np.abs(np.linalg.eigvalsh(A.T @ A - Bu.T @ Bu))))
+        diff = max(diff, abs(e64 - float(err[u])) / float(fro[u]))
+    sel = seq_dsfd.layered_select(cfg, eng.state, eng.t)
+    hist = torch.bincount(sel, minlength=L).cpu().numpy()
+    log(f"{cell.label} {'Corollary 5.1' if cell.blink else 'Theorem 4.1'} "
+        f"on all {S} users (window_gram on the card, f32): worst error "
+        f"{ratio.max():.4f}·βε‖A_W‖_F² (bound 1, β = {BETA:g}), "
+        f"{t_chk:.3f} s; users 0 and {S - 1} in float64 on the host within "
+        f"{diff:.3e}·‖A_W‖_F²; selected levels {hist.tolist()}")
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"{cell.label} launches {launches}")
+    for name in FUSED + ("window_gram",):
+        if launches[name] <= 0:
+            raise AssertionError(f"{cell.label}: {name} never launched")
+    for name in SPLIT:
+        if launches[name]:
+            raise AssertionError(f"{cell.label}: {name} launched "
+                                 f"{launches[name]} times off its path")
+    return {"launches": launches, "elapsed": elapsed,
+            "ms_tick": elapsed / ticks * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# phase score: the scoring plane at full width
+# ---------------------------------------------------------------------------
+
+SCORE_STREAMS, SCORE_SWITCH, SCORE_SWITCHED, SCORE_K = 256, 48, 8, 10
+
+
+def _score_feed(S: int, ticks: int, seed: int):
+    """Per tick the (users, rows) of 8 unit rows per user in the user's
+    own k = 10 subspace; at tick SCORE_SWITCH, 8 users move to fresh
+    subspaces.  Returns the feed and the switched users."""
+    rng = np.random.default_rng(seed)
+
+    def bases(n):
+        q, _ = np.linalg.qr(rng.standard_normal((n, D, SCORE_K)))
+        return q.transpose(0, 2, 1).astype(np.float32)     # (n, k, d)
+
+    sub = bases(S)
+    switched = np.linspace(0, S - 1, SCORE_SWITCHED).round().astype(int)
+    fresh = bases(SCORE_SWITCHED)
+    users = np.repeat(np.arange(S), BLOCK)
+    feed = []
+    for tick in range(ticks):
+        if tick == SCORE_SWITCH:
+            sub[switched] = fresh
+        c = rng.standard_normal((S, BLOCK, SCORE_K)).astype(np.float32)
+        rows = np.einsum("sbk,skd->sbd", c, sub)
+        rows /= np.linalg.norm(rows, axis=2, keepdims=True)
+        feed.append((users, rows.reshape(-1, D)))
+    return feed, switched
+
+
+def run_score(ticks: int, seed: int, device: str = "cuda") -> dict:
+    """The krylov fleet with ``score=True`` and without, on the same rows;
+    the scored run must flag every switched user; then the score's Gram
+    kernel and ``eigh`` timed at its shape."""
+    import torch
+
+    from repro_torch.kernels.gram import kernel as gk
+    from repro_torch.serve.engine import SketchFleetEngine
+
+    S = SCORE_STREAMS
+    feed, switched = _score_feed(S, ticks, seed)
+    counters = launch_counters()
+    out = {}
+    for scored in (True, False):
+        eng = SketchFleetEngine("dsfd", d=D, streams=S, eps=1 / 32,
+                                window=WINDOW, block=BLOCK, mode="krylov",
+                                score=scored, ingest="async", device=device)
+        eng.submit_many(*feed[0])
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tick in range(ticks):
+            if tick + 1 < ticks:
+                eng.submit_many(*feed[tick + 1])
+            eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / ticks * 1e3
+        out["ms_scored" if scored else "ms_plain"] = ms
+        if not scored:
+            break
+        launches = {k: fn.launches for k, fn in counters.items()}
+        flagged = eng.anomalies()
+        missed = sorted(set(switched.tolist()) - set(flagged.tolist()))
+        others = len(set(flagged.tolist()) - set(switched.tolist()))
+        log(f"score engine: {ticks} ticks with scoring, {ms:.3f} ms/tick; "
+            f"flagged {len(flagged)} users: "
+            f"{SCORE_SWITCHED - len(missed)} of the {SCORE_SWITCHED} "
+            f"switched at tick {SCORE_SWITCH} and {others} others; "
+            f"launches {launches}")
+        if missed:
+            raise AssertionError(f"score: switched users {missed} not "
+                                 "flagged")
+        for name in ("gram",) + FUSED:
+            if launches[name] <= 0:
+                raise AssertionError(f"score: {name} never launched")
+        out["launches"] = launches
+        rows = eng.base.query_rows(eng.state, eng.t)
+        K = gk.gram_cuda(rows)
+        out.update(time_in_turns({
+            "gram": lambda: gk.gram_cuda(rows),
+            "eigh": lambda: torch.linalg.eigh(K.double())}, rounds=3,
+            reps=1))
+        del eng
+    log(f"score: {out['ms_scored']:.3f} ms/tick with scoring, "
+        f"{out['ms_plain']:.3f} without; at the score's shape "
+        f"{tuple(rows.shape)}: gram {out['gram']:.4f} ms, eigh "
+        f"{out['eigh']:.3f} ms a call (f64, as the path)")
     return out
 
 
@@ -1247,11 +1671,17 @@ def main(argv=None) -> int:
                     default=math.ceil(2.5 * WINDOW / BLOCK))
     ap.add_argument("--fast-ticks", type=int, default=16)
     ap.add_argument("--fine-ticks", type=int,
-                    default=math.ceil(2.5 * WINDOW / BLOCK))
+                    default=math.ceil(1.25 * WINDOW / BLOCK))
+    ap.add_argument("--layered-ticks", type=int,
+                    default=math.ceil(1.5 * WINDOW / BLOCK))
+    ap.add_argument("--time-ticks", type=int, default=160)
+    ap.add_argument("--score-ticks", type=int, default=64)
     ap.add_argument("--launch-sizes", action="store_true",
                     help="internal: time the dump-step kernels at the "
                     "launch sizes given on standard input")
     args = ap.parse_args(argv)
+    if args.score_ticks <= SCORE_SWITCH:
+        ap.error(f"--score-ticks must pass the switch at tick {SCORE_SWITCH}")
 
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -1309,6 +1739,21 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    seq = run_layered(SEQ, args.layered_ticks, args.seed + 300)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tds = run_layered(TIME, args.time_ticks, args.seed + 400)
+    log(f"phase layered: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sco = run_score(args.score_ticks, args.seed + 500)
+    log(f"phase score: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     srv = run_serve(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1338,10 +1783,18 @@ def main(argv=None) -> int:
         "window_gram": ("window_gram.cu", "window_gram/kernel.py:34"),
         "flash_fwd": ("flash_attn.cu", "flash_attn/kernel.py:86"),
     }
+    # and the launches of every path that ran it, each counted from 0
+    paths = {"krylov": kry["launches"], "fine": fine["launches"],
+             "seq-dsfd": seq["launches"], "time-dsfd": tds["launches"],
+             "score": sco["launches"],
+             "serve": {"flash_fwd": srv["launches"]}}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{src}",
                  replaces=f"src/repro/kernels/{tpu}",
-                 launches=launches[name], **stats[name])
+                 launches=launches[name],
+                 launches_by_path={p: n[name] for p, n in paths.items()
+                                   if n.get(name)},
+                 **stats[name])
             for name, (src, tpu) in where.items()]
     print(json.dumps({"kernels": rows}))
     print(f"gpu: {gpu}")

@@ -2,10 +2,12 @@
 port.
 
 The reference's ``DSFDState`` is a pytree of per-stream arrays; a fleet's
-state carries a leading stream axis S on every leaf.  These functions take
-and give that state with numpy leaves (``jax.tree.map(np.asarray, s)`` on
-the reference side), so nothing here imports the reference.  The field
-names and order of ``SketchState`` are the reference's.  Model weights
+state carries a leading stream axis S on every leaf, a layered (Seq- or
+Time-DS-FD) stack a level axis L, and a layered fleet both (S, L).  These
+functions take and give those states, and adaptive-rank FD states, with
+numpy leaves (``jax.tree.map(np.asarray, s)`` on the reference side), so
+nothing here imports the reference.  The field names and order of the
+states are the reference's.  Model weights
 cross the same way: the reference's parameter tree with numpy leaves
 becomes the port's nested dict of tensors, with the same keys and the
 stacked ``(L, ...)`` layout.
@@ -20,6 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsfd import DSFDConfig, DSFDState, SketchState
+from repro_torch.core.fd import AdaptiveFDState
+from repro_torch.core.seq_dsfd import LayeredConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.params import ParamDef
@@ -45,18 +49,26 @@ def config_to_reference_fields(cfg: DSFDConfig) -> dict:
                 use_pallas=cfg.use_kernel)
 
 
-def _shapes(cfg: DSFDConfig, S: int) -> dict:
-    return {"buf": (S, cfg.m, cfg.d), "snap_v": (S, cfg.cap, cfg.d),
-            "snap_s": (S, cfg.cap), "snap_t": (S, cfg.cap),
-            "snap_valid": (S, cfg.cap)}
+def layered_config_from_reference(cfg: Any) -> LayeredConfig:
+    """The port's config for a reference ``LayeredConfig``."""
+    return LayeredConfig(base=config_from_reference(cfg.base),
+                         thetas=tuple(float(x) for x in cfg.thetas),
+                         swap_energies=tuple(float(x)
+                                             for x in cfg.swap_energies))
 
 
-def _sketch_from_numpy(cfg, sk, S, dev) -> SketchState:
-    shapes = _shapes(cfg, S)
+def _shapes(cfg: DSFDConfig, lead: tuple) -> dict:
+    return {"buf": lead + (cfg.m, cfg.d), "snap_v": lead + (cfg.cap, cfg.d),
+            "snap_s": lead + (cfg.cap,), "snap_t": lead + (cfg.cap,),
+            "snap_valid": lead + (cfg.cap,)}
+
+
+def _sketch_from_numpy(cfg, sk, lead: tuple, dev) -> SketchState:
+    shapes = _shapes(cfg, lead)
     out = {}
     for name, leaf in zip(SketchState._fields, sk):
         arr = np.asarray(leaf)
-        want = shapes.get(name, (S,))
+        want = shapes.get(name, lead)
         if arr.shape != want:
             raise ValueError(f"state leaf {name} has shape {arr.shape}, "
                              f"expected {want} for this config")
@@ -70,17 +82,73 @@ def dsfd_state_from_numpy(cfg: DSFDConfig, leaves: Any,
     """The port's state from a reference ``DSFDState`` whose leaves are
     numpy arrays with a leading stream axis S."""
     dev = resolve_device(device)
-    S = int(np.asarray(leaves.main.nbuf).shape[0])
-    return DSFDState(main=_sketch_from_numpy(cfg, leaves.main, S, dev),
-                     aux=_sketch_from_numpy(cfg, leaves.aux, S, dev))
+    lead = np.asarray(leaves.main.nbuf).shape[:1]
+    return DSFDState(main=_sketch_from_numpy(cfg, leaves.main, lead, dev),
+                     aux=_sketch_from_numpy(cfg, leaves.aux, lead, dev))
+
+
+def _numpy(state):
+    return type(state)(*(_numpy(x) if isinstance(x, tuple)
+                         else x.detach().cpu().numpy() for x in state))
 
 
 def dsfd_state_to_numpy(state: DSFDState) -> DSFDState:
     """The same state with numpy leaves (field order of the reference, so
     ``repro.core.dsfd.SketchState(*s.main)`` rebuilds it there)."""
+    return _numpy(state)
+
+
+def layered_state_from_numpy(cfg: LayeredConfig, leaves: Any,
+                             device="cuda") -> DSFDState:
+    """The port's (S, L, …) layered state from a reference layered state
+    with numpy leaves: one stack (L, …), which becomes S = 1, or a fleet
+    (S, L, …)."""
+    dev = resolve_device(device)
+    one = np.asarray(leaves.main.nbuf).ndim == 1
+
     def conv(sk):
-        return SketchState(*(x.detach().cpu().numpy() for x in sk))
-    return DSFDState(main=conv(state.main), aux=conv(state.aux))
+        arrs = [np.asarray(x)[None] if one else np.asarray(x) for x in sk]
+        return _sketch_from_numpy(cfg.base, arrs, arrs[1].shape[:1]
+                                  + (cfg.levels,), dev)
+
+    return DSFDState(main=conv(leaves.main), aux=conv(leaves.aux))
+
+
+def layered_state_to_numpy(state: DSFDState, *,
+                           fleet: bool = True) -> DSFDState:
+    """The same (S, L, …) state with numpy leaves; ``fleet=False`` gives
+    the reference's one-stack layout (L, …) of an S = 1 state."""
+    out = _numpy(state)
+    if fleet:
+        return out
+    if out.main.nbuf.shape[0] != 1:
+        raise ValueError(f"one stack needs S = 1, got "
+                         f"S = {out.main.nbuf.shape[0]}")
+    return DSFDState(*(SketchState(*(x[0] for x in sk)) for sk in out))
+
+
+def adaptive_state_from_numpy(leaves: Any, device="cuda") -> AdaptiveFDState:
+    """The port's adaptive-rank FD state from a reference
+    ``AdaptiveFDState`` with numpy leaves: one sketch (``buf`` (2ℓ, d)),
+    which becomes S = 1, or a fleet (S, …)."""
+    dev = resolve_device(device)
+    one = np.asarray(leaves.buf).ndim == 2
+    out = {}
+    for name, leaf in zip(AdaptiveFDState._fields, leaves):
+        arr = np.array(leaf)[None] if one else np.array(leaf)
+        dtype = torch.int32 if name in ("nbuf", "ell") else torch.float32
+        out[name] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+    S = out["buf"].shape[0]
+    for name, x in out.items():
+        if name != "buf" and x.shape != (S,):
+            raise ValueError(f"state leaf {name} has shape "
+                             f"{tuple(x.shape)}, expected ({S},)")
+    return AdaptiveFDState(**out)
+
+
+def adaptive_state_to_numpy(state: AdaptiveFDState) -> AdaptiveFDState:
+    """The same adaptive-rank state with numpy leaves (S, …)."""
+    return _numpy(state)
 
 
 def _tensor(arr, dev) -> torch.Tensor:

@@ -18,19 +18,24 @@ the batching is written out:
   (one fused launch, or the split route's three where a buffer outgrows
   one CTA);
 * the main and auxiliary sketch of every stream absorb the same row, so a
-  block update stacks them into one batch of 2S sketches.
+  block update stacks them into one batch of 2S sketches;
+* θ and the swap energy are one value per stream, so a batch can stack
+  sketches of different thresholds (the levels of Seq- and Time-DS-FD,
+  ``core/seq_dsfd.py``, run as one batch of S·L sketches); a scalar is
+  the same for every stream.
 
 ``update`` functions do not modify the state they are given: a block
 update copies the state once (into the stacked 2S batch) and then updates
 that copy in place.  Timestamps are int32 with ``_NEG = -(2**30)`` for
-empty slots, as in the reference.  ``dsfd_update`` has no ``bypass``
-(Seq-DS-FD is not ported yet) and ``dsfd_score`` is not ported yet.
+empty slots, as in the reference.  ``bypass=True`` takes Seq-DS-FD's
+heavy-row shortcut (Algorithm 6 lines 4-6), and ``dsfd_score`` gives the
+residual anomaly scores of rows against the window's sketch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ from repro_torch.core.fd import fd_absorb, fd_compress, fd_init, fd_rotate, \
     fd_shrink
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.fused_tick.ops import fused_krylov_step, gram_power
+from repro_torch.sketch.basis import residual_scores
 from repro_torch.tree import take, tree_map
 
 _NEG = -(2 ** 30)
@@ -208,10 +214,11 @@ def _dump_sorted_rows(sk: SketchState, idx: torch.Tensor, rows: torch.Tensor,
                       nrows: torch.Tensor, now: torch.Tensor,
                       theta: torch.Tensor) -> None:
     """Given SVD-sorted rows of sketches ``idx``, dump every row with
-    ‖row‖² ≥ θ into the ring (Algorithm 2 lines 9-11), then compact the
-    remaining rows to the top of the buffer, in place."""
+    ‖row‖² ≥ θ (``theta`` (n,), one per sketch) into the ring (Algorithm 2
+    lines 9-11), then compact the remaining rows to the top of the
+    buffer, in place."""
     m = rows.shape[1]
-    ndump = (torch.sum(rows * rows, dim=2) >= theta).sum(dim=1) \
+    ndump = (torch.sum(rows * rows, dim=2) >= theta[:, None]).sum(dim=1) \
         .to(torch.int32)                                    # sorted ⇒ prefix
     _ring_append(sk, idx, rows, ndump, sk.last_t[idx] + 1, now)
     ar = torch.arange(m, device=rows.device)
@@ -233,7 +240,7 @@ def _krylov_dumps(cfg: DSFDConfig, sk: SketchState, idx: torch.Tensor,
                   now: torch.Tensor, theta: torch.Tensor) -> None:
     """While σ₁²(buf) ≥ θ: extract v₁ = u₁ᵀD/σ₁, snapshot σ₁·v₁, downdate
     (Algorithm 3 lines 14-22 with power iteration, §3.1), for the sketches
-    ``idx``, in place.
+    ``idx`` (``theta`` (n,), one per sketch), in place.
 
     The loop entry is one ``gram_power`` call and each iteration one
     ``fused_krylov_step`` call over the sketches still active: one launch
@@ -260,7 +267,7 @@ def _krylov_dumps(cfg: DSFDConfig, sk: SketchState, idx: torch.Tensor,
         _ring_append(sk, idx[a], snap[:, None, :],
                      torch.ones_like(s), s, now[a])
         buf[a], lam[a], u[a] = D2, lam2, u2
-        active[a] = lam2 >= theta
+        active[a] = lam2 >= theta[a]
     sk.buf[idx] = buf
     sk.sig1[idx] = lam
 
@@ -307,35 +314,56 @@ def _insert(P: SketchState, rows, light, e) -> SketchState:
         energy=torch.where(light, P.energy + e, P.energy))
 
 
+def _bypass(P: SketchState, idx: torch.Tensor, rows: torch.Tensor,
+            now: torch.Tensor) -> None:
+    """Heavy rows (‖a‖² ≥ θ) of the sketches ``idx`` go straight into their
+    rings as one snapshot each, covering from ``last_t + 1`` (Algorithm 6
+    lines 4-6), in place; the buffers and energies are not touched."""
+    _ring_append(P, idx, rows[idx][:, None],
+                 torch.ones_like(idx, dtype=torch.int32), P.last_t[idx] + 1,
+                 now[idx])
+
+
 def _update_pair(cfg: DSFDConfig, P: SketchState, S: int, row, now, theta,
-                 swap_energy) -> SketchState:
+                 swap_energy, bypass: bool) -> SketchState:
     """One sliding-window update of every stream, on the stacked pair
-    P = [main; aux] (2S sketches); ``row`` (S, d), ``now`` (S,)."""
+    P = [main; aux] (2S sketches); ``row`` (S, d), ``now``, ``theta`` and
+    ``swap_energy`` (S,).  A row is heavy with ``bypass`` and ‖a‖² ≥ θ,
+    else light if ‖a‖² > 0, else idle (expiry and swap only)."""
     dev = row.device
-    now2 = torch.cat([now, now])
+    now2, theta2 = torch.cat([now, now]), torch.cat([theta, theta])
     P = _expire(P, now2, cfg.window)
     swap = P.energy[S:] >= swap_energy
     e = torch.sum(row * row, dim=1)
-    light, e2 = torch.cat([e > 0.0, e > 0.0]), torch.cat([e, e])
+    heavy = (e >= theta) if bypass else torch.zeros_like(swap)
+    light_s = (e > 0.0) & ~heavy
+    light, e2 = torch.cat([light_s, light_s]), torch.cat([e, e])
     rows2 = torch.cat([row, row])
-    if cfg.mode == "exact":
-        sw = host_indices(swap)
+
+    def swap_and_bypass(sw, hv):
         if sw.size:
             si = _index(sw, dev)
             _swap(cfg, P, S, si, now[si])
+        if hv.size:
+            hi = _index(np.concatenate([hv, hv + S]), dev)
+            _bypass(P, hi, rows2, now2)
+
+    if cfg.mode == "exact":
+        flags = host_indices(torch.cat([swap, heavy]))
+        swap_and_bypass(flags[flags < S], flags[flags >= S] - S)
         P = _insert(P, rows2, light, e2)
         lit = host_indices(light)
         if lit.size:
             li = _index(lit, dev)
-            _rotate_dump(cfg, P, li, now2[li], theta)
+            _rotate_dump(cfg, P, li, now2[li], theta2[li])
             full = host_indices(P.nbuf[li] >= cfg.m)
             if full.size:
                 fi = li[_index(full, dev)]
-                _svd_merge(cfg, P, fi, now2[fi], theta)
+                _svd_merge(cfg, P, fi, now2[fi], theta2[fi])
         return P
     # Decide every branch from the small per-stream fields first, so the
-    # row costs one device→host read: the swap, then which sketches will
-    # be full or hot once the row is in.
+    # row costs one device→host read: the swap, the heavy rows, then which
+    # sketches will be full or hot once the row is in.
     nb, s1 = P.nbuf, P.sig1
     nb = torch.cat([torch.where(swap, nb[S:], nb[:S]),
                     torch.where(swap, 0, nb[S:])])
@@ -344,24 +372,21 @@ def _update_pair(cfg: DSFDConfig, P: SketchState, S: int, row, now, theta,
     nb = torch.where(light, nb + 1, nb)
     s1 = torch.where(light, s1 + e2, s1)
     full = light & (nb >= cfg.m)
-    hot = light & ~full & (s1 >= theta)
-    flags = host_indices(torch.cat([swap, full, hot]))
-    sw = flags[flags < S]
+    hot = light & ~full & (s1 >= theta2)
+    flags = host_indices(torch.cat([swap, full, hot, heavy]))
     fu = flags[(flags >= S) & (flags < 3 * S)] - S
-    ho = flags[flags >= 3 * S] - 3 * S
-    if sw.size:
-        si = _index(sw, dev)
-        _swap(cfg, P, S, si, now[si])
+    ho = flags[(flags >= 3 * S) & (flags < 5 * S)] - 3 * S
+    swap_and_bypass(flags[flags < S], flags[flags >= 5 * S] - 5 * S)
     P = _insert(P, rows2, light, e2)
     if fu.size:
         fi = _index(fu, dev)
-        _svd_merge(cfg, P, fi, now2[fi], theta)
+        _svd_merge(cfg, P, fi, now2[fi], theta2[fi])
     if ho.size:
         hi = _index(ho, dev)
         if cfg.mode == "krylov":
-            _krylov_dumps(cfg, P, hi, now2[hi], theta)
+            _krylov_dumps(cfg, P, hi, now2[hi], theta2[hi])
         else:
-            _rotate_dump(cfg, P, hi, now2[hi], theta)
+            _rotate_dump(cfg, P, hi, now2[hi], theta2[hi])
     return P
 
 
@@ -370,44 +395,49 @@ def _update_pair(cfg: DSFDConfig, P: SketchState, S: int, row, now, theta,
 # ---------------------------------------------------------------------------
 
 
-def _thresholds(cfg, theta, swap_energy, device):
-    theta = torch.tensor(cfg.window / cfg.ell if theta is None else theta,
-                         dtype=torch.float32, device=device)
+def _thresholds(cfg, theta, swap_energy, S: int, device):
+    """θ and the swap energy as (S,) f32 tensors.  A scalar (by default
+    εN = N/ℓ, and ℓθ) holds for every stream; an (S,) array gives each
+    stream its own."""
+    f32 = dict(dtype=torch.float32, device=device)
+    theta = torch.as_tensor(cfg.window / cfg.ell if theta is None else theta,
+                            **f32)
     swap_energy = (theta * (1.0 * cfg.ell) if swap_energy is None else
-                   torch.tensor(swap_energy, dtype=torch.float32,
-                                device=device))
-    return theta, swap_energy
+                   torch.as_tensor(swap_energy, **f32))
+    return theta.expand(S).contiguous(), swap_energy.expand(S).contiguous()
 
 
 def dsfd_update_block(cfg: DSFDConfig, state: DSFDState, rows, ts,
-                      theta: Optional[float] = None,
-                      swap_energy: Optional[float] = None) -> DSFDState:
+                      theta=None, swap_energy=None,
+                      bypass: bool = False) -> DSFDState:
     """Absorb a block of rows: ``rows`` (S, B, d) at timestamps ``ts``
     ((B,) shared by every stream, or (S, B)).  Equal to B calls of
-    ``dsfd_update``.  ``theta`` defaults to εN = N/ℓ (Problem 1.1) and
-    ``swap_energy`` to ℓθ."""
+    ``dsfd_update``.  ``theta`` (a scalar or (S,)) defaults to εN = N/ℓ
+    (Problem 1.1) and ``swap_energy`` to ℓθ; ``bypass`` sends rows with
+    ‖a‖² ≥ θ straight into both rings (Seq-DS-FD, Algorithm 6)."""
     dev = state.main.buf.device
     rows = torch.as_tensor(rows, dtype=torch.float32).to(dev)
     S, B = rows.shape[0], rows.shape[1]
     ts = torch.as_tensor(ts, dtype=torch.int32).to(dev)
     ts = ts.expand(S, B) if ts.dim() == 1 else ts
-    theta, swap_energy = _thresholds(cfg, theta, swap_energy, dev)
+    theta, swap_energy = _thresholds(cfg, theta, swap_energy, S, dev)
     P = tree_map(lambda a, b: torch.cat([a, b]), state.main, state.aux)
     for b in range(B):
         P = _update_pair(cfg, P, S, rows[:, b], ts[:, b].contiguous(), theta,
-                         swap_energy)
+                         swap_energy, bypass)
     return DSFDState(main=take(P, slice(0, S)), aux=take(P, slice(S, 2 * S)))
 
 
-def dsfd_update(cfg: DSFDConfig, state: DSFDState, row, now,
-                theta: Optional[float] = None,
-                swap_energy: Optional[float] = None) -> DSFDState:
-    """One sliding-window update (Algorithm 2 / 3) of every stream:
-    ``row`` (S, d) at ``now`` (a scalar or (S,) timestamps)."""
+def dsfd_update(cfg: DSFDConfig, state: DSFDState, row, now, theta=None,
+                swap_energy=None, bypass: bool = False) -> DSFDState:
+    """One sliding-window update (Algorithm 2 / 3, or 6 with ``bypass``)
+    of every stream: ``row`` (S, d) at ``now`` (a scalar or (S,)
+    timestamps)."""
     row = torch.as_tensor(row, dtype=torch.float32)
     now = _times(now, row.shape[0], row.device)
     return dsfd_update_block(cfg, state, row[:, None], now[:, None],
-                             theta=theta, swap_energy=swap_energy)
+                             theta=theta, swap_energy=swap_energy,
+                             bypass=bypass)
 
 
 def dsfd_query_rows(cfg: DSFDConfig, state: DSFDState,
@@ -427,6 +457,16 @@ def dsfd_query_rows(cfg: DSFDConfig, state: DSFDState,
 
 def dsfd_query(cfg: DSFDConfig, state: DSFDState) -> torch.Tensor:
     return fd_compress(dsfd_query_rows(cfg, state), cfg.ell)
+
+
+def dsfd_score(cfg: DSFDConfig, state: DSFDState, X,
+               now=None) -> torch.Tensor:
+    """(S, n) residual anomaly scores of the rows of ``X`` ((n, d) for
+    every stream, or (S, n, d)) against each stream's window sketch: the
+    energy outside the span of its live snapshots ∪ residual,
+    ``‖x‖² − ‖x Vᵀ‖²`` clamped at 0 (``sketch/basis.py``).  ``now``
+    re-applies expiry first, as in ``dsfd_query_rows``."""
+    return residual_scores(dsfd_query_rows(cfg, state, now=now), X)
 
 
 def dsfd_merge(cfg: DSFDConfig, s1: DSFDState, s2: DSFDState,

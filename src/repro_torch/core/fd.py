@@ -1,7 +1,6 @@
 """FrequentDirections (Liberty 2013; Ghashami et al. 2016), batched over streams.
 
-Counterpart of ``repro/core/fd.py`` (fixed rank; adaptive rank is not
-ported yet).  The sketch is a ``(2ℓ, d)`` row buffer per stream; rows
+Counterpart of ``repro/core/fd.py``, fixed and adaptive rank.  The sketch is a ``(2ℓ, d)`` row buffer per stream; rows
 ``[0, nbuf)`` hold data.  Incoming rows fill free slots and a full buffer
 is shrunk with one SVD that subtracts ``σ_ℓ²`` from every squared singular
 value.  Guarantee (``ε = 1/ℓ``)::
@@ -144,3 +143,129 @@ def fd_query(state: FDState) -> torch.Tensor:
 def fd_merge(a: FDState, b: FDState, *, ell: int) -> FDState:
     """Merge two FD sketches stream by stream (absorb b's rows into a)."""
     return fd_absorb(a, b.buf, ell=ell)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive-rank FrequentDirections: the working rank ℓ grows or shrinks
+# toward a target relative error (the reference's ``AdaptiveFDState``)
+# ---------------------------------------------------------------------------
+
+
+class AdaptiveFDState(NamedTuple):
+    """FD state with an online working rank, per stream.
+
+    buf (S, 2ℓ_max, d) — the capacity of the rank cap, so states of every
+    working rank share one shape; only rows [0, nbuf) are live.  nbuf,
+    ell (S,) int32.  shed (S,) — Σ σ_ℓ² discarded by shrinks, so
+    ‖AᵀA − BᵀB‖₂ ≤ shed at every working rank; energy (S,) — ‖A‖_F² of
+    everything absorbed; shed_mark / energy_mark (S,) — both at the last
+    rank change, so (shed − shed_mark) / (energy − energy_mark) is the
+    error rate of the current rank, the controller's signal (see the
+    reference's docstring for why not the cumulative ratio)."""
+
+    buf: torch.Tensor
+    nbuf: torch.Tensor
+    shed: torch.Tensor
+    ell: torch.Tensor
+    energy: torch.Tensor
+    shed_mark: torch.Tensor
+    energy_mark: torch.Tensor
+
+
+def adaptive_fd_init(ell_max: int, d: int, streams: int = 1, *,
+                     ell0=None, device="cuda",
+                     dtype=torch.float32) -> AdaptiveFDState:
+    dev = resolve_device(device)
+    ell_max = int(min(ell_max, d))
+    ell0 = ell_max if ell0 is None else int(min(max(ell0, 1), ell_max))
+    S = int(streams)
+
+    def zeros():
+        return torch.zeros((S,), dtype=dtype, device=dev)
+
+    return AdaptiveFDState(
+        buf=torch.zeros((S, 2 * ell_max, d), dtype=dtype, device=dev),
+        nbuf=torch.zeros((S,), dtype=torch.int32, device=dev),
+        shed=zeros(),
+        ell=torch.full((S,), ell0, dtype=torch.int32, device=dev),
+        energy=zeros(), shed_mark=zeros(), energy_mark=zeros())
+
+
+def adaptive_fd_update(state: AdaptiveFDState, row: torch.Tensor, *,
+                       target: float, ell_min: int,
+                       ell_max: int) -> AdaptiveFDState:
+    """Absorb one row per stream (``row`` (S, d)); a stream whose buffer
+    reaches 2ℓ shrinks at its own ℓ and re-aims ℓ at ``target``.
+
+    After the shrink, the error rate of the current rank is compared to
+    the target: above it ℓ grows by one; below half of it ℓ shrinks by one
+    when the σ² rank ℓ−1 would start discarding (read off the same SVD)
+    also fits half the target's budget.  Streams given an all-zero row are
+    left as they were.  The SVD runs only for the streams that shrink (one
+    device→host read a row to find them)."""
+    buf, nbuf, shed, ell, energy, smark, emark = state
+    S, cap, _ = buf.shape
+    ar = torch.arange(S, device=buf.device)
+    e = torch.sum(row * row, dim=1).to(energy.dtype)
+    live = e > 0.0
+    slot = nbuf.long().clamp(max=cap - 1)
+    buf = buf.clone()
+    buf[ar, slot] = torch.where(live[:, None], row.to(buf.dtype),
+                                buf[ar, slot])
+    nbuf = torch.where(live, nbuf + 1, nbuf)
+    energy = torch.where(live, energy + e, energy)
+    idx = torch.nonzero(live & (nbuf >= 2 * ell)).flatten()
+    shed, ell, smark, emark = (x.clone() for x in (shed, ell, smark, emark))
+    if idx.numel():
+        rows, s2 = _svd_rows(buf[idx])
+        k = s2.shape[1]
+        el = ell[idx].long()
+        br = torch.arange(idx.numel(), device=buf.device)
+        delta = s2[br, el - 1]
+        s2n = torch.clamp(s2 - delta[:, None], min=0.0)
+        rows = rows * torch.sqrt(s2n / torch.clamp(s2, min=1e-30))[..., None]
+        sh = shed[idx] + delta
+        span = torch.clamp(energy[idx] - emark[idx], min=1e-30)
+        err = (sh - smark[idx]) / span
+        # what rank ℓ−1 would discard next (the reference indexes s2n at
+        # ℓ−2, which wraps to the last entry at ℓ = 1; the clip below then
+        # voids it)
+        probe = s2n[br, (el - 2) % k] + delta
+        down = (err < 0.5 * target) & (probe <= 0.5 * target * span)
+        new = torch.clamp(el + (err > target).long() - down.long(),
+                          ell_min, ell_max)
+        changed = new != el
+        buf[idx] = rows
+        # occupancy: the rows the shrink left alive (a sorted prefix)
+        nbuf[idx] = (s2n > 0.0).sum(dim=1).to(torch.int32)
+        shed[idx] = sh
+        smark[idx] = torch.where(changed, sh, smark[idx])
+        emark[idx] = torch.where(changed, energy[idx], emark[idx])
+        ell[idx] = new.to(torch.int32)
+    return AdaptiveFDState(buf, nbuf, shed, ell, energy, smark, emark)
+
+
+def adaptive_fd_absorb(state: AdaptiveFDState, rows: torch.Tensor, *,
+                       target: float, ell_min: int,
+                       ell_max: int) -> AdaptiveFDState:
+    """Absorb a block of rows per stream (``rows`` (S, n, d)) one row at a
+    time, as the reference's scan does."""
+    for i in range(rows.shape[1]):
+        state = adaptive_fd_update(state, rows[:, i], target=target,
+                                   ell_min=ell_min, ell_max=ell_max)
+    return state
+
+
+def adaptive_fd_merge(a: AdaptiveFDState, b: AdaptiveFDState, *,
+                      target: float, ell_min: int,
+                      ell_max: int) -> AdaptiveFDState:
+    """Merge stream by stream by absorbing b's buffer rows, then restore
+    the stream accounting: energy and shed cover both input streams, and
+    the current-rank measurement restarts at the merged totals."""
+    st = adaptive_fd_absorb(a, b.buf, target=target, ell_min=ell_min,
+                            ell_max=ell_max)
+    absorbed = torch.sum(b.buf * b.buf, dim=(1, 2)).to(st.energy.dtype)
+    energy = st.energy - absorbed + b.energy
+    shed = st.shed + b.shed
+    return st._replace(energy=energy, shed=shed, shed_mark=shed,
+                       energy_mark=energy)

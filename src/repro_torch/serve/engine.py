@@ -8,8 +8,9 @@ Counterpart of ``repro/serve/engine.py``.  Two serving paths live here:
   next queued request and splicing its caches into the batch at the slot
   index.
 * ``SketchFleetEngine`` — S per-user sliding-window sketches on one
-  device (admission, ticks and the user and global queries; topology,
-  history, scoring, checkpoints and cohort queries come in later slices).
+  device: admission, ticks, user and cohort queries through the cached
+  merge tree, and the scoring plane (topology, history and checkpoints
+  come in later slices).
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
     SlabTransfer, make_pipeline
 from repro_torch.serve.serve_step import build_decode_step, \
     build_prefill_step
-from repro_torch.sketch.api import fleet_streams, make_sketch, query_all
+from repro_torch.sketch import capability
+from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch
+from repro_torch.sketch.query import as_cohort
+from repro_torch.sketch.score import ScorePlane
 from repro_torch.tree import take
 
 
@@ -205,14 +209,27 @@ class SketchFleetEngine:
     is clock-neutral (a no-op) unless ``advance_time=True``: polling an
     idle engine must not expire live windows.
 
-    ``query_user(u)`` returns that user's compressed (2ℓ, d) window
-    sketch; ``query_global()`` the merge of every user's window, folded
-    with the association of the reference's ``AggTree.query(ALL)``.
+    Queries: ``query_user(u)`` returns that user's compressed (2ℓ, d)
+    window sketch; ``query_cohort(users)`` ONE compressed sketch over a
+    cohort of users (a ``Cohort``, an int, ids, or None for the whole
+    fleet), served from the fleet's cached ``AggTree`` — each ``step()``
+    dirties only the tree paths of the users it ingested rows for — and
+    ``query_global()`` is ``query_cohort(None)``.  ``score_rows(rows,
+    user)`` / ``score_cohort(rows, users)`` give residual anomaly scores
+    of probe rows against one user's or a cohort's window basis.
+
+    Anomaly flagging (``score=True``): each ingested slab is scored
+    against the window basis as it was BEFORE the update, inside the tick,
+    and a per-user EWMA threshold (``ScorePlane``: ``score_ema``,
+    ``score_zscore``, ``score_warmup``) flags users whose per-tick peak
+    score spikes; ``anomalies()`` harvests them.
     """
 
     def __init__(self, name: str = "dsfd", *, d: int, streams: int,
                  eps: float = 1 / 8, window: int = 1024, block: int = 8,
                  ingest: str = "async", queue_capacity: Optional[int] = None,
+                 score: bool = False, score_ema: float = 0.05,
+                 score_zscore: float = 4.0, score_warmup: int = 5,
                  device="cuda", **hyper):
         self.device = resolve_device(device)
         self.base = make_sketch(name, d=d, eps=eps, window=window,
@@ -227,6 +244,14 @@ class SketchFleetEngine:
         self.pipe = make_pipeline(ingest, self.queue, block=self.block,
                                   transfer=self.transfer)
         self._zero_slab = None         # lazy zero slab for idle ticks
+        self.tree = agg_tree(self.fleet)  # the cohort-query cache
+        self.score_plane = None
+        if score:
+            if not capability.has(self.fleet, "score"):
+                self.fleet.score()     # the capability raiser names the fix
+            self.score_plane = ScorePlane(self.S, ema=score_ema,
+                                          zscore=score_zscore,
+                                          warmup=score_warmup)
 
     # -- admission ---------------------------------------------------------
 
@@ -252,7 +277,7 @@ class SketchFleetEngine:
 
         A tick where NO user has pending rows is clock-neutral (a no-op)
         unless ``advance_time=True``."""
-        slab, _, _, nrows = self.pipe.next_slab()
+        slab, touched, counts, nrows = self.pipe.next_slab()
         if nrows == 0 and not advance_time:
             return 0
         if nrows == 0:
@@ -261,11 +286,21 @@ class SketchFleetEngine:
                                            np.float32)
             slab = self._zero_slab
         rows = self.transfer.to_compute(slab)
+        scores = None
+        if self.score_plane is not None and nrows:
+            # against the window BEFORE the update: a burst must not vouch
+            # for itself
+            scores = self.fleet.score(self.state, rows, self.t)
         ts = torch.arange(self.t + 1, self.t + self.block + 1,
                           dtype=torch.int32, device=self.device)
         self.state = self.fleet.update_block(self.state, rows, ts)
         self.t += self.block
         self.rows_ingested += nrows
+        self.tree.advance(self.state, touched)
+        if scores is not None:
+            cnt = np.zeros((self.S,), np.int64)
+            cnt[touched] = counts
+            self.score_plane.observe(scores.cpu().numpy(), cnt)
         # pack + copy the NEXT slab while the device runs this one
         self.pipe.after_dispatch()
         return nrows
@@ -293,16 +328,70 @@ class SketchFleetEngine:
 
     # -- queries -----------------------------------------------------------
 
-    def query_user(self, user: int) -> np.ndarray:
-        """That user's compressed (2ℓ, d) window sketch at the clock."""
+    def _user(self, user: int):
+        """That user's (S = 1) state."""
         u = int(user)
         if not 0 <= u < self.S:
             raise ValueError(f"user id {u} outside the fleet's "
                              f"[0, {self.S}) stream range")
-        one = take(self.state, slice(u, u + 1))
-        return self.base.query(one, self.t)[0].cpu().numpy()
+        return take(self.state, slice(u, u + 1))
+
+    def query_user(self, user: int) -> np.ndarray:
+        """That user's compressed (2ℓ, d) window sketch at the clock."""
+        return self.base.query(self._user(user), self.t)[0].cpu().numpy()
+
+    def query_cohort(self, users=None) -> np.ndarray:
+        """ONE compressed (2ℓ, d) sketch over a cohort of users' windows
+        (a ``Cohort``, an int, an iterable of ids, or None for all), from
+        the cached ``AggTree``: repeated and overlapping cohort queries
+        between ticks reuse its nodes (O(log S) merges warm)."""
+        g = self.tree.query(self.state, as_cohort(users), self.t)
+        return self.base.query(g, self.t)[0].cpu().numpy()
 
     def query_global(self) -> np.ndarray:
         """ONE compressed (2ℓ, d) sketch of every user's window."""
-        g = query_all(self.fleet, self.state, self.t)
-        return self.base.query(g, self.t)[0].cpu().numpy()
+        return self.query_cohort(None)
+
+    # -- the scoring plane ---------------------------------------------------
+
+    def score_rows(self, rows, user: Optional[int] = None) -> np.ndarray:
+        """(n,) residual anomaly scores of ``rows`` (n, d) against one
+        user's window basis (the whole fleet's when ``user`` is None)."""
+        if user is None:
+            return self.score_cohort(rows)
+        return self.base.score(self._user(user), rows,
+                               self.t)[0].cpu().numpy()
+
+    def score_cohort(self, rows, users=None) -> np.ndarray:
+        """(n,) residual anomaly scores of ``rows`` (n, d) against the
+        merged window basis of a cohort (``users`` as in
+        :meth:`query_cohort`)."""
+        g = self.tree.query(self.state, as_cohort(users), self.t)
+        return self.base.score(g, rows, self.t)[0].cpu().numpy()
+
+    def anomalies(self, *, reset: bool = False) -> np.ndarray:
+        """User ids currently flagged by the per-user EWMA thresholds
+        (``score=True`` engines); ``reset=True`` clears the flags after
+        reading."""
+        if self.score_plane is None:
+            raise ValueError(
+                "this engine scores nothing — build it with "
+                "SketchFleetEngine(..., score=True[, score_zscore=..., "
+                "score_warmup=...]) to run the per-user EWMA scoring "
+                "plane at ingest")
+        return np.asarray(self.score_plane.anomalies(reset=reset), np.int64)
+
+    def ranks(self) -> np.ndarray:
+        """Per-user working rank ℓ (adaptive-rank variants only,
+        ``"fd"`` with ``adapt_target``); the capability raiser otherwise."""
+        return self.fleet.ranks(self.state).cpu().numpy()
+
+    def space(self) -> Dict[str, int]:
+        """Live rows: the users' sketches, the cached ``AggTree`` nodes,
+        their total, and with adaptive rank the sum of the ranks."""
+        fs = self.fleet.space(self.state)
+        out = {"per_stream_total": int(fs.per_stream.sum()),
+               "cache_rows": int(fs.cache_rows), "total": int(fs.total)}
+        if fs.ranks is not None:
+            out["ranks_total"] = int(fs.ranks.sum())
+        return out

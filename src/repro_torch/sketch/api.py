@@ -1,7 +1,8 @@
 """The ``SlidingSketch`` API: one protocol and a registry, batched over streams.
 
-Counterpart of ``repro/sketch/api.py`` for ``"fd"`` and ``"dsfd"``.  The
-protocol is the reference's bundle of functions::
+Counterpart of ``repro/sketch/api.py`` for ``"fd"`` (fixed or adaptive
+rank), ``"dsfd"``, ``"seq-dsfd"`` and ``"time-dsfd"``.  The protocol is
+the reference's bundle of functions::
 
     sk = make_sketch("dsfd", d=64, eps=1/8, window=1024, mode="fast")
     state = sk.init()                               # one stream (S = 1)
@@ -10,21 +11,34 @@ protocol is the reference's bundle of functions::
 
 Every function takes and gives states whose tensors carry the stream axis
 first, so a single sketch is a fleet of one; :func:`fleet_streams` builds
-the fleet of S streams on one device.  Capabilities, scoring and
-checkpoints are not ported yet.
+the fleet of S streams on one device, and :func:`query_cohort` answers
+aggregate queries over any :class:`Cohort` of its streams from the
+fleet's cached :class:`AggTree` (``sketch/query.py``).  The optional
+fields are capabilities (``sketch/capability.py``): every variant scores
+rows (``score``), adaptive-rank FD reports its ranks (``ranks``), fleets
+answer cohorts (``query_cohort``).  Checkpoints, history
+(``query_interval``), the host baselines and the multi-device fleet are
+not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+import warnings
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.dsfd import dsfd_init, dsfd_merge, dsfd_query_rows, \
-    dsfd_update, dsfd_update_block, make_config
-from repro_torch.core.fd import fd_compress, fd_init, fd_merge, fd_update
+    dsfd_score, dsfd_update, dsfd_update_block, make_config
+from repro_torch.core.fd import adaptive_fd_init, adaptive_fd_merge, \
+    adaptive_fd_update, fd_compress, fd_init, fd_merge, fd_update
+from repro_torch.core.seq_dsfd import layered_init, layered_merge, \
+    layered_query_rows, layered_space, layered_update, layered_update_block, \
+    make_seq_config, make_time_config
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.sketch.query import merge_all
+from repro_torch.sketch import capability
+from repro_torch.sketch.basis import residual_scores
+from repro_torch.sketch.query import ALL, AggTree, Cohort  # noqa: F401
 
 
 class SlidingSketch(NamedTuple):
@@ -36,7 +50,14 @@ class SlidingSketch(NamedTuple):
     ``query_rows(s, t)`` gives the (S, ·, d) live rows, ``query(s, t)`` the
     (S, 2ℓ, d) compressed sketches, ``space(s)`` the (S,) live-row counts
     and ``merge(s1, s2, t)`` the stream-wise merge.  ``meta`` holds ``d``,
-    ``eps``, ``window``, ``ell`` and ``device``.
+    ``eps``, ``window``, ``ell``, ``device`` and ``spec`` (the constructor
+    arguments).
+
+    Capabilities: ``query_cohort(s, cohort, t)`` (fleets), ``score(s, X,
+    t=None)`` — the (S, n) residual anomaly scores of the rows of ``X``
+    ((n, d), or (S, n, d) per stream) against each window's sketch basis —
+    and ``ranks(s)`` (adaptive-rank FD).  ``query_interval`` is always the
+    capability raiser here (no history plane yet).
     """
 
     name: str
@@ -48,19 +69,25 @@ class SlidingSketch(NamedTuple):
     query: Callable[..., Any]
     space: Callable[[Any], Any]
     merge: Callable[..., Any]
+    query_cohort: Optional[Callable[..., Any]] = None
+    query_interval: Optional[Callable[..., Any]] = None
+    score: Optional[Callable[..., Any]] = None
+    ranks: Optional[Callable[..., Any]] = None
 
 
 class FleetSpace(NamedTuple):
-    """``per_stream`` (S,) live-row counts, ``total`` their sum plus
-    ``cache_rows`` (rows held by a query cache; 0 until the cohort cache
-    is ported)."""
+    """``per_stream`` (S,) live-row counts; ``cache_rows`` the rows held by
+    the fleet's cached ``AggTree`` nodes; ``total`` their sum; ``ranks``
+    the (S,) working ranks of an adaptive-rank fleet, else None."""
 
     per_stream: Any
     total: Any
     cache_rows: int
+    ranks: Any = None
 
 
 _REGISTRY: Dict[str, Callable[..., SlidingSketch]] = {}
+_CACHE: Dict[Tuple, SlidingSketch] = {}
 
 
 def register(name: str) -> Callable:
@@ -77,16 +104,48 @@ def available_sketches() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def _copy_meta(sk: SlidingSketch) -> SlidingSketch:
+    """A copy of ``meta`` for each caller, so no caller can change what a
+    later ``make_sketch`` hit of the memo hands out (``spec`` one level
+    deeper)."""
+    meta = dict(sk.meta)
+    spec = meta.get("spec")
+    if spec is not None:
+        meta["spec"] = dict(spec, hyper=dict(spec.get("hyper", {})))
+    return sk._replace(meta=meta)
+
+
 def make_sketch(name: str, *, d: int, eps: float = 1 / 8,
                 window: int = 1024, device="cuda", **hyper) -> SlidingSketch:
     """Construct a registered variant; its states live on ``device`` (the
-    card by default)."""
+    card by default).  Memoized on its (hashable) arguments, as in the
+    reference; every call gets its own ``meta``, which carries
+    ``meta["spec"]``, the constructor arguments."""
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown sketch {name!r}; available: {available_sketches()}")
     dev = resolve_device(device)
-    return _REGISTRY[name](int(d), float(eps), int(window), device=dev,
-                           **hyper)
+    try:
+        key = (name, int(d), float(eps), int(window), dev,
+               tuple(sorted(hyper.items())))
+        cached = _CACHE.get(key)
+    except TypeError:           # unhashable hyperparameter → skip the memo
+        key, cached = None, None
+    if cached is not None:
+        return _copy_meta(cached)
+    sk = _REGISTRY[name](int(d), float(eps), int(window), device=dev,
+                         **hyper)
+    if sk.score is None:
+        # every variant scores: the residual against its own query rows
+        qr = sk.query_rows
+        sk = sk._replace(score=lambda state, X, t=None: residual_scores(
+            qr(state, t), X))
+    sk = capability.install_missing(sk)
+    sk.meta["spec"] = {"name": name, "d": int(d), "eps": float(eps),
+                       "window": int(window), "hyper": dict(hyper)}
+    if key is not None:
+        _CACHE[key] = sk
+    return _copy_meta(sk)
 
 
 def _block_loop(update: Callable) -> Callable:
@@ -106,13 +165,54 @@ def _block_loop(update: Callable) -> Callable:
 
 
 @register("fd")
-def _make_fd(d: int, eps: float, window: int, *, device) -> SlidingSketch:
-    """Plain FrequentDirections, no expiry: ``window`` is ignored."""
-    ell = int(min(max(round(1.0 / eps), 1), d))
+def _make_fd(d: int, eps: float, window: int, *, device,
+             adapt_target: Optional[float] = None, ell_min: int = 2,
+             ell0: Optional[int] = None) -> SlidingSketch:
+    """Plain FrequentDirections, no expiry: ``window`` is ignored.
 
-    def update(state, rows, t):
-        del t
-        return fd_update(state, torch.as_tensor(rows).to(device), ell=ell)
+    ``adapt_target`` opts into adaptive rank: the working rank ℓ of each
+    stream grows or shrinks toward the relative error ``adapt_target``
+    within ``[ell_min, 1/eps]``, starting at ``ell0`` (default
+    ``ell_min``); ``ranks(state)`` reports it."""
+    ell = int(min(max(round(1.0 / eps), 1), d))
+    meta = {"d": d, "eps": eps, "window": window, "ell": ell,
+            "device": device}
+    ranks = None
+    if adapt_target is None:
+        def update(state, rows, t):
+            del t
+            return fd_update(state, torch.as_tensor(rows).to(device),
+                             ell=ell)
+
+        def merge(s1, s2, t=None):
+            del t               # no expiry — whole-stream semantics
+            return fd_merge(s1, s2, ell=ell)
+
+        def init(t0=1, streams=1):
+            return fd_init(ell, d, streams, device=device)
+    else:
+        lo = int(min(max(ell_min, 1), ell))
+        start = lo if ell0 is None else int(min(max(ell0, lo), ell))
+        kw = dict(target=float(adapt_target), ell_min=lo, ell_max=ell)
+        meta["adapt"] = {"target": float(adapt_target), "ell_min": lo,
+                         "ell_max": ell, "ell0": start}
+
+        def update(state, rows, t):
+            del t
+            return adaptive_fd_update(
+                state, torch.as_tensor(rows, dtype=torch.float32).to(device),
+                **kw)
+
+        def merge(s1, s2, t=None):
+            del t
+            return adaptive_fd_merge(s1, s2, **kw)
+
+        def init(t0=1, streams=1):
+            return adaptive_fd_init(ell, d, streams, ell0=start,
+                                    device=device)
+
+        def ranks(state):
+            return state.ell
 
     def query_rows(state, t=None):
         del t
@@ -120,15 +220,15 @@ def _make_fd(d: int, eps: float, window: int, *, device) -> SlidingSketch:
 
     return SlidingSketch(
         name="fd",
-        meta={"d": d, "eps": eps, "window": window, "ell": ell,
-              "device": device},
-        init=lambda t0=1, streams=1: fd_init(ell, d, streams, device=device),
+        meta=meta,
+        init=init,
         update=update,
         update_block=_block_loop(update),
         query_rows=query_rows,
         query=query_rows,       # the FD buffer is already the 2ℓ×d sketch
         space=lambda state: state.nbuf,
-        merge=lambda s1, s2, t=None: fd_merge(s1, s2, ell=ell),
+        merge=merge,
+        ranks=ranks,
     )
 
 
@@ -161,7 +261,52 @@ def _make_dsfd(d: int, eps: float, window: int, *, device, mode: str = "fast",
                                                 cfg.ell),
         space=space,
         merge=lambda s1, s2, t=None: dsfd_merge(cfg, s1, s2, now=t),
+        score=lambda state, X, t=None: dsfd_score(cfg, state, X, now=t),
     )
+
+
+def _make_layered(name: str, cfg, d: int, eps: float, window: int,
+                  device) -> SlidingSketch:
+    def query_rows(state, t=None):
+        if t is None:
+            raise ValueError(
+                f"{name} queries need an explicit query time t (layer "
+                "selection is time-dependent, Algorithm 7 line 1)")
+        return layered_query_rows(cfg, state, t)
+
+    return SlidingSketch(
+        name=name,
+        meta={"d": d, "eps": eps, "window": window, "ell": cfg.base.ell,
+              "device": device, "cfg": cfg},
+        init=lambda t0=1, streams=1: layered_init(cfg, t0, streams,
+                                                  device=device),
+        update=lambda state, rows, t: layered_update(cfg, state, rows, t),
+        update_block=lambda state, rows, ts: layered_update_block(
+            cfg, state, rows, ts),
+        query_rows=query_rows,
+        query=lambda state, t=None: fd_compress(query_rows(state, t),
+                                                cfg.base.ell),
+        space=layered_space,
+        merge=lambda s1, s2, t=None: layered_merge(cfg, s1, s2, now=t),
+    )
+
+
+@register("seq-dsfd")
+def _make_seq_dsfd(d: int, eps: float, window: int, *, device,
+                   R: float = 64.0, beta: float = 4.0,
+                   mode: str = "fast") -> SlidingSketch:
+    """Seq-DS-FD (Algorithms 5-7): unnormalized rows ‖a‖² ∈ [1, R]."""
+    cfg = make_seq_config(d, eps, window, R, beta=beta, mode=mode)
+    return _make_layered("seq-dsfd", cfg, d, eps, window, device)
+
+
+@register("time-dsfd")
+def _make_time_dsfd(d: int, eps: float, window: int, *, device,
+                    R: float = 64.0, beta: float = 4.0,
+                    mode: str = "fast") -> SlidingSketch:
+    """Time-DS-FD (§5): time-based windows, idle ticks are zero rows."""
+    cfg = make_time_config(d, eps, window, R, beta=beta, mode=mode)
+    return _make_layered("time-dsfd", cfg, d, eps, window, device)
 
 
 def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
@@ -171,27 +316,67 @@ def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
     Replaces the reference's ``vmap_streams`` (one fused XLA program over
     S) and ``shard_streams`` (the same over a device mesh): the port's
     functions already carry the stream axis, so the fleet differs from
-    its base only in ``init`` (S streams) and ``space`` (a
-    :class:`FleetSpace`); :func:`query_all` merges its streams.  Cohort
-    queries and the multi-device fleet are not ported yet."""
+    its base in ``init`` (S streams), ``space`` (a :class:`FleetSpace`)
+    and ``query_cohort``, served from one :class:`AggTree` per fleet,
+    created at its first use (:func:`agg_tree`).  The multi-device fleet
+    is not ported yet."""
     S = int(streams)
     if S < 1:
         raise ValueError(f"fleet size {S} < 1")
+    box: Dict[str, AggTree] = {}
+
+    def tree() -> AggTree:
+        if "tree" not in box:
+            box["tree"] = AggTree(sk, S)
+        return box["tree"]
+
+    def query_cohort(state, cohort=ALL, t=None):
+        return tree().query(state, cohort, t)
 
     def space(state):
         per = sk.space(state)
-        return FleetSpace(per_stream=per, total=per.sum(), cache_rows=0)
+        cache_rows = tree().space()
+        ranks = sk.ranks(state) if capability.has(sk, "ranks") else None
+        return FleetSpace(per_stream=per, total=per.sum() + cache_rows,
+                          cache_rows=cache_rows, ranks=ranks)
 
-    return sk._replace(
+    return capability.install_missing(sk._replace(
         name=f"fleet[{sk.name}x{S}]",
-        meta=dict(sk.meta, streams=S, base=sk),
+        meta=dict(sk.meta, streams=S, base=sk, agg_tree=tree),
         init=lambda t0=1: sk.init(t0, S),
         space=space,
-    )
+        query_cohort=query_cohort,
+    ))
 
 
-def query_all(fleet: SlidingSketch, state, t=None):
-    """ONE base state (S = 1) merging every stream of a fleet at query
-    time ``t`` — the reference's ``query_cohort(fleet, state, ALL, t)``,
-    with the same merge association (``repro_torch.sketch.query``)."""
-    return merge_all(fleet.merge, state, t)
+def agg_tree(fleet: SlidingSketch) -> AggTree:
+    """The fleet's query-plane tree, created at its first use: for cache
+    accounting and the engine's ``advance``."""
+    tree = fleet.meta.get("agg_tree")
+    if tree is None:
+        raise ValueError(f"agg_tree needs a fleet from fleet_streams, got "
+                         f"{fleet.name!r}")
+    return tree()
+
+
+def query_cohort(fleet: SlidingSketch, state, cohort=ALL, t=None):
+    """ONE merged (S = 1) base state over a :class:`Cohort` of the fleet's
+    streams at query time ``t`` (compress it with
+    ``fleet.meta["base"].query(g, t)``), served from the fleet's cached
+    :class:`AggTree`: a warm query costs O(log S) node merges."""
+    if (not capability.has(fleet, "query_cohort")
+            or fleet.meta.get("base") is None):
+        raise ValueError(f"query_cohort needs a fleet from fleet_streams, "
+                         f"got {fleet.name!r}")
+    return fleet.query_cohort(state, cohort, t)
+
+
+def merge_streams(fleet: SlidingSketch, state, t=None):
+    """Deprecated alias of ``query_cohort(fleet, state, ALL, t)``."""
+    warnings.warn(
+        "merge_streams(fleet, state, t) is deprecated — call "
+        "query_cohort(fleet, state, ALL, t) (same merged state, served "
+        "from the fleet's cached AggTree); the uncached O(S) reduction "
+        "lives on as repro_torch.sketch.query.full_reduce_streams",
+        DeprecationWarning, stacklevel=2)
+    return query_cohort(fleet, state, ALL, t)

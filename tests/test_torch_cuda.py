@@ -169,6 +169,93 @@ def test_krylov_engine_on_the_card_holds_theorem_3_1(cuda):
         assert err <= 4 * eps * N, f"user {u}: {err:.3f} > 4εN"
 
 
+def test_layered_krylov_engine_on_the_card_holds_theorem_4_1(cuda):
+    """Seq-DS-FD's krylov levels through the fused kernels on the card
+    (the inline floor, ``floor_norm=True``), heavy rows bypassing into the
+    rings: every user within βε‖A_W‖_F², β = 4 (Theorem 4.1)."""
+    from repro_torch.core import seq_dsfd
+
+    rng = np.random.default_rng(3)
+    S, d, block, N, eps, R = 5, 32, 8, 64, 1 / 4, 16.0
+    dirs = rng.normal(size=(3, d))
+    eng = SketchFleetEngine("seq-dsfd", d=d, streams=S, eps=eps, window=N,
+                            block=block, mode="krylov", R=R)
+    n0 = (kernel.gram_power_cuda.launches,
+          kernel.fused_krylov_step_cuda.launches)
+    users = np.repeat(np.arange(S), block)
+    hist = []
+    for tick in range(24):
+        rows = dirs[(users + tick // 4) % 3] + 0.1 * rng.normal(
+            size=(users.size, d))
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        rows *= np.exp(rng.uniform(0, np.log(np.sqrt(R)), (users.size, 1)))
+        rows = rows.astype(np.float32)
+        eng.submit_many(users, rows)
+        eng.step()
+        hist.append(rows.reshape(S, block, d))
+    assert kernel.gram_power_cuda.launches > n0[0]
+    assert kernel.fused_krylov_step_cuda.launches > n0[1]
+    sel = seq_dsfd.layered_select(eng.base.meta["cfg"], eng.state, eng.t)
+    assert sel.device.type == "cuda"
+    A = np.concatenate(hist, axis=1).astype(np.float64)[:, -N:]
+    for u in range(S):
+        B = eng.query_user(u).astype(np.float64)
+        err = np.max(np.abs(np.linalg.eigvalsh(A[u].T @ A[u] - B.T @ B)))
+        assert err <= 4 * eps * np.sum(A[u] ** 2), f"user {u}: {err:.3f}"
+
+
+def test_agg_tree_on_the_card_matches_the_cpu(cuda):
+    """The same fleet state on the card and on the CPU: cohort answers of
+    the cached tree agree (cuSOLVER's and LAPACK's SVDs may pick other row
+    signs, so the merged sketches are compared by their Grams), and the
+    merge counts are the same."""
+    from repro_torch.sketch import api
+    from repro_torch.tree import tree_map
+
+    S, n, d, N = 13, 24, 8, 16
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(S, n, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=2, keepdims=True)
+    ts = torch.arange(1, n + 1, dtype=torch.int32)
+    trees, answers = [], []
+    cpu_sk = api.make_sketch("dsfd", d=d, eps=0.25, window=N, device="cpu")
+    cpu_fleet = api.fleet_streams(cpu_sk, S)
+    state = cpu_fleet.update_block(cpu_fleet.init(), torch.from_numpy(X), ts)
+    for dev in ("cpu", "cuda"):
+        sk = api.make_sketch("dsfd", d=d, eps=0.25, window=N, device=dev)
+        fleet = api.fleet_streams(sk, S)
+        st = tree_map(lambda x: x.to(dev), state)
+        out = []
+        for c in (api.ALL, api.Cohort.range(2, 11), api.Cohort.of(0, 7, 12),
+                  api.ALL):
+            g = api.query_cohort(fleet, st, c, n)
+            q = sk.query(g, n)[0].cpu().double().numpy()
+            out.append(q.T @ q)
+        trees.append(api.agg_tree(fleet))
+        answers.append(out)
+    for a, b in zip(*answers):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert trees[0].merges == trees[1].merges
+    assert trees[0].space() == trees[1].space()
+
+
+def test_scoring_basis_runs_on_the_gram_kernel(cuda):
+    """``topr_basis`` forms its Gram through the hand-written f32 kernel
+    (one launch a call) and agrees with the CPU's plain version."""
+    from repro_torch.sketch import basis
+
+    rows = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(6, 196, 300)).astype(np.float32))
+    rows[:, 150:] = 0.0
+    X = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(6, 8, 300)).astype(np.float32))
+    got = _counted(gram_kernel.gram_cuda, lambda: basis.residual_scores(
+        rows.to(cuda), X.to(cuda)))
+    want = basis.residual_scores(rows, X)
+    energy = float((X * X).sum(-1).max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * energy)
+
+
 def _counted(wrapper, call):
     """``call()``, asserting it launched ``wrapper``'s kernel once."""
     n0 = wrapper.launches

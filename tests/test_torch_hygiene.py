@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import dsfd, fd
+from repro_torch.core import dsfd, fd, seq_dsfd
 from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import dispatch
@@ -21,7 +21,7 @@ from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import EngineConfig, ServeEngine, \
     SketchFleetEngine
-from repro_torch.sketch.api import make_sketch
+from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -37,13 +37,17 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        print(len(names))
+        print(" ".join(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 41       # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 61                    # every module was imported
+    assert {"repro_torch.core.seq_dsfd", "repro_torch.sketch.basis",
+            "repro_torch.sketch.score", "repro_torch.sketch.capability",
+            "repro_torch.sketch.query"} <= names
 
 
 def _tiny_model():
@@ -76,10 +80,31 @@ def no_cuda(monkeypatch):
     lambda: api.init_cache(get_config("smollm-135m").reduced(), 1, 8),
     lambda: transformer.init_cache(get_config("smollm-135m").reduced(), 1, 8),
     lambda: kv_cache_init(1, 8, 2, 4),
+    lambda: make_sketch("seq-dsfd", d=8),
+    lambda: make_sketch("time-dsfd", d=8),
+    lambda: make_sketch("fd", d=8, adapt_target=0.1),
+    lambda: SketchFleetEngine("seq-dsfd", d=8, streams=2, R=4.0),
+    lambda: SketchFleetEngine("time-dsfd", d=8, streams=2, R=4.0),
+    lambda: SketchFleetEngine("dsfd", d=8, streams=2, score=True),
+    lambda: agg_tree(fleet_streams(make_sketch("dsfd", d=8), 2)),
+    lambda: seq_dsfd.layered_init(seq_dsfd.make_seq_config(8, 0.25, 16, 4)),
+    lambda: seq_dsfd.layered_run_stream(
+        seq_dsfd.make_time_config(8, 0.25, 16, 4), np.ones((4, 8)),
+        np.arange(1, 5)),
+    lambda: fd.adaptive_fd_init(2, 8),
+    lambda: convert.layered_state_from_numpy(
+        seq_dsfd.make_seq_config(8, 0.25, 16, 4),
+        convert.layered_state_to_numpy(seq_dsfd.layered_init(
+            seq_dsfd.make_seq_config(8, 0.25, 16, 4), device="cpu"))),
+    lambda: convert.adaptive_state_from_numpy(convert.adaptive_state_to_numpy(
+        fd.adaptive_fd_init(2, 8, device="cpu"))),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
-        "kv-cache-init"])
+        "kv-cache-init", "make_sketch-seq-dsfd", "make_sketch-time-dsfd",
+        "make_sketch-fd-adaptive", "engine-seq-dsfd", "engine-time-dsfd",
+        "engine-score", "agg_tree", "layered_init", "layered_run_stream",
+        "adaptive_fd_init", "convert-layered", "convert-adaptive"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -132,6 +157,48 @@ def test_convert_round_trip_and_shape_checks():
     ref = Ref()
     ref.__dict__.update(fields)
     assert convert.config_from_reference(ref) == cfg
+
+
+def test_convert_round_trip_layered_and_adaptive():
+    """Layered states as a fleet (S, L, …) and as one stack (L, …), and
+    adaptive-rank FD states, survive the trip through numpy exactly."""
+    cfg = seq_dsfd.make_seq_config(8, 0.25, 16, 8.0, mode="krylov")
+    rng = np.random.default_rng(1)
+    rows = rng.normal(size=(3, 40, 8)) * rng.uniform(1, 2.5, (3, 40, 1))
+    st, _ = seq_dsfd.layered_run_stream(cfg, rows, np.arange(1, 41),
+                                        device="cpu")
+    assert st.main.buf.shape == (3, cfg.levels, cfg.base.m, 8)
+    back = convert.layered_state_from_numpy(
+        cfg, convert.layered_state_to_numpy(st), device="cpu")
+    for a, b in zip(st.main + st.aux, back.main + back.aux):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    one = dsfd.DSFDState(*(type(sk)(*(x[1:2] for x in sk)) for sk in st))
+    stack = convert.layered_state_to_numpy(one, fleet=False)
+    assert stack.main.nbuf.shape == (cfg.levels,)
+    again = convert.layered_state_from_numpy(cfg, stack, device="cpu")
+    for a, b in zip(one.main + one.aux, again.main + again.aux):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="S = 1"):
+        convert.layered_state_to_numpy(st, fleet=False)
+    with pytest.raises(ValueError, match="buf"):
+        convert.layered_state_from_numpy(
+            seq_dsfd.make_seq_config(9, 0.25, 16, 8.0),
+            convert.layered_state_to_numpy(st), device="cpu")
+
+    sk = make_sketch("fd", d=8, eps=0.25, adapt_target=0.05, device="cpu")
+    ast = sk.update_block(sk.init(streams=2), torch.from_numpy(
+        rng.normal(size=(2, 30, 8)).astype(np.float32)),
+        torch.arange(1, 31, dtype=torch.int32))
+    aback = convert.adaptive_state_from_numpy(
+        convert.adaptive_state_to_numpy(ast), device="cpu")
+    for a, b in zip(ast, aback):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    single = convert.adaptive_state_from_numpy(
+        type(ast)(*(x[0].numpy() for x in ast)), device="cpu")
+    assert single.buf.shape == (1,) + tuple(ast.buf.shape[1:])
+    with pytest.raises(ValueError, match="nbuf"):
+        convert.adaptive_state_from_numpy(
+            ast._replace(nbuf=ast.nbuf[:1]), device="cpu")
 
 
 def test_config_guards():
