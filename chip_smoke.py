@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--ticks 320] [--fast-ticks 16]
                           [--fine-ticks 160] [--layered-ticks 192]
                           [--time-ticks 160] [--score-ticks 64]
+                          [--history-ticks 192]
 
 Phases, each printing its seconds on a line of its own:
 
@@ -75,7 +76,26 @@ Phases, each printing its seconds on a line of its own:
    move to fresh subspaces and ``anomalies()`` must name all 8.  The same
    rows without scoring give the tick's cost of scoring; the score's
    ``gram`` kernel and ``eigh`` are timed at its shape.
-8. serve   — the dense serving path at full width: llama3-8b (32 layers,
+8. history — ``SketchFleetEngine("dsfd", d=300, streams=32, eps=1/32,
+   window=1024, block=8, mode="krylov", use_kernel=True, history=True,
+   history_hot_nodes=256, history_dir=<a temporary directory>)`` for
+   192 ticks of phase 3's rows (512 units retire; S cut from 1024 since
+   every node is an (S, 2ℓ, d) tensor, 2.46 MB at S = 32).  Checks: (a)
+   exactly the units that left the window retired and nodes spilled;
+   (b) six intervals (one unit, [1, 513), four random), for ALL and the
+   cohort [3, 17), each within ‖A_IᵀA_I − BᵀB‖₂ ≤ ‖A_I‖_F²/ℓ of the
+   exact interval Gram (``window_gram`` on the card over the raw rows
+   the script keeps on the device) and within 1e-4 relative Frobenius of
+   a from-scratch fold of the canonical schedule written here from
+   ``fd_compress``; (c) the cold pass faults nodes back from disk, its
+   warm repeat faults none and an ALL query costs at most
+   2⌈log₂(t2 − t1)⌉ merges; (d) engine A runs 160 ticks, checkpoints
+   with a slab staged and a tick queued and is deleted, B restored from
+   the checkpoint on the card runs the last 32, and B equals the
+   uninterrupted run bit for bit (clock, rows, every ``query_user``,
+   ``query_global``, the six intervals).  The same rows without history
+   give the plane's cost a tick.
+9. serve   — the dense serving path at full width: llama3-8b (32 layers,
    bf16 weights from a seeded ``torch.Generator`` on the card) with
    ``use_flash=True`` in ``ServeEngine(slots=4, s_max=1024,
    prefill_buckets=(256, 512))``, 8 greedy requests of 200-512 prompt
@@ -85,7 +105,7 @@ Phases, each printing its seconds on a line of its own:
    width prefills one 512-token prompt through the kernel and through its
    plain version: the last-position logits must agree within 1e-4
    relative (Frobenius).
-9. launch sizes — in a fresh process (``--launch-sizes``), each
+10. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
@@ -1468,6 +1488,317 @@ def run_score(ticks: int, seed: int, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase history: the history plane at full width, and a kill and resume
+# ---------------------------------------------------------------------------
+
+HISTORY_STREAMS, HISTORY_EPS, HISTORY_HOT, HISTORY_RESUMED = 32, 1 / 32, 256, 32
+HISTORY_COHORT = (3, 17)
+HISTORY_RTOL = 1e-4   # the same schedule, another batching of the merges
+
+
+class ScheduleFold:
+    """The canonical dyadic schedule (``sketch/history.py``) written out
+    from ``fd_compress`` alone, over the raw rows (S, T, d) on the device:
+    unit u is column u − 1; nodes merge per stream, a cohort's segments
+    fold by the midpoint recursion one pair at a time, nodes fold left in
+    time; empty nodes are identities.  Memoized by node and segment."""
+
+    def __init__(self, raw, ell: int):
+        self.raw, self.ell = raw, ell
+        self.nodes, self.segs = {}, {}
+
+    def _compress(self, mat):
+        from repro_torch.core.fd import fd_compress
+
+        return fd_compress(mat, self.ell)
+
+    def _merge(self, a, b):
+        import torch
+
+        return self._compress(torch.cat([a, b], dim=1))
+
+    def node(self, L: int, i: int):
+        if (L, i) not in self.nodes:
+            if L == 0:
+                col = (self.raw[:, i - 1] if 1 <= i <= self.raw.shape[1]
+                       else None)
+                v = (None if col is None or not bool(col.ne(0).any()) else
+                     self._compress(col[:, None]))
+            else:
+                a, b = self.node(L - 1, 2 * i), self.node(L - 1, 2 * i + 1)
+                v = b if a is None else a if b is None else self._merge(a, b)
+            self.nodes[(L, i)] = v
+        return self.nodes[(L, i)]
+
+    def seg(self, L: int, i: int, lo: int, hi: int):
+        key = (L, i, lo, hi)
+        if key not in self.segs:
+            if hi - lo == 1:
+                v = self.node(L, i)[lo:hi]
+            else:
+                mid = (lo + hi) // 2
+                v = self._merge(self.seg(L, i, lo, mid),
+                                self.seg(L, i, mid, hi))
+            self.segs[key] = v
+        return self.segs[key]
+
+    def interval(self, t1: int, t2: int, lo: int, hi: int):
+        from repro_torch.sketch.history import dyadic_cover
+        from repro_torch.sketch.query import canonical_cover
+
+        segs = []
+        canonical_cover(0, self.raw.shape[0], lo, hi, segs)
+        acc = None
+        for L, i in dyadic_cover(t1, t2):
+            if self.node(L, i) is None:
+                continue
+            v = None
+            for a, b in segs:
+                sv = self.seg(L, i, a, b)
+                v = sv if v is None else self._merge(v, sv)
+            acc = v if acc is None else self._merge(acc, v)
+        return acc[0]
+
+
+def _history_feed(S: int, ticks: int, seed: int):
+    """Each tick's (S·BLOCK, d) rows, user-major: the krylov phase's
+    SYNTHETIC set (k = d) for the first half of the users, k = 10 for the
+    second."""
+    from repro_torch.data.streams import SyntheticSource
+
+    half = S // 2
+    srcs = (SyntheticSource(D, seed=seed),
+            SyntheticSource(D, k=10, seed=seed + 1))
+    return [np.concatenate([s.rows(half * BLOCK) for s in srcs])
+            for _ in range(ticks)]
+
+
+def _drive_history(eng, feed, lo: int, hi: int, ahead: int) -> None:
+    """Step ticks [lo, hi), submitting tick k + ``ahead``'s rows before
+    tick k's step (rows one tick ahead, as served)."""
+    S = eng.S
+    users = np.repeat(np.arange(S), BLOCK)
+    for tick in range(lo, hi):
+        if tick + ahead < len(feed):
+            eng.submit_many(users, feed[tick + ahead])
+        if eng.step() != S * BLOCK:
+            raise AssertionError(f"history tick {tick} ingested a partial "
+                                 "slab")
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def run_history(ticks: int, seed: int, device: str = "cuda") -> dict:
+    """The krylov fleet with ``history=True`` at full width and S = 32:
+    every retired interval within the FD bound of the exact interval Gram
+    (``window_gram`` on the card) and equal to a from-scratch fold of the
+    schedule; cold queries fault, warm ones stay in the merge budget; an
+    engine killed after a checkpoint and restored on the card answers
+    bit for bit as one that never stopped."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import errors
+    from repro_torch.serve.engine import SketchFleetEngine
+    from repro_torch.sketch.history import interval_merge_budget
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    S, eps, kill = HISTORY_STREAMS, HISTORY_EPS, ticks - HISTORY_RESUMED
+    feed = _history_feed(S, ticks, seed)
+    raw = torch.from_numpy(np.stack(feed).reshape(ticks, S, BLOCK, D)
+                           .transpose(1, 0, 2, 3).reshape(S, -1, D)).to(device)
+    tmp = tempfile.TemporaryDirectory()
+    kw = dict(d=D, streams=S, eps=eps, window=WINDOW, block=BLOCK,
+              mode="krylov", use_kernel=True, ingest="async", device=device)
+
+    def engine(history: bool, spill: str = ""):
+        if not history:
+            return SketchFleetEngine("dsfd", **kw)
+        return SketchFleetEngine("dsfd", history=True,
+                                 history_hot_nodes=HISTORY_HOT,
+                                 history_dir=f"{tmp.name}/{spill}", **kw)
+
+    def timed_run(eng) -> float:
+        eng.submit_many(np.repeat(np.arange(S), BLOCK), feed[0])
+        sync()
+        t0 = time.perf_counter()
+        _drive_history(eng, feed, 0, ticks, 1)
+        sync()
+        return (time.perf_counter() - t0) / ticks * 1e3
+
+    # C: the uninterrupted run, the phase's main path
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    C = engine(True, "C")
+    ms_hist = timed_run(C)
+    h = C.history
+    ell = h.ell
+    # (a) exactly the units that left the window retired, once each
+    if not (h.retired_through == C.t - WINDOW and h.retired_units
+            == C.t - WINDOW and h.store.spills > 0):
+        raise AssertionError(
+            f"history: retired_through {h.retired_through}, retired_units "
+            f"{h.retired_units} (clock − window = {C.t - WINDOW}), spills "
+            f"{h.store.spills}")
+    sp = h.space()
+    log(f"history engine: S = {S}, ℓ = {ell}, {ticks} ticks with history "
+        f"{ms_hist:.3f} ms/tick; retired {h.retired_units} units, "
+        f"{h.consolidations} merges; nodes hot {sp['hot_nodes']} "
+        f"({sp['hot_bytes']} bytes on the card), cold {sp['cold_nodes']}, "
+        f"empty {sp['empty_nodes']}; {h.store.spills} spills, "
+        f"{sp['spill_bytes']} spill bytes")
+
+    # (b) six intervals, for ALL and a cohort: the FD bound over the exact
+    # interval Gram, and a from-scratch fold of the schedule
+    rng = np.random.default_rng(seed + 7)
+    top = h.retired_through + 1
+    u = int(rng.integers(1, top))
+    intervals = [(u, u + 1), (1, top)]
+    for _ in range(4):
+        t1 = int(rng.integers(0, top - 1))
+        intervals.append((t1, int(rng.integers(t1 + 1, top + 1))))
+    cohorts = {"ALL": (0, S), "cohort": HISTORY_COHORT}
+    fold = ScheduleFold(raw, ell)
+    f0 = h.store.faults
+    cold_ms, warm_ms, worst_fd, worst_fold, answers = [], [], 0.0, 0.0, {}
+    for t1, t2 in intervals:
+        for label, (lo, hi) in cohorts.items():
+            sync()
+            t0 = time.perf_counter()
+            got = C.fleet.query_interval(C.state, t1, t2,
+                                         range(lo, hi)).clone()
+            sync()
+            cold_ms.append((time.perf_counter() - t0) * 1e3)
+            if label == "ALL":
+                answers[(t1, t2)] = got
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"interval [{t1}, {t2}) {label}: not "
+                                     "finite")
+            A = raw[lo:hi, max(t1, 1) - 1:t2 - 1]
+            G = errors.window_gram(A.contiguous()).sum(dim=0)
+            fro = float(torch.diagonal(G).sum())
+            err = float(errors.cova_error_gram(G[None], got[None])[0])
+            worst_fd = max(worst_fd, err * ell / max(fro, 1e-30))
+            if err > fro / ell:
+                raise AssertionError(
+                    f"interval [{t1}, {t2}) {label}: ‖A_IᵀA_I − BᵀB‖₂ = "
+                    f"{err:.4f} > ‖A_I‖_F²/ℓ = {fro / ell:.4f}")
+            want = fold.interval(t1, t2, lo, hi).double()
+            a, b = got.double().mT @ got.double(), want.mT @ want
+            rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+            worst_fold = max(worst_fold, rel)
+            if not rel <= HISTORY_RTOL:
+                raise AssertionError(
+                    f"interval [{t1}, {t2}) {label}: {rel:.3e} relative "
+                    f"Frobenius from the schedule's fold > {HISTORY_RTOL}")
+    faults = h.store.faults - f0
+    # (c) the cold pass faulted; its warm repeat faults nothing and an ALL
+    # query costs at most 2⌈log₂(t2 − t1)⌉ merges
+    if faults <= 0:
+        raise AssertionError("history: the cold pass faulted no node")
+    f1, warm_merges = h.store.faults, []
+    for t1, t2 in intervals:
+        for label, (lo, hi) in cohorts.items():
+            m0 = h.merges
+            sync()
+            t0 = time.perf_counter()
+            C.fleet.query_interval(C.state, t1, t2, range(lo, hi))
+            sync()
+            warm_ms.append((time.perf_counter() - t0) * 1e3)
+            warm_merges.append(h.merges - m0)
+            if label == "ALL" and h.merges - m0 > \
+                    interval_merge_budget(t1, t2):
+                raise AssertionError(
+                    f"warm [{t1}, {t2}): {h.merges - m0} merges > "
+                    f"{interval_merge_budget(t1, t2)}")
+    if h.store.faults != f1:
+        raise AssertionError(f"history: the warm repeat faulted "
+                             f"{h.store.faults - f1} nodes")
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for name in FUSED + ("window_gram",):
+        if launches[name] <= 0:
+            raise AssertionError(f"history: {name} never launched")
+    for name in SPLIT:
+        if launches[name]:
+            raise AssertionError(f"history: {name} launched "
+                                 f"{launches[name]} times off its path")
+    log(f"history intervals {intervals} for ALL and cohort "
+        f"[{HISTORY_COHORT[0]}, {HISTORY_COHORT[1]}): worst FD error "
+        f"{worst_fd:.4f}·‖A_I‖_F²/ℓ (bound 1, exact Grams by window_gram "
+        f"on the card); vs the schedule's from-scratch fold ≤ "
+        f"{worst_fold:.3e} relative Frobenius; cold pass {faults} faults, "
+        f"{np.mean(cold_ms):.3f} ms a query (max {max(cold_ms):.3f}); warm "
+        f"repeat 0 faults, merges {warm_merges}, {np.mean(warm_ms):.3f} ms "
+        f"a query; launches {launches}")
+
+    # the same rows without history: the tick's cost of the plane
+    plain = engine(False)
+    ms_plain = timed_run(plain)
+    del plain
+    log(f"history ms/tick at S = {S}: with history {ms_hist:.3f}, without "
+        f"{ms_plain:.3f}")
+
+    # (d) kill and resume: A checkpoints with a slab staged and a tick
+    # queued and is deleted; B, restored on the card, runs the rest
+    A = engine(True, "A")
+    A.submit_many(np.repeat(np.arange(S), BLOCK), feed[0])
+    _drive_history(A, feed, 0, kill, 1)
+    A.submit_many(np.repeat(np.arange(S), BLOCK), feed[kill + 1])
+    staged, queued = A.pipe.staged_rows, A.queue.backlog
+    if not (staged and queued):
+        raise AssertionError(f"history: {staged} rows staged, {queued} "
+                             "queued at the checkpoint")
+    sync()
+    t0 = time.perf_counter()
+    path = A.checkpoint(f"{tmp.name}/ckpt")
+    save_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(path)
+    del A
+    gc.collect()
+    t0 = time.perf_counter()
+    B = SketchFleetEngine.from_checkpoint(f"{tmp.name}/ckpt", device=device)
+    sync()
+    restore_s = time.perf_counter() - t0
+    _drive_history(B, feed, kill, ticks, 2)
+    if (B.t, B.rows_ingested) != (C.t, C.rows_ingested):
+        raise AssertionError(f"resumed t, rows {B.t, B.rows_ingested} != "
+                             f"{C.t, C.rows_ingested}")
+    for user in range(S):
+        if not np.array_equal(B.query_user(user), C.query_user(user)):
+            raise AssertionError(f"resumed query_user({user}) differs")
+    if not np.array_equal(B.query_global(), C.query_global()):
+        raise AssertionError("resumed query_global differs")
+    for (t1, t2), want in answers.items():
+        if not np.array_equal(B.query_interval(None, t1, t2),
+                              want.cpu().numpy()):
+            raise AssertionError(f"resumed query_interval [{t1}, {t2}) "
+                                 "differs")
+    log(f"history kill and resume: checkpoint after {kill} ticks with "
+        f"{staged} rows staged and {queued} queued, {nbytes} bytes, save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s; after {ticks - kill} "
+        f"more ticks t, rows_ingested, all {S} query_user, query_global and "
+        f"the {len(answers)} intervals bit for bit equal to the "
+        f"uninterrupted run")
+    del B, C
+    tmp.cleanup()
+    return {"launches": launches, "ms_tick": ms_hist, "ms_plain": ms_plain,
+            "ckpt_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "spill_bytes": sp["spill_bytes"], "cold_ms": cold_ms,
+            "warm_ms": warm_ms}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the dense serving path at full width
 # ---------------------------------------------------------------------------
 
@@ -1676,12 +2007,18 @@ def main(argv=None) -> int:
                     default=math.ceil(1.5 * WINDOW / BLOCK))
     ap.add_argument("--time-ticks", type=int, default=160)
     ap.add_argument("--score-ticks", type=int, default=64)
+    ap.add_argument("--history-ticks", type=int,
+                    default=WINDOW // BLOCK + 512 // BLOCK)
     ap.add_argument("--launch-sizes", action="store_true",
                     help="internal: time the dump-step kernels at the "
                     "launch sizes given on standard input")
     args = ap.parse_args(argv)
     if args.score_ticks <= SCORE_SWITCH:
         ap.error(f"--score-ticks must pass the switch at tick {SCORE_SWITCH}")
+    if args.history_ticks <= max(WINDOW // BLOCK, HISTORY_RESUMED):
+        ap.error(f"--history-ticks must pass the window "
+                 f"({WINDOW // BLOCK} ticks) and the {HISTORY_RESUMED} "
+                 "ticks a resumed engine runs")
 
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -1754,6 +2091,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    hist = run_history(args.history_ticks, args.seed + 600)
+    log(f"phase history: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     srv = run_serve(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1786,7 +2129,7 @@ def main(argv=None) -> int:
     # and the launches of every path that ran it, each counted from 0
     paths = {"krylov": kry["launches"], "fine": fine["launches"],
              "seq-dsfd": seq["launches"], "time-dsfd": tds["launches"],
-             "score": sco["launches"],
+             "score": sco["launches"], "history": hist["launches"],
              "serve": {"flash_fwd": srv["launches"]}}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{src}",

@@ -4,10 +4,13 @@ port.
 The reference's ``DSFDState`` is a pytree of per-stream arrays; a fleet's
 state carries a leading stream axis S on every leaf, a layered (Seq- or
 Time-DS-FD) stack a level axis L, and a layered fleet both (S, L).  These
-functions take and give those states, and adaptive-rank FD states, with
-numpy leaves (``jax.tree.map(np.asarray, s)`` on the reference side), so
+functions take and give those states, and fixed- and adaptive-rank FD
+states, with numpy leaves (``jax.tree.map(np.asarray, s)`` on the reference side), so
 nothing here imports the reference.  The field names and order of the
-states are the reference's.  Model weights
+states are the reference's, and ``fleet_state_to_numpy`` /
+``fleet_state_from_numpy`` carry any registered variant's fleet state in
+the reference's tree and dtypes (the leaves of a fleet checkpoint).  Model
+weights
 cross the same way: the reference's parameter tree with numpy leaves
 becomes the port's nested dict of tensors, with the same keys and the
 stacked ``(L, ...)`` layout.
@@ -22,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsfd import DSFDConfig, DSFDState, SketchState
-from repro_torch.core.fd import AdaptiveFDState
+from repro_torch.core.fd import AdaptiveFDState, FDState
 from repro_torch.core.seq_dsfd import LayeredConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
@@ -149,6 +152,72 @@ def adaptive_state_from_numpy(leaves: Any, device="cuda") -> AdaptiveFDState:
 def adaptive_state_to_numpy(state: AdaptiveFDState) -> AdaptiveFDState:
     """The same adaptive-rank state with numpy leaves (S, …)."""
     return _numpy(state)
+
+
+def fd_state_from_numpy(leaves: Any, device="cuda") -> FDState:
+    """The port's fixed-rank FD state from a reference ``FDState`` with
+    numpy leaves: one sketch (``buf`` (2ℓ, d)), which becomes S = 1, or a
+    fleet (S, …)."""
+    dev = resolve_device(device)
+    one = np.asarray(leaves.buf).ndim == 2
+    out = {}
+    for name, leaf in zip(FDState._fields, leaves):
+        arr = np.array(leaf)[None] if one else np.array(leaf)
+        dtype = torch.int32 if name == "nbuf" else torch.float32
+        out[name] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+    S = out["buf"].shape[0]
+    for name in ("nbuf", "shed"):
+        if out[name].shape != (S,):
+            raise ValueError(f"state leaf {name} has shape "
+                             f"{tuple(out[name].shape)}, expected ({S},)")
+    return FDState(**out)
+
+
+_FLOATS = frozenset(("buf", "sig1", "energy", "snap_v", "shed",
+                     "shed_mark", "energy_mark"))
+
+
+def _reference_dtype(name: str) -> torch.dtype:
+    """The dtype the reference gives the state field ``name``."""
+    if name == "snap_valid":
+        return torch.bool
+    return torch.float32 if name in _FLOATS else torch.int32
+
+
+def fleet_state_to_numpy(sk, state):
+    """A fleet state of the variant ``sk`` (any registered one) with numpy
+    leaves in the reference's tree, field order and dtypes: the state part
+    of a fleet checkpoint, which the reference restores as its own."""
+
+    def conv(x):
+        if isinstance(x, tuple):
+            return type(x)(*(conv(v) if isinstance(v, tuple) else
+                             v.detach().to(_reference_dtype(f)).cpu().numpy()
+                             for f, v in zip(x._fields, x)))
+        raise TypeError(f"{sk.name} state is not a NamedTuple: {type(x)}")
+
+    return conv(state)
+
+
+def fleet_state_from_numpy(sk, leaves: Any, device="cuda"):
+    """The port's fleet state of the variant ``sk`` from the reference's
+    fleet state with numpy leaves (S, …); shapes are checked against the
+    variant's configuration."""
+    meta = sk.meta
+    if isinstance(meta.get("cfg"), LayeredConfig):
+        return layered_state_from_numpy(meta["cfg"], leaves, device)
+    if isinstance(meta.get("cfg"), DSFDConfig):
+        return dsfd_state_from_numpy(meta["cfg"], leaves, device)
+    if meta.get("adapt") is not None:
+        st = adaptive_state_from_numpy(leaves, device)
+        want = 2 * meta["adapt"]["ell_max"]
+    else:
+        st = fd_state_from_numpy(leaves, device)
+        want = 2 * min(meta["ell"], meta["d"])
+    if tuple(st.buf.shape[1:]) != (want, meta["d"]):
+        raise ValueError(f"state leaf buf has shape {tuple(st.buf.shape)}, "
+                         f"expected (S, {want}, {meta['d']})")
+    return st
 
 
 def _tensor(arr, dev) -> torch.Tensor:

@@ -9,8 +9,9 @@ Counterpart of ``repro/serve/engine.py``.  Two serving paths live here:
   index.
 * ``SketchFleetEngine`` — S per-user sliding-window sketches on one
   device: admission, ticks, user and cohort queries through the cached
-  merge tree, and the scoring plane (topology, history and checkpoints
-  come in later slices).
+  merge tree, the scoring plane, the history plane of retired window
+  content, and checkpoints in the reference's layout (the multi-process
+  engine, a topology, is ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
 from repro_torch.serve.serve_step import build_decode_step, \
     build_prefill_step
 from repro_torch.sketch import capability
-from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch
+from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
+    restore_fleet, save_fleet
+from repro_torch.sketch.history import HistoryPlane, install_query_interval
 from repro_torch.sketch.query import as_cohort
 from repro_torch.sketch.score import ScorePlane
 from repro_torch.tree import take
@@ -169,6 +172,12 @@ class ServeEngine:
         return self.done
 
 
+def _score_key(name: str, S: int) -> str:
+    """The scoring plane's aux leaf ``name`` of streams [0, S), keyed by
+    stream range as the reference's processes key theirs."""
+    return f"{name}_{0:08d}_{S:08d}"
+
+
 def _splice_caches(big: KVCache, one: KVCache, slot: int) -> None:
     """Write a batch-1 prefill cache into batch slot ``slot`` of the
     engine's stacked caches, left-aligned: entries [0, b) hold the prefill,
@@ -223,11 +232,26 @@ class SketchFleetEngine:
     and a per-user EWMA threshold (``ScorePlane``: ``score_ema``,
     ``score_zscore``, ``score_warmup``) flags users whose per-tick peak
     score spikes; ``anomalies()`` harvests them.
+
+    History (``history=True``): window expiry retires content into a
+    time-dyadic index (``sketch/history.py``; ``history_hot_nodes`` nodes
+    hot on the device, the rest spilled under ``history_dir``), and
+    ``query_interval(users, t1, t2)`` answers any retired interval.
+
+    ``checkpoint(path)`` saves the fleet state, the clock, the pending
+    rows, the warm ``AggTree`` nodes, the history index and the scoring
+    plane in one atomic checkpoint of the reference's layout;
+    ``SketchFleetEngine.from_checkpoint(path)`` rebuilds an engine (from
+    either package's checkpoint) that goes on exactly as the saved one
+    would have.
     """
 
     def __init__(self, name: str = "dsfd", *, d: int, streams: int,
                  eps: float = 1 / 8, window: int = 1024, block: int = 8,
                  ingest: str = "async", queue_capacity: Optional[int] = None,
+                 history: bool = False,
+                 history_hot_nodes: Optional[int] = None,
+                 history_dir: Optional[str] = None,
                  score: bool = False, score_ema: float = 0.05,
                  score_zscore: float = 4.0, score_warmup: int = 5,
                  device="cuda", **hyper):
@@ -236,22 +260,132 @@ class SketchFleetEngine:
                                 device=self.device, **hyper)
         self.fleet = fleet_streams(self.base, streams)
         self.S, self.d, self.block = int(streams), int(d), int(block)
+        self.window = int(window)
         self.state = self.fleet.init()
         self.t = 0                                  # fleet clock (ticks)
         self.rows_ingested = 0
-        self.queue = AdmissionQueue(self.S, self.d, capacity=queue_capacity)
+        self._wire_ingest(ingest, queue_capacity)
+        self.tree = agg_tree(self.fleet)  # the cohort-query cache
+        self.history = None
+        if history:
+            self._attach_history(HistoryPlane(
+                streams=self.S, d=self.d, ell=int(self.base.meta["ell"]),
+                window=self.window, hot_capacity=history_hot_nodes,
+                spill_dir=history_dir, device=self.device))
+        self._wire_score(score, ema=score_ema, zscore=score_zscore,
+                         warmup=score_warmup)
+
+    def _wire_ingest(self, mode: str, capacity: Optional[int]) -> None:
+        """The admission queue and slab pipeline (also the restore path)."""
+        self.ingest = mode
+        self.queue = AdmissionQueue(self.S, self.d, capacity=capacity)
         self.transfer = SlabTransfer(self.device)
-        self.pipe = make_pipeline(ingest, self.queue, block=self.block,
+        self.pipe = make_pipeline(mode, self.queue, block=self.block,
                                   transfer=self.transfer)
         self._zero_slab = None         # lazy zero slab for idle ticks
-        self.tree = agg_tree(self.fleet)  # the cohort-query cache
+
+    def _wire_score(self, on: bool, *, ema: float, zscore: float,
+                    warmup: int) -> None:
+        """The per-user EWMA scoring plane, or none (also the restore
+        path)."""
         self.score_plane = None
-        if score:
-            if not capability.has(self.fleet, "score"):
-                self.fleet.score()     # the capability raiser names the fix
-            self.score_plane = ScorePlane(self.S, ema=score_ema,
-                                          zscore=score_zscore,
-                                          warmup=score_warmup)
+        if not on:
+            return
+        if not capability.has(self.fleet, "score"):
+            self.fleet.score()         # the capability raiser names the fix
+        self.score_plane = ScorePlane(self.S, ema=ema, zscore=zscore,
+                                      warmup=warmup)
+
+    def _attach_history(self, plane: HistoryPlane) -> None:
+        self.history = plane
+        self.fleet = install_query_interval(self.fleet, plane)
+
+    # -- persistence --------------------------------------------------------
+
+    def checkpoint(self, path: str, *, keep: int = 3) -> str:
+        """Atomic engine checkpoint under ``path``; returns its directory.
+
+        The clock is part of the state (the window is defined by it).
+        Rows staged by the async pipeline are first unwound to the queue
+        front (``flush_to_queue``), so the pending rows are the queue's
+        snapshot, per-user FIFO order kept.  The warm ``AggTree`` nodes,
+        the history index (hot nodes and pending units as aux leaves, the
+        spill dir by path) and the scoring plane's accumulators ride in
+        the same checkpoint, under the reference's names."""
+        self.pipe.flush_to_queue()
+        users, rows = self.queue.snapshot()
+        aux = {"pending_user": users, "pending_rows": rows}
+        tree_meta, tree_arrays = self.tree.state_dict(t=self.t)
+        aux.update(tree_arrays)
+        hist_meta = None
+        if self.history is not None:
+            hist_meta, hist_arrays = self.history.state_dict()
+            aux.update(hist_arrays)
+        score_meta = None
+        if self.score_plane is not None:
+            for k, v in self.score_plane.state_dict().items():
+                aux[_score_key(k, self.S)] = v
+            score_meta = self.score_plane.spec()
+        # rows_ingested rides in the JSON spec (an unbounded integer)
+        return save_fleet(path, self.fleet, self.state, self.t, aux=aux,
+                          spec_extra={"engine": {
+                              "block": self.block,
+                              "rows_ingested": int(self.rows_ingested),
+                              "ingest": self.ingest,
+                              "queue_capacity": self.queue.capacity,
+                              "agg_tree": tree_meta,
+                              "history": hist_meta,
+                              "score": score_meta}},
+                          keep=keep)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, *, step: Optional[int] = None,
+                        device="cuda") -> "SketchFleetEngine":
+        """Rebuild an engine from :meth:`checkpoint` output of either
+        package, on ``device`` (the card by default).  The clock, the
+        ingested-row count, the pending rows, the history index and the
+        scoring plane are restored, so what follows is the same as an
+        uninterrupted run; saved ``AggTree`` nodes make the first
+        aggregate queries warm (any mismatch leaves the cache cold)."""
+        fc = restore_fleet(path, step=step, device=device)
+        ss = fc.manifest["sketch_spec"]
+        espec = ss.get("engine")
+        if espec is None:
+            raise ValueError(
+                f"checkpoint under {path!r} is a bare fleet (no engine "
+                "section) — restore it with "
+                "repro_torch.sketch.api.restore_fleet")
+        spec = ss["sketch"]
+        # assembled around the restored state: __init__ would build a
+        # throwaway initial state on the device first
+        eng = cls.__new__(cls)
+        eng.device = fc.fleet.meta["device"]
+        eng.base = fc.fleet.meta["base"]
+        eng.fleet = fc.fleet
+        eng.S = int(ss["streams"])
+        eng.d = int(spec["d"])
+        eng.block = int(espec["block"])
+        eng.window = int(spec["window"])
+        eng.state = fc.state
+        eng.t = int(fc.t)
+        eng.rows_ingested = int(espec.get("rows_ingested", 0))
+        eng._wire_ingest(espec.get("ingest", "async"),
+                         espec.get("queue_capacity"))
+        eng.queue.load(fc.aux["pending_user"], fc.aux["pending_rows"])
+        eng.tree = agg_tree(eng.fleet)
+        eng.tree.load_state_dict(espec.get("agg_tree"), fc.aux, eng.state)
+        eng.history = None
+        if espec.get("history") is not None:
+            eng._attach_history(HistoryPlane.from_state_dict(
+                espec["history"], fc.aux, device=eng.device))
+        smeta = espec.get("score")
+        eng._wire_score(smeta is not None,
+                        **(smeta or dict(ema=0.0, zscore=0.0, warmup=0)))
+        keys = {k: _score_key(k, eng.S) for k in ScorePlane.KEYS}
+        if smeta is not None and all(v in fc.aux for v in keys.values()):
+            eng.score_plane.load_state_dict(
+                {k: fc.aux[v] for k, v in keys.items()})
+        return eng
 
     # -- admission ---------------------------------------------------------
 
@@ -301,6 +435,13 @@ class SketchFleetEngine:
             cnt = np.zeros((self.S,), np.int64)
             cnt[touched] = counts
             self.score_plane.observe(scores.cpu().numpy(), cnt)
+        if self.history is not None:
+            # record the slab's units (an idle tick's zero slab has none),
+            # then retire the units this clock advance expired
+            if nrows:
+                self.history.observe_block(rows,
+                                           first_ts=self.t - self.block + 1)
+            self.history.retire_through(self.t - self.window)
         # pack + copy the NEXT slab while the device runs this one
         self.pipe.after_dispatch()
         return nrows
@@ -351,6 +492,17 @@ class SketchFleetEngine:
     def query_global(self) -> np.ndarray:
         """ONE compressed (2ℓ, d) sketch of every user's window."""
         return self.query_cohort(None)
+
+    def query_interval(self, users, t1: int, t2: int) -> np.ndarray:
+        """ONE compressed (2ℓ, d) sketch of every row the cohort's users
+        (as in :meth:`query_cohort`) ingested with a timestamp in
+        ``[t1, t2)``, from the history plane of retired window content
+        (``history=True``): O(log(t2 − t1)) node merges warm.  Only
+        intervals that have left the live window are addressable
+        (``t2 − 1 <= t − window``).  Without a plane, the fleet's
+        capability raiser says how to build one."""
+        return self.fleet.query_interval(self.state, t1, t2,
+                                         as_cohort(users)).cpu().numpy()
 
     # -- the scoring plane ---------------------------------------------------
 

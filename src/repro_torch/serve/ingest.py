@@ -29,13 +29,16 @@ as of the moment the tick's update is dispatched, at timestamps
 into it at the swap point, so both pipelines give the same fleet state for
 the same interleaving of ``submit`` and ``step``.
 
-Checkpoint support (unwinding a staged slab to the queue, snapshot/load of
-the queue) comes with the persistence slice.
+Checkpoints serialize the queue alone (``snapshot`` / ``load``): a
+pipeline first unwinds its staged slab back to the queue front
+(``flush_to_queue``), so the on-disk format does not depend on the
+pipeline.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from collections import deque
+from typing import Callable, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +79,7 @@ class AdmissionQueue:
         self._start = 0
         self._len = 0
         self._counts = np.zeros((self.S,), np.int64)  # pending per user
+        self._live: set = set()                       # users with pending rows
         self.reserved = 0     # admitted rows held in a staged slab
         self.seq = 0          # bumped on every admission
 
@@ -94,6 +98,10 @@ class AdmissionQueue:
         rbuf[:n] = self._rbuf[self._start:self._len]
         self._ubuf, self._rbuf = ubuf, rbuf
         self._start, self._len = 0, n
+
+    def _pending_views(self) -> Tuple[np.ndarray, np.ndarray]:
+        return (self._ubuf[self._start:self._len],
+                self._rbuf[self._start:self._len])
 
     def _validate(self, user, row) -> Tuple[int, np.ndarray]:
         if isinstance(user, bool) or not isinstance(user, (int, np.integer)):
@@ -128,6 +136,7 @@ class AdmissionQueue:
         self._rbuf[self._len] = arr
         self._len += 1
         self._counts[u] += 1
+        self._live.add(u)
         self.seq += 1
         return True
 
@@ -176,13 +185,80 @@ class AdmissionQueue:
         self._rbuf[self._len:self._len + k] = ra[:k]
         self._len += k
         self._counts += np.bincount(ua, minlength=self.S)
+        self._live.update(int(u) for u in np.unique(ua))
         self.seq += 1
         mask[:k] = True
         return mask
 
+    def push_front(self, user: int, rows: List[np.ndarray]) -> None:
+        """Put rows back at the FRONT of a user's queue in their FIFO order
+        (a staged slab unwound for a checkpoint).  Bypasses the capacity
+        bound: these rows were admitted once."""
+        k = len(rows)
+        if not k:
+            return
+        if self._start < k:
+            # no room before the pool's front: reopen some by repacking
+            n = self._len - self._start
+            cap = max(self._ubuf.shape[0], 64)
+            while cap < n + 2 * k:
+                cap *= 2
+            ubuf = np.zeros((cap,), np.int32)
+            rbuf = np.zeros((cap, self.d), np.float32)
+            ubuf[k:k + n] = self._ubuf[self._start:self._len]
+            rbuf[k:k + n] = self._rbuf[self._start:self._len]
+            self._ubuf, self._rbuf = ubuf, rbuf
+            self._start, self._len = k, k + n
+        self._start -= k
+        self._ubuf[self._start:self._start + k] = int(user)
+        self._rbuf[self._start:self._start + k] = np.asarray(rows, np.float32)
+        self._counts[user] += k
+        self._live.add(int(user))
+        self.seq += 1
+
     @property
     def backlog(self) -> int:
         return self._len - self._start
+
+    def live_users(self) -> List[int]:
+        """Users with pending rows, in user order."""
+        return sorted(self._live)
+
+    @property
+    def queues(self) -> List[Deque[np.ndarray]]:
+        """A per-user FIFO copy of the pending rows (read-only: changes to
+        the deques are not seen by the queue)."""
+        qs: List[Deque[np.ndarray]] = [deque() for _ in range(self.S)]
+        users, rows = self._pending_views()
+        for i in np.argsort(users, kind="stable"):
+            qs[int(users[i])].append(rows[i].copy())
+        return qs
+
+    def snapshot(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Flat ``(pending_user, pending_rows)`` arrays, users in order and
+        each user's rows in FIFO order (the engine checkpoint's format)."""
+        users, rows = self._pending_views()
+        if users.size == 0:
+            return (np.zeros((0,), np.int32),
+                    np.zeros((0, self.d), np.float32))
+        order = np.argsort(users, kind="stable")
+        return (np.ascontiguousarray(users[order], np.int32),
+                np.ascontiguousarray(rows[order], np.float32))
+
+    def load(self, users: np.ndarray, rows: np.ndarray) -> None:
+        """Append a :meth:`snapshot` pair (checkpoint restore); bypasses
+        the capacity bound, as these rows were admitted once."""
+        ua = np.asarray(users, np.int32).reshape(-1)
+        k = int(ua.size)
+        if k:
+            self._ensure(k)
+            self._ubuf[self._len:self._len + k] = ua
+            self._rbuf[self._len:self._len + k] = np.asarray(
+                rows, np.float32).reshape(k, self.d)
+            self._len += k
+            self._counts += np.bincount(ua, minlength=self.S)
+            self._live.update(int(u) for u in np.unique(ua))
+        self.seq += 1
 
     def take_block(self, buf: np.ndarray, block: int,
                    base: Optional[np.ndarray] = None
@@ -199,8 +275,7 @@ class AdmissionQueue:
             # a fully staged slab takes nothing: skip the sort
             if not np.any(np.minimum(allow, self._counts) > 0):
                 return [], [], 0
-        users = self._ubuf[self._start:self._len]
-        rows = self._rbuf[self._start:self._len]
+        users, rows = self._pending_views()
         # rank of each pending row within its user's FIFO
         order = np.argsort(users, kind="stable")
         su = users[order]
@@ -226,6 +301,9 @@ class AdmissionQueue:
             self._rbuf[:nkeep] = rows[keep]
         self._start, self._len = 0, nkeep
         touched = np.flatnonzero(taken)
+        # only users that lost rows this tick can have run dry
+        exhausted = touched[self._counts[touched] == 0]
+        self._live.difference_update(int(u) for u in exhausted)
         return ([int(u) for u in touched],
                 [int(c) for c in taken[touched]], nrows)
 
@@ -313,6 +391,12 @@ class SyncIngest:
     def after_dispatch(self) -> None:
         pass
 
+    def staged_snapshot(self) -> List[Tuple[int, List[np.ndarray]]]:
+        return []
+
+    def flush_to_queue(self) -> None:
+        pass
+
 
 class AsyncIngest:
     """Double-buffered admission pipeline (see the module docstring)."""
@@ -388,6 +472,31 @@ class AsyncIngest:
         self._staged = (i, self.transfer.prefetch(i), touched, counts, nrows,
                         self.queue.seq)
         self.queue.reserved += nrows       # staged rows still fill capacity
+
+    def staged_snapshot(self) -> List[Tuple[int, List[np.ndarray]]]:
+        """Copies of the staged slab's rows as ``(user, rows)`` pairs in
+        user order, each user's rows in FIFO order; empty when nothing is
+        staged.  Waits for the copy out of the staged buffer first."""
+        if self._staged is None:
+            return []
+        i, _, touched, counts = self._staged[:4]
+        self.transfer.release(i)
+        buf = self._bufs[i]
+        return [(u, [buf[u, b].copy() for b in range(k)])
+                for u, k in zip(touched, counts)]
+
+    def flush_to_queue(self) -> None:
+        """Put the staged slab's rows back at the queue's front (FIFO kept)
+        and drop the staged copy: checkpoints serialize the queue alone."""
+        if self._staged is None:
+            return
+        rows = self.staged_snapshot()
+        i, nrows = self._staged[0], self._staged[4]
+        self._staged = None
+        self.queue.reserved -= nrows   # the rows count as queued again
+        self._cur = i                  # the unwound buffer packs next
+        for u, user_rows in rows:
+            self.queue.push_front(u, user_rows)
 
 
 _PIPELINES: Dict[str, type] = {"sync": SyncIngest, "async": AsyncIngest}

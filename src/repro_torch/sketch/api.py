@@ -1,7 +1,9 @@
 """The ``SlidingSketch`` API: one protocol and a registry, batched over streams.
 
 Counterpart of ``repro/sketch/api.py`` for ``"fd"`` (fixed or adaptive
-rank), ``"dsfd"``, ``"seq-dsfd"`` and ``"time-dsfd"``.  The protocol is
+rank), ``"dsfd"``, ``"seq-dsfd"`` and ``"time-dsfd"``, with fleet
+checkpoints (:func:`save_fleet`, :func:`restore_fleet`) in the reference's
+on-disk format.  The protocol is
 the reference's bundle of functions::
 
     sk = make_sketch("dsfd", d=64, eps=1/8, window=1024, mode="fast")
@@ -16,18 +18,24 @@ aggregate queries over any :class:`Cohort` of its streams from the
 fleet's cached :class:`AggTree` (``sketch/query.py``).  The optional
 fields are capabilities (``sketch/capability.py``): every variant scores
 rows (``score``), adaptive-rank FD reports its ranks (``ranks``), fleets
-answer cohorts (``query_cohort``).  Checkpoints, history
-(``query_interval``), the host baselines and the multi-device fleet are
-not ported yet.
+answer cohorts (``query_cohort``), and a fleet with a history plane
+answers intervals of retired window content (``query_interval``,
+``sketch/history.py``).  The host baselines and the multi-device fleet
+(ROADMAP item 11) are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import re
 import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.core.dsfd import dsfd_init, dsfd_merge, dsfd_query_rows, \
     dsfd_score, dsfd_update, dsfd_update_block, make_config
 from repro_torch.core.fd import adaptive_fd_init, adaptive_fd_merge, \
@@ -39,6 +47,7 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.sketch import capability
 from repro_torch.sketch.basis import residual_scores
 from repro_torch.sketch.query import ALL, AggTree, Cohort  # noqa: F401
+from repro_torch.train import checkpoint as ckpt
 
 
 class SlidingSketch(NamedTuple):
@@ -56,8 +65,8 @@ class SlidingSketch(NamedTuple):
     Capabilities: ``query_cohort(s, cohort, t)`` (fleets), ``score(s, X,
     t=None)`` — the (S, n) residual anomaly scores of the rows of ``X``
     ((n, d), or (S, n, d) per stream) against each window's sketch basis —
-    and ``ranks(s)`` (adaptive-rank FD).  ``query_interval`` is always the
-    capability raiser here (no history plane yet).
+    ``ranks(s)`` (adaptive-rank FD) and ``query_interval(s, t1, t2,
+    cohort)`` (a fleet with a history plane, ``sketch/history.py``).
     """
 
     name: str
@@ -319,7 +328,7 @@ def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
     its base in ``init`` (S streams), ``space`` (a :class:`FleetSpace`)
     and ``query_cohort``, served from one :class:`AggTree` per fleet,
     created at its first use (:func:`agg_tree`).  The multi-device fleet
-    is not ported yet."""
+    is ROADMAP item 11."""
     S = int(streams)
     if S < 1:
         raise ValueError(f"fleet size {S} < 1")
@@ -380,3 +389,149 @@ def merge_streams(fleet: SlidingSketch, state, t=None):
         "lives on as repro_torch.sketch.query.full_reduce_streams",
         DeprecationWarning, stacklevel=2)
     return query_cohort(fleet, state, ALL, t)
+
+
+def query_interval(fleet: SlidingSketch, state, t1, t2, cohort=ALL):
+    """ONE compressed (2ℓ, d) sketch of every row the ``cohort``'s streams
+    ingested with a timestamp in ``[t1, t2)``, from the fleet's history
+    plane of retired window content (``sketch/history.py``); a fleet
+    without one raises with directions (the capability raiser)."""
+    fn = fleet.query_interval
+    if fn is None:
+        fn = capability.missing("query_interval", fleet)
+    return fn(state, t1, t2, cohort)
+
+
+# ---------------------------------------------------------------------------
+# Fleet persistence — the reference's checkpoint layout
+# ---------------------------------------------------------------------------
+
+_TOPOLOGY = ("a multi-process fleet (topology, shard checkpoints "
+             "shard-LLLLLL-HHHHHH/) is ROADMAP item 11, not ported yet")
+
+
+class FleetCheckpoint(NamedTuple):
+    """What :func:`restore_fleet` gives back: the rebuilt fleet, its state
+    on the restoring device, the fleet clock at the save, the auxiliary
+    host arrays saved beside it, and the manifest."""
+
+    fleet: SlidingSketch
+    state: Any
+    t: int
+    aux: Dict[str, np.ndarray]
+    manifest: Dict[str, Any]
+
+
+def _spec_to_disk(base: SlidingSketch) -> Dict[str, Any]:
+    """The base sketch's constructor arguments as the reference names
+    them: ``use_kernel`` is written ``use_pallas``, and DS-FD records the
+    value in force (the two packages' defaults differ)."""
+    spec = base.meta.get("spec")
+    if spec is None:
+        raise ValueError(
+            f"fleet base {base.name!r} has no construction spec — build it "
+            "via make_sketch() so the checkpoint can name it in the "
+            "registry")
+    hyper = dict(spec.get("hyper", {}))
+    hyper.pop("use_kernel", None)
+    if spec["name"] == "dsfd":
+        hyper["use_pallas"] = bool(base.meta["cfg"].use_kernel)
+    return dict(spec, hyper=hyper)
+
+
+def _spec_from_disk(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """``make_sketch`` keyword arguments from a checkpoint's sketch spec,
+    either package's: ``use_pallas`` becomes ``use_kernel``, absent for
+    DS-FD meaning the reference's default, False."""
+    hyper = dict(spec.get("hyper", {}))
+    if spec["name"] == "dsfd":
+        hyper["use_kernel"] = bool(hyper.pop("use_pallas", False))
+    return dict(d=spec["d"], eps=spec["eps"], window=spec["window"],
+                **hyper)
+
+
+def save_fleet(path: str, fleet: SlidingSketch, state, t, *,
+               aux: Optional[Dict[str, np.ndarray]] = None,
+               spec_extra: Optional[Dict[str, Any]] = None,
+               keep: int = 3) -> str:
+    """Atomic checkpoint of a fleet's state at clock ``t`` under ``path``,
+    in the reference's layout (``train/checkpoint.py``): the state in the
+    reference's tree and dtypes, and a ``sketch_spec`` manifest section
+    naming the base sketch in the registry, the fleet size and the clock,
+    so either package rebuilds the fleet from the checkpoint alone.
+
+    ``aux``: a flat ``{name: numpy array}`` of host extras saved in the
+    same checkpoint (the engine's pending rows, index arrays);
+    ``spec_extra``: JSON entries merged into the ``sketch_spec``
+    section."""
+    base = fleet.meta.get("base")
+    if base is None:
+        raise ValueError(f"save_fleet needs a fleet from fleet_streams, got "
+                         f"{fleet.name!r}")
+    aux = dict(aux or {})
+    sketch_spec: Dict[str, Any] = {
+        "sketch": _spec_to_disk(base),
+        "streams": int(fleet.meta["streams"]),
+        "sharded": False,
+        "mesh_axis": None,
+        "mesh_devices": None,
+        "t": int(t),
+        "aux_keys": sorted(aux),
+    }
+    if spec_extra:
+        sketch_spec.update(spec_extra)
+    try:
+        json.dumps(sketch_spec)
+    except TypeError as e:
+        raise ValueError(
+            f"fleet checkpoint spec is not JSON-serializable ({e}); "
+            "sketch hyperparameters and spec_extra must be plain "
+            "scalars/strings") from e
+    tree = {"aux": {k: np.asarray(aux[k]) for k in aux},
+            "state": convert.fleet_state_to_numpy(base, state)}
+    return ckpt.save(path, int(t), tree, sketch_spec=sketch_spec, keep=keep)
+
+
+def _has_shards(path: str) -> bool:
+    try:
+        entries = os.listdir(path)
+    except (FileNotFoundError, NotADirectoryError):
+        return False
+    return any(re.fullmatch(r"shard-(\d{6})-(\d{6})", e)
+               and os.path.isdir(os.path.join(path, e)) for e in entries)
+
+
+def restore_fleet(path: str, *, step: Optional[int] = None, device="cuda",
+                  topology=None) -> FleetCheckpoint:
+    """Rebuild a fleet from a :func:`save_fleet` checkpoint of either
+    package: the base sketch from the registry through the ``sketch_spec``
+    section, the state on ``device`` (the card by default).  The
+    reference's ``sharded: true`` checkpoints restore too (their leaves
+    are full arrays); the ``aux`` arrays come back as numpy at their
+    on-disk dtype (float64/int64 accumulators included).  Continuing from
+    ``.state`` at clock ``.t`` is the same as never having stopped."""
+    if topology is not None or _has_shards(path):
+        raise NotImplementedError(_TOPOLOGY)
+    dev = resolve_device(device)
+    manifest = ckpt.read_manifest(path, step=step)
+    ss = manifest.get("sketch_spec")
+    if not ss:
+        raise ValueError(
+            f"checkpoint under {path!r} has no sketch_spec manifest "
+            "section — not a fleet checkpoint (train states restore via "
+            "repro_torch.train.checkpoint.restore)")
+    spec = ss["sketch"]
+    kw = _spec_from_disk(spec)
+    sk = make_sketch(spec["name"], device=dev, **kw)
+    fleet = fleet_streams(sk, int(ss["streams"]))
+    # only the structure of the template is read: one stream on the host
+    template = make_sketch(spec["name"], device="cpu", **kw).init()
+    tree_like = {"aux": {k: 0 for k in ss.get("aux_keys", [])},
+                 "state": template}
+    # the step resolved above: a save landing meanwhile must not change
+    # which checkpoint the leaves come from
+    tree, manifest = ckpt.restore(path, tree_like, step=int(manifest["step"]),
+                                  device="cpu", host_leaves=lambda p: True)
+    state = convert.fleet_state_from_numpy(sk, tree["state"], dev)
+    return FleetCheckpoint(fleet, state, int(ss["t"]), dict(tree["aux"]),
+                           manifest)

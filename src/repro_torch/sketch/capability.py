@@ -9,8 +9,10 @@ attaches a real implementation and :func:`capabilities` reports the lot.
 
 The messages name only constructors the port has: a single sketch becomes
 a fleet through ``fleet_streams`` (the reference names ``vmap_streams`` /
-``shard_streams``), and no message offers a history plane, which the port
-does not have yet (``query_interval`` is always a raiser here).
+``shard_streams``), and a fleet records history through
+``SketchFleetEngine(..., history=True)`` or
+``sketch/history.py::install_query_interval``, which attaches a plane
+(``meta["hist_box"]``).
 """
 
 from __future__ import annotations
@@ -53,9 +55,20 @@ def _missing_message(cap: str, ctx: Dict[str, Any]) -> str:
                 "fleet: lift it with fleet_streams, then call "
                 "query_cohort(state, cohort, t)")
     if cap == "query_interval":
-        return (f"{name!r} has no history plane — time-travel interval "
-                "queries over retired window content are not available in "
-                "the PyTorch port yet")
+        engine = ("SketchFleetEngine(..., history=True[, "
+                  "history_hot_nodes=..., history_dir=...])")
+        attach = ("repro_torch.sketch.history."
+                  "install_query_interval(fleet, plane)")
+        if ctx["fleet"]:
+            return (f"fleet {name!r} has no history plane — time-travel "
+                    "interval queries need retired window content to be "
+                    f"recorded: serve the fleet through {engine} or attach "
+                    f"a plane with {attach}")
+        return (f"{name!r} is a single sketch — time-travel interval "
+                "queries need a fleet with a history plane: serve it "
+                f"through {engine}, or lift it first with fleet = "
+                f"fleet_streams(sk, S) and then attach a plane with "
+                f"{attach}")
     if cap == "score":
         return (f"{name!r} exposes no residual scorer — build it via "
                 "make_sketch() (every registered variant installs score) "

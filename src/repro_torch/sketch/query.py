@@ -1,7 +1,6 @@
 """Query plane for sketch fleets: cohort algebra and a cached merge tree.
 
-Counterpart of ``repro/sketch/query.py`` (without the node cache's
-``state_dict``/``load_state_dict``, which come with checkpoints).
+Counterpart of ``repro/sketch/query.py``.
 
 ``Cohort``
     A frozen, normalized union of half-open ``[lo, hi)`` ranges over a
@@ -19,7 +18,9 @@ Counterpart of ``repro/sketch/query.py`` (without the node cache's
     left to right, so a warm query costs O(log S) merges and a cold
     whole-fleet query S−1.  ``advance(state, touched)`` dirties only the
     root-to-leaf paths of the streams an ingest touched; an unannounced
-    state change resets the cache.
+    state change resets the cache.  ``state_dict`` / ``load_state_dict``
+    carry the materialized nodes through engine checkpoints, in the
+    reference's aux names and per-stream shapes.
 
 The reference merges one node at a time through one jitted merge.  Here
 every merge is an ``fd_absorb`` with SVDs, so the nodes a query misses are
@@ -382,6 +383,77 @@ class AggTree:
     def space(self) -> int:
         """Live rows held by the cached internal nodes."""
         return sum(rows for _, _, rows in self._nodes.values())
+
+    # -- persistence (engine checkpoints) -----------------------------------
+
+    AUX_PREFIX = "aggnode"
+
+    def state_dict(self, t=...):
+        """``(meta, arrays)`` of the materialized nodes: ``meta`` (node
+        ranges, time tags, leaf count) is JSON; ``arrays`` maps
+        ``aggnode_{lo:06d}_{hi:06d}_{j:03d}`` to leaf j of the node's state
+        without its stream axis, as the reference writes it.  ``t``: keep
+        only the nodes tagged with it (engines pass their clock); default
+        all."""
+        nodes = sorted(self._nodes)
+        if t is not ...:
+            tkey = None if t is None else int(t)
+            nodes = [k for k in nodes if self._nodes[k][0] == tkey]
+        meta = {"streams": self.S,
+                "nodes": [[lo, hi, self._nodes[(lo, hi)][0]]
+                          for lo, hi in nodes],
+                "n_leaves": None}
+        arrays: Dict[str, np.ndarray] = {}
+        for lo, hi in nodes:
+            node = list(leaves(self._nodes[(lo, hi)][1]))
+            meta["n_leaves"] = len(node)
+            for j, leaf in enumerate(node):
+                arrays[f"{self.AUX_PREFIX}_{lo:06d}_{hi:06d}_{j:03d}"] = \
+                    leaf[0].cpu().numpy()
+        return meta, arrays
+
+    def load_state_dict(self, meta, arrays, state) -> bool:
+        """Install checkpointed nodes against the restored fleet ``state``;
+        True on success.  Any mismatch (fleet size, leaf count, a missing
+        array, a shape or dtype unlike the base sketch's state) leaves the
+        cache empty, to be rebuilt at the next query, and never fails the
+        restore."""
+        self._nodes.clear()
+        self._results.clear()
+        self._adopt(state)
+        if not meta:
+            return False
+        template = self.base.init()
+        t_leaves = list(leaves(template))
+        try:
+            if int(meta["streams"]) != self.S \
+                    or int(meta["n_leaves"]) != len(t_leaves):
+                raise ValueError("fleet/template mismatch")
+            for lo, hi, ttag in meta["nodes"]:
+                lo, hi = int(lo), int(hi)
+                if not (0 <= lo < hi <= self.S):
+                    raise ValueError(f"node [{lo}, {hi}) out of range")
+                got = []
+                for j, tl in enumerate(t_leaves):
+                    arr = np.asarray(arrays[
+                        f"{self.AUX_PREFIX}_{lo:06d}_{hi:06d}_{j:03d}"])
+                    want = tl[0].cpu().numpy()
+                    if arr.shape != want.shape or arr.dtype != want.dtype:
+                        raise ValueError(
+                            f"leaf {j} of node [{lo}, {hi}): "
+                            f"{arr.shape}/{arr.dtype} != "
+                            f"{want.shape}/{want.dtype}")
+                    got.append(torch.from_numpy(arr.copy())[None].to(
+                        tl.device))
+                it = iter(got)
+                node = tree_map(lambda _: next(it), template)
+                rows = int(self.base.space(node).sum())
+                self._nodes[(lo, hi)] = (None if ttag is None else int(ttag),
+                                         node, rows)
+        except (KeyError, TypeError, ValueError):
+            self._nodes.clear()                # rebuild at the next query
+            return False
+        return True
 
 
 # ---------------------------------------------------------------------------

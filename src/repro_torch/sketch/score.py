@@ -19,6 +19,8 @@ score the FD guarantee makes principled (``sketch/basis.py``).
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 
 
@@ -43,7 +45,12 @@ class ScorePlane:
     For each stream the plane tracks an exponentially weighted mean and
     variance of its per-tick peak score; once ``warmup`` ticks of history
     exist, a tick whose peak exceeds ``mean + zscore·σ`` flags the user.
-    The state is a few float64/int64 vectors of length S on the host."""
+    The state is a few float64/int64 vectors of length S on the host;
+    ``state_dict`` / ``load_state_dict`` / ``spec`` carry it through
+    engine checkpoints under the reference's keys (``KEYS``)."""
+
+    KEYS = ("score_mean", "score_var", "score_count", "score_flag",
+            "score_last")
 
     def __init__(self, streams: int, *, ema: float = 0.05,
                  zscore: float = 4.0, warmup: int = 5):
@@ -89,3 +96,26 @@ class ScorePlane:
         if reset:
             self.flagged[:] = False
         return out
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        return {"score_mean": self.mean.copy(),
+                "score_var": self.var.copy(),
+                "score_count": self.count.copy(),
+                "score_flag": self.flagged.copy(),
+                "score_last": self.last.copy()}
+
+    def load_state_dict(self, arrays: Dict[str, np.ndarray]) -> None:
+        self.mean = np.asarray(arrays["score_mean"], np.float64).copy()
+        self.var = np.asarray(arrays["score_var"], np.float64).copy()
+        self.count = np.asarray(arrays["score_count"], np.int64).copy()
+        self.flagged = np.asarray(arrays["score_flag"], bool).copy()
+        self.last = np.asarray(arrays["score_last"], np.float64).copy()
+        if self.mean.shape[0] != self.S:
+            raise ValueError(
+                f"score plane holds {self.S} streams but the checkpoint "
+                f"carries {self.mean.shape[0]} — same stream partition "
+                "required")
+
+    def spec(self) -> Dict[str, float]:
+        return {"ema": self.ema, "zscore": self.zscore,
+                "warmup": self.warmup}

@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the krylov engine through them (the fused kernels at ε = 1/4, the split
-route's kernels at ε = 1/128), and the dense serving path through the
-flash kernel against the same engine on the CPU.
+route's kernels at ε = 1/128), the dense serving path through the
+flash kernel against the same engine on the CPU, the history plane on
+the card against the CPU, checkpoints that cross between card and CPU,
+and the async pipeline's unwind with a copy in flight.
 
 Every test here needs an NVIDIA card (the kernels have no CPU or
 interpret mode) and skips without one.  The file imports neither JAX nor
@@ -254,6 +256,122 @@ def test_scoring_basis_runs_on_the_gram_kernel(cuda):
     want = basis.residual_scores(rows, X)
     energy = float((X * X).sum(-1).max())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * energy)
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _history_engine(dev, **kw):
+    return SketchFleetEngine("dsfd", d=16, streams=6, eps=1 / 4, window=16,
+                             block=4, mode="fast", history=True, device=dev,
+                             **kw)
+
+
+def _feed_history(eng, rows):
+    users = np.repeat(np.arange(rows.shape[0]), 4)
+    for k in range(rows.shape[1] // 4):
+        blk = rows[:, 4 * k:4 * k + 4]
+        if blk.any():
+            eng.submit_many(users, blk.reshape(-1, rows.shape[2]))
+            eng.step()
+        else:
+            eng.step(advance_time=True)
+
+
+def test_history_engine_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The same rows into a history engine on the card and on the CPU
+    (a hot tier of 3, spilling): the same index and counters, the
+    intervals' Grams within 1e-4 (cuSOLVER's and LAPACK's SVDs may pick
+    other row signs; unit rows, so entries stay ~10)."""
+    rng = np.random.default_rng(8)
+    rows = _unit(rng.normal(size=(6, 64, 16)))
+    rows[:, 20:28] = 0.0                           # two idle ticks
+    engs = {}
+    for dev in ("cpu", "cuda"):
+        engs[dev] = _history_engine(dev, history_hot_nodes=3,
+                                    history_dir=str(tmp_path / dev))
+        _feed_history(engs[dev], rows)
+    a, b = engs["cpu"].history, engs["cuda"].history
+    assert b.store.hot[next(iter(b.store.hot))].device.type == "cuda"
+    for attr in ("retired_through", "retired_units", "consolidations"):
+        assert getattr(a, attr) == getattr(b, attr)
+    assert (a.store.empty, a.store.on_disk, list(a.store.hot)) == (
+        b.store.empty, b.store.on_disk, list(b.store.hot))
+    for t1, t2, users in ((1, 49, None), (3, 40, [0, 2, 5]), (21, 29, None),
+                          (17, 18, range(1, 4))):
+        qa = engs["cpu"].query_interval(users, t1, t2).astype(np.float64)
+        qb = engs["cuda"].query_interval(users, t1, t2).astype(np.float64)
+        np.testing.assert_allclose(qb.T @ qb, qa.T @ qa, rtol=1e-4,
+                                   atol=1e-4)
+        assert (a.time_merges, a.stream_merges, a.store.faults) == (
+            b.time_merges, b.stream_merges, b.store.faults)
+
+
+def test_checkpoint_crosses_between_card_and_cpu(cuda, tmp_path):
+    """An engine checkpoint written on the card restores on the CPU with
+    every state leaf, pending row and index array bit for bit, and the
+    CPU's restores on the card the same way."""
+    from repro_torch.tree import leaves
+
+    rng = np.random.default_rng(9)
+    rows = _unit(rng.normal(size=(6, 48, 16)))
+    for src_dev, dst_dev in (("cuda", "cpu"), ("cpu", "cuda")):
+        src = _history_engine(src_dev, score=True,
+                              history_hot_nodes=4,
+                              history_dir=str(tmp_path / f"spill-{src_dev}"))
+        _feed_history(src, rows[:, :40])
+        src.submit_many(np.repeat(np.arange(6), 3),
+                        rows[:, 40:43].reshape(-1, 16))
+        src.query_global()
+        path = str(tmp_path / f"ck-{src_dev}")
+        src.checkpoint(path)
+        dst = SketchFleetEngine.from_checkpoint(path, device=dst_dev)
+        for x, y in zip(leaves(src.state), leaves(dst.state)):
+            assert y.device.type == dst_dev
+            assert torch.equal(x.cpu(), y.cpu())
+        assert (dst.t, dst.rows_ingested, dst.backlog) == (
+            src.t, src.rows_ingested, src.backlog)
+        assert dst.tree.cached_nodes == src.tree.cached_nodes > 0
+        assert list(dst.history.store.hot) == list(src.history.store.hot)
+        for k, v in src.history.store.hot.items():
+            assert torch.equal(dst.history.store.hot[k].cpu(), v.cpu())
+        np.testing.assert_array_equal(
+            dst.score_plane.state_dict()["score_mean"],
+            src.score_plane.state_dict()["score_mean"])
+        q = src.query_interval(None, 1, 25).astype(np.float64)
+        r = dst.query_interval(None, 1, 25).astype(np.float64)
+        np.testing.assert_allclose(r.T @ r, q.T @ q, rtol=1e-4, atol=1e-4)
+
+
+def test_flush_to_queue_with_a_copy_in_flight(cuda):
+    """The async pipeline stages a slab (its host→device copy runs on the
+    side stream) and is unwound at once: the rows go back to the queue
+    front in FIFO order, and the next slab holds them all."""
+    from repro_torch.serve.ingest import AdmissionQueue, SlabTransfer, \
+        make_pipeline
+
+    S, d, block = 64, 512, 8
+    rng = np.random.default_rng(10)
+    rows = rng.normal(size=(S * block * 2, d)).astype(np.float32)
+    users = np.repeat(np.arange(S), 2 * block)
+    q = AdmissionQueue(S, d)
+    q.submit_many(users, rows)
+    want_users, want_rows = q.snapshot()
+    transfer = SlabTransfer(cuda)
+    pipe = make_pipeline("async", q, block=block, transfer=transfer)
+    pipe.after_dispatch()
+    assert pipe.staged_rows == S * block
+    pipe.flush_to_queue()                      # the copy may be in flight
+    assert pipe.staged_rows == 0 and q.reserved == 0
+    got_users, got_rows = q.snapshot()
+    np.testing.assert_array_equal(got_users, want_users)
+    np.testing.assert_array_equal(got_rows, want_rows)
+    slab, touched, counts, nrows = pipe.next_slab()
+    dev = transfer.to_compute(slab)
+    assert nrows == S * block and touched == list(range(S))
+    expect = want_rows.reshape(S, 2 * block, d)[:, :block]
+    np.testing.assert_array_equal(dev.cpu().numpy(), expect)
 
 
 def _counted(wrapper, call):

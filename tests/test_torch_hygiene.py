@@ -21,7 +21,10 @@ from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import EngineConfig, ServeEngine, \
     SketchFleetEngine
-from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch
+from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
+    restore_fleet, save_fleet
+from repro_torch.sketch.history import HistoryPlane
+from repro_torch.train import checkpoint as ckpt
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -44,10 +47,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 61                    # every module was imported
+    assert len(names) >= 64                    # every module was imported
     assert {"repro_torch.core.seq_dsfd", "repro_torch.sketch.basis",
             "repro_torch.sketch.score", "repro_torch.sketch.capability",
-            "repro_torch.sketch.query"} <= names
+            "repro_torch.sketch.query", "repro_torch.train.checkpoint",
+            "repro_torch.sketch.history"} <= names
 
 
 def _tiny_model():
@@ -98,13 +102,17 @@ def no_cuda(monkeypatch):
             seq_dsfd.make_seq_config(8, 0.25, 16, 4), device="cpu"))),
     lambda: convert.adaptive_state_from_numpy(convert.adaptive_state_to_numpy(
         fd.adaptive_fd_init(2, 8, device="cpu"))),
+    lambda: SketchFleetEngine("dsfd", d=8, streams=2, history=True),
+    lambda: HistoryPlane(streams=2, d=8, ell=2, window=16),
+    lambda: ckpt.restore("no-such-checkpoint", {"w": 0}),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
         "kv-cache-init", "make_sketch-seq-dsfd", "make_sketch-time-dsfd",
         "make_sketch-fd-adaptive", "engine-seq-dsfd", "engine-time-dsfd",
         "engine-score", "agg_tree", "layered_init", "layered_run_stream",
-        "adaptive_fd_init", "convert-layered", "convert-adaptive"])
+        "adaptive_fd_init", "convert-layered", "convert-adaptive",
+        "engine-history", "history-plane", "checkpoint-restore"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -119,6 +127,25 @@ def test_cpu_runs_only_when_named(no_cuda):
     serve = ServeEngine(*_tiny_model(), EngineConfig(slots=1, s_max=32),
                         device="cpu")
     assert serve.caches.k.device.type == "cpu"
+
+
+def test_restores_run_on_the_cpu_only_when_named(no_cuda, tmp_path):
+    """A fleet or engine checkpoint written on the CPU: restoring it needs
+    the card unless the caller names the CPU."""
+    eng = SketchFleetEngine("dsfd", d=8, streams=2, eps=0.25, window=16,
+                            history=True, device="cpu")
+    eng.checkpoint(str(tmp_path / "engine"))
+    fleet = fleet_streams(make_sketch("dsfd", d=8, device="cpu"), 2)
+    save_fleet(str(tmp_path / "fleet"), fleet, fleet.init(), 0)
+    for call in (lambda **kw: restore_fleet(str(tmp_path / "fleet"), **kw),
+                 lambda **kw: SketchFleetEngine.from_checkpoint(
+                     str(tmp_path / "engine"), **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    back = SketchFleetEngine.from_checkpoint(str(tmp_path / "engine"),
+                                             device="cpu")
+    assert back.history is not None and back.history.device.type == "cpu"
 
 
 def test_init_cache_runs_on_the_cpu_when_named(no_cuda):
