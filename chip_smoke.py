@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--ticks 320] [--fast-ticks 16]
+    python3 chip_smoke.py [--seed 0] [--ticks 192] [--fast-ticks 16]
                           [--fine-ticks 160] [--layered-ticks 192]
                           [--time-ticks 160] [--score-ticks 64]
-                          [--history-ticks 192]
+                          [--history-ticks 192] [--topology-ticks 160]
 
 Phases, each printing its seconds on a line of its own:
 
@@ -33,7 +33,7 @@ Phases, each printing its seconds on a line of its own:
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
-   ``submit_many`` with 8 unit-norm rows per user per tick for 2.5·N rows
+   ``submit_many`` with 8 unit-norm rows per user per tick for 1.5·N rows
    per user.  Both fused kernels' launch counts must be > 0 and the split
    kernels' 0; every one of the 1024 users is held to Theorem 3.1
    (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) against the exact window Gram from
@@ -79,7 +79,8 @@ Phases, each printing its seconds on a line of its own:
 8. history — ``SketchFleetEngine("dsfd", d=300, streams=32, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True, history=True,
    history_hot_nodes=256, history_dir=<a temporary directory>)`` for
-   192 ticks of phase 3's rows (512 units retire; S cut from 1024 since
+   192 ticks of phase 3's rows, the k = 10 users the odd ones (512
+   units retire; S cut from 1024 since
    every node is an (S, 2ℓ, d) tensor, 2.46 MB at S = 32).  Checks: (a)
    exactly the units that left the window retired and nodes spilled;
    (b) six intervals (one unit, [1, 513), four random), for ALL and the
@@ -95,7 +96,29 @@ Phases, each printing its seconds on a line of its own:
    uninterrupted run bit for bit (clock, rows, every ``query_user``,
    ``query_global``, the six intervals).  The same rows without history
    give the plane's cost a tick.
-9. serve   — the dense serving path at full width: llama3-8b (32 layers,
+9. topology — a fleet across two processes that share the card: the
+   krylov fleet at S = 256 in one process for its ms/tick, then two
+   children (``chip_smoke.py --topology-child PID PORT DIR``) that meet
+   through ``launch/mesh.py::init_distributed`` (gloo, a ``TCPStore`` on
+   127.0.0.1) and each hold 128 of the same fleet's users on ``cuda:0``
+   (the odd users at k = 10, so both own users that dump) for 160 ticks,
+   each tick's rows made before the timed ticks, each child only its
+   own users'; each child's intra-op CPU threads are its share of the
+   host's cores (``init_distributed``).  Both must launch the fused
+   kernels, answer four cohorts collectively
+   (ALL, [64, 192), [0, 100), {5, 200}) within the spine budget
+   ``cohorts·(2⌈log₂S⌉ + 2(P − 1))``, and write a shard checkpoint.  The
+   shards restored as one engine on the card (2 → 1) must answer the
+   four cohorts as the pair did, bit for bit, and hold every user to
+   Theorem 3.1 through ``window_gram``.  Then the history pair: the
+   history phase's engine (S = 32) split 16 + 16 on its feed, whose six
+   intervals for ALL and the cohort, answered collectively, must be the
+   history phase's bit for bit, and each child must launch the fused
+   kernels there too.  The restored engine must count the fleet's rows
+   (``ticks·S·block``).  The path's launches are the children's and the
+   restore's; the one-process run's are printed apart.  A child that
+   fails, times out or exits nonzero fails the phase.
+10. serve  — the dense serving path at full width: llama3-8b (32 layers,
    bf16 weights from a seeded ``torch.Generator`` on the card) with
    ``use_flash=True`` in ``ServeEngine(slots=4, s_max=1024,
    prefill_buckets=(256, 512))``, 8 greedy requests of 200-512 prompt
@@ -105,7 +128,7 @@ Phases, each printing its seconds on a line of its own:
    width prefills one 512-token prompt through the kernel and through its
    plain version: the last-position logits must agree within 1e-4
    relative (Frobenius).
-10. launch sizes — in a fresh process (``--launch-sizes``), each
+11. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
@@ -1560,17 +1583,25 @@ class ScheduleFold:
         return acc[0]
 
 
-def _history_feed(S: int, ticks: int, seed: int):
-    """Each tick's (S·BLOCK, d) rows, user-major: the krylov phase's
-    SYNTHETIC set (k = d) for the first half of the users, k = 10 for the
-    second."""
+def _mixed_feed(S: int, ticks: int, seed: int, lo: int = 0,
+                hi=None) -> list:
+    """Each tick's rows of users [lo, hi) (all by default), user-major,
+    all made before a timed run: the SYNTHETIC set (k = d) for the even
+    users, k = 10 for the odd ones, so every process of a split owns users
+    that dump.  A user's rows do not depend on [lo, hi)."""
     from repro_torch.data.streams import SyntheticSource
 
+    hi = S if hi is None else hi
     half = S // 2
-    srcs = (SyntheticSource(D, seed=seed),
-            SyntheticSource(D, k=10, seed=seed + 1))
-    return [np.concatenate([s.rows(half * BLOCK) for s in srcs])
-            for _ in range(ticks)]
+    srcs = (SyntheticSource(D, seed=seed), SyntheticSource(D, k=10,
+                                                           seed=seed + 1))
+    feed = []
+    for _ in range(ticks):
+        rows = np.empty((S, BLOCK, D), np.float32)
+        rows[0::2] = srcs[0].rows(half * BLOCK).reshape(half, BLOCK, D)
+        rows[1::2] = srcs[1].rows(half * BLOCK).reshape(half, BLOCK, D)
+        feed.append(rows[lo:hi].reshape((hi - lo) * BLOCK, D))
+    return feed
 
 
 def _drive_history(eng, feed, lo: int, hi: int, ahead: int) -> None:
@@ -1613,7 +1644,7 @@ def run_history(ticks: int, seed: int, device: str = "cuda") -> dict:
             torch.cuda.synchronize()
 
     S, eps, kill = HISTORY_STREAMS, HISTORY_EPS, ticks - HISTORY_RESUMED
-    feed = _history_feed(S, ticks, seed)
+    feed = _mixed_feed(S, ticks, seed)
     raw = torch.from_numpy(np.stack(feed).reshape(ticks, S, BLOCK, D)
                            .transpose(1, 0, 2, 3).reshape(S, -1, D)).to(device)
     tmp = tempfile.TemporaryDirectory()
@@ -1679,8 +1710,7 @@ def run_history(ticks: int, seed: int, device: str = "cuda") -> dict:
                                          range(lo, hi)).clone()
             sync()
             cold_ms.append((time.perf_counter() - t0) * 1e3)
-            if label == "ALL":
-                answers[(t1, t2)] = got
+            answers[(label, t1, t2)] = got.cpu().numpy()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"interval [{t1}, {t2}) {label}: not "
                                      "finite")
@@ -1779,23 +1809,373 @@ def run_history(ticks: int, seed: int, device: str = "cuda") -> dict:
             raise AssertionError(f"resumed query_user({user}) differs")
     if not np.array_equal(B.query_global(), C.query_global()):
         raise AssertionError("resumed query_global differs")
-    for (t1, t2), want in answers.items():
-        if not np.array_equal(B.query_interval(None, t1, t2),
-                              want.cpu().numpy()):
+    for (label, t1, t2), want in answers.items():
+        if label == "ALL" and not np.array_equal(
+                B.query_interval(None, t1, t2), want):
             raise AssertionError(f"resumed query_interval [{t1}, {t2}) "
                                  "differs")
     log(f"history kill and resume: checkpoint after {kill} ticks with "
         f"{staged} rows staged and {queued} queued, {nbytes} bytes, save "
         f"{save_s:.3f} s, restore {restore_s:.3f} s; after {ticks - kill} "
         f"more ticks t, rows_ingested, all {S} query_user, query_global and "
-        f"the {len(answers)} intervals bit for bit equal to the "
+        f"the {len(intervals)} intervals bit for bit equal to the "
         f"uninterrupted run")
     del B, C
     tmp.cleanup()
     return {"launches": launches, "ms_tick": ms_hist, "ms_plain": ms_plain,
             "ckpt_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
             "spill_bytes": sp["spill_bytes"], "cold_ms": cold_ms,
-            "warm_ms": warm_ms}
+            "warm_ms": warm_ms, "intervals": intervals,
+            "answers": answers, "ticks": ticks, "seed": seed}
+
+
+# ---------------------------------------------------------------------------
+# phase topology: a fleet across two processes that share the card
+# ---------------------------------------------------------------------------
+
+TOPO_STREAMS, TOPO_EPS = 256, 1 / 32
+TOPO_COHORTS = ("ALL", "[64, 192)", "[0, 100)", "{5, 200}")
+TOPO_CHILD_S = 600       # each child's limit; a child that passes it fails
+TOPO_TRANSPORT_S = 300   # each remote fetch's limit (a timeout raises)
+
+
+def _topo_cohorts():
+    from repro_torch.sketch.query import ALL, Cohort
+
+    return dict(zip(TOPO_COHORTS, (ALL, Cohort.range(64, 192),
+                                   Cohort.range(0, 100), Cohort.of(5, 200))))
+
+
+def _drive_fleet(eng, feed: list, lo: int, hi: int) -> float:
+    """Feed users [lo, hi) their rows of each tick (``feed[k]``: tick k's
+    rows of these users, made beforehand), one tick ahead (async ingest,
+    as served); returns ms per tick."""
+    import torch
+
+    def sync():
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    ticks = len(feed)
+    users = np.repeat(np.arange(lo, hi), BLOCK)
+    eng.submit_many(users, feed[0])
+    sync()
+    t0 = time.perf_counter()
+    for tick in range(ticks):
+        if tick + 1 < ticks:
+            eng.submit_many(users, feed[tick + 1])
+        if eng.step() != (hi - lo) * BLOCK:
+            raise AssertionError(f"tick {tick} ingested a partial slab")
+    sync()
+    return (time.perf_counter() - t0) / ticks * 1e3
+
+
+def _spine_budget(S: int, P: int, queries: int) -> int:
+    return queries * (2 * math.ceil(math.log2(S)) + 2 * (P - 1))
+
+
+def topology_child(pid: int, port: int, root: str) -> int:
+    """One process of the pair (``chip_smoke.py --topology-child PID PORT
+    DIR``): meet the other through ``launch.mesh.init_distributed``, run
+    the krylov pair (S = 256, this process's half on the card) and the
+    history pair (S = 32), write the answers and a JSON of numbers under
+    ``DIR``.  Any failure, a transport timeout included, raises."""
+    import torch
+
+    from repro_torch.launch import mesh
+    from repro_torch.parallel.topology import FleetTopology
+    from repro_torch.serve.engine import SketchFleetEngine
+
+    plan = json.loads((Path(root) / "plan.json").read_text())
+    mesh.init_distributed(pid, 2, "127.0.0.1", port,
+                          timeout_s=TOPO_TRANSPORT_S)
+    out = {"device": None, "threads": torch.get_num_threads()}
+    counters = launch_counters()
+
+    def pair_launches(pair: str) -> dict:
+        """The counts since the last reset; each fused-tick kernel must
+        have launched in this pair."""
+        got = {k: fn.launches for k, fn in counters.items()}
+        for name in FUSED:
+            if got[name] <= 0:
+                raise AssertionError(f"process {pid}: {name} never "
+                                     f"launched in the {pair} pair")
+        return got
+
+    try:
+        # the krylov pair: this process's users' rows only, made before
+        # the timed ticks
+        S = TOPO_STREAMS
+        topo = FleetTopology(S, namespace="krylov",
+                             timeout_s=TOPO_TRANSPORT_S)
+        feed = _mixed_feed(S, plan["ticks"], plan["seed"], topo.lo,
+                           topo.hi)
+        eng = SketchFleetEngine(
+            "dsfd", d=D, streams=S, eps=TOPO_EPS, window=WINDOW,
+            block=BLOCK, mode="krylov", use_kernel=True, ingest="async",
+            topology=topo, device=plan["device"])
+        out["device"] = str(eng.device)
+        for fn in counters.values():
+            fn.launches = 0
+        out["ms_tick"] = _drive_fleet(eng, feed, topo.lo, topo.hi)
+        del feed
+        tree = eng.tree
+        t0 = time.perf_counter()
+        answers = {label: eng.query_cohort(c)
+                   for label, c in _topo_cohorts().items()}
+        out["query_s"] = time.perf_counter() - t0
+        budget = _spine_budget(S, topo.P, len(answers))
+        out.update(fetches=tree.remote_fetches, spine=tree.spine_merges,
+                   published=tree.published, budget=budget)
+        if tree.remote_fetches > budget or tree.spine_merges > 2 * budget:
+            raise AssertionError(
+                f"process {pid}: {tree.remote_fetches} fetches, "
+                f"{tree.spine_merges} spine merges over the budget {budget}")
+        np.savez(Path(root) / f"krylov_{pid}.npz",
+                 *(answers[label] for label in TOPO_COHORTS))
+        t0 = time.perf_counter()
+        shard = eng.checkpoint(str(Path(root) / "krylov_ckpt"))
+        out["save_s"] = time.perf_counter() - t0
+        out["shard_bytes"] = _dir_bytes(shard)
+        topo.barrier("krylov-ckpt")
+        del eng, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out["krylov_launches"] = pair_launches("krylov")
+
+        # the history pair: the history phase's feed and intervals
+        S = HISTORY_STREAMS
+        topo = FleetTopology(S, namespace="history",
+                             timeout_s=TOPO_TRANSPORT_S)
+        feed = _mixed_feed(S, plan["history_ticks"], plan["history_seed"],
+                           topo.lo, topo.hi)
+        eng = SketchFleetEngine(
+            "dsfd", d=D, streams=S, eps=HISTORY_EPS, window=WINDOW,
+            block=BLOCK, mode="krylov", use_kernel=True, ingest="async",
+            history=True, history_hot_nodes=HISTORY_HOT,
+            history_dir=str(Path(root) / f"spill_{pid}"), topology=topo,
+            device=plan["device"])
+        for fn in counters.values():
+            fn.launches = 0
+        out["history_ms_tick"] = _drive_fleet(eng, feed, topo.lo, topo.hi)
+        lo, hi = HISTORY_COHORT
+        got = {}
+        t0 = time.perf_counter()
+        for t1, t2 in plan["intervals"]:
+            for label, users in (("ALL", None), ("cohort", range(lo, hi))):
+                got[f"{label}_{t1}_{t2}"] = eng.query_interval(users, t1,
+                                                               t2)
+        out["history_query_s"] = time.perf_counter() - t0
+        h = eng.history
+        out.update(history_fetches=h.remote_fetches,
+                   history_published=h.published,
+                   history_spills=h.store.spills)
+        np.savez(Path(root) / f"history_{pid}.npz", **got)
+        topo.barrier("history-done")
+        out["history_launches"] = pair_launches("history")
+    finally:
+        mesh.shutdown()
+    (Path(root) / f"child_{pid}.json").write_text(json.dumps(out))
+    print(f"topology child {pid}: {json.dumps(out)}", flush=True)
+    return 0
+
+
+def _spawn_topology_children(root: str) -> list:
+    """Start both children on one free port, wait for both; any nonzero
+    exit or a child past its limit fails the phase (and both are
+    stopped)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--topology-child",
+         str(pid), str(port), root], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(2)]
+    outs = []
+    try:
+        deadline = time.monotonic() + TOPO_CHILD_S
+        for p in procs:
+            text, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+            outs.append(text)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("topology child") or "Error" in line:
+                log(f"  [{pid}] {line[:2000]}")
+        if p.returncode != 0:
+            raise AssertionError(f"topology child {pid} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    return [json.loads((Path(root) / f"child_{pid}.json").read_text())
+            for pid in range(2)]
+
+
+def run_topology(ticks: int, hist: dict, seed: int,
+                 device: str = "cuda") -> dict:
+    """The fleet across two processes on the one card: the krylov pair and
+    the history pair (see :func:`topology_child`), the one-process krylov
+    fleet of the same S on the same feed for its ms/tick, the pair's
+    shards restored as one engine (2 → 1) whose cohorts must be the pair's
+    bit for bit and whose every user must hold Theorem 3.1 (through
+    ``window_gram``), and the history pair's intervals bit for bit the
+    history phase's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import errors
+    from repro_torch.serve.engine import SketchFleetEngine
+
+    S, eps = TOPO_STREAMS, TOPO_EPS
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    (Path(root) / "plan.json").write_text(json.dumps({
+        "device": device, "ticks": ticks, "seed": seed,
+        "history_ticks": hist["ticks"],
+        "history_seed": hist["seed"], "intervals": hist["intervals"]}))
+    counters = launch_counters()
+
+    # one process, the same S and feed: the ms/tick beside the pair's (its
+    # launches are its own, not the topology path's)
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    feed = _mixed_feed(S, ticks, seed)
+    one = SketchFleetEngine("dsfd", d=D, streams=S, eps=eps, window=WINDOW,
+                            block=BLOCK, mode="krylov", use_kernel=True,
+                            ingest="async", device=device)
+    for fn in counters.values():
+        fn.launches = 0
+    ms_one = _drive_fleet(one, feed, 0, S)
+    one_answers = {label: one.query_cohort(c)
+                   for label, c in _topo_cohorts().items()}
+    one_launches = {k: fn.launches for k, fn in counters.items()}
+    del one
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the topology path: both children, then the parent's 2 -> 1 restore
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    kids = _spawn_topology_children(root)
+    pair_s = time.perf_counter() - t0
+    pair = []
+    for pid in range(2):
+        with np.load(Path(root) / f"krylov_{pid}.npz") as z:
+            pair.append({label: z[f"arr_{i}"]
+                         for i, label in enumerate(TOPO_COHORTS)})
+    for label in TOPO_COHORTS:
+        if not np.array_equal(pair[0][label], pair[1][label]):
+            raise AssertionError(f"topology: the processes' {label} "
+                                 "answers differ")
+    log(f"topology krylov pair: S = {S} ({S // 2} + {S // 2}) on "
+        f"{kids[0]['device']} and {kids[1]['device']} ({kids[0]['threads']} "
+        f"and {kids[1]['threads']} CPU threads), {ticks} ticks: "
+        f"{kids[0]['ms_tick']:.3f} and {kids[1]['ms_tick']:.3f} ms/tick "
+        f"(one process, same S and feed: {ms_one:.3f}, launches "
+        f"{one_launches}, not counted in the path's); launches "
+        f"{kids[0]['krylov_launches']} and {kids[1]['krylov_launches']}")
+    log(f"topology cohorts {TOPO_COHORTS}: remote fetches "
+        f"{kids[0]['fetches']} and {kids[1]['fetches']}, spine merges "
+        f"{kids[0]['spine']} and {kids[1]['spine']} (budget "
+        f"{kids[0]['budget']}, spine 2×), published {kids[0]['published']}"
+        f" and {kids[1]['published']}, {kids[0]['query_s']:.3f} and "
+        f"{kids[1]['query_s']:.3f} s; shards {kids[0]['shard_bytes']} and "
+        f"{kids[1]['shard_bytes']} bytes, saved in {kids[0]['save_s']:.3f} "
+        f"and {kids[1]['save_s']:.3f} s; the pair's wall {pair_s:.3f} s")
+    diff = max(float(np.max(np.abs(one_answers[k] - pair[0][k])))
+               for k in TOPO_COHORTS)
+    log(f"topology: the one-process fleet's cohorts vs the pair's: largest "
+        f"|difference| {diff:.3e}")
+
+    # 2 -> 1: the pair's shards as one engine on the card
+    sync()
+    t0 = time.perf_counter()
+    eng = SketchFleetEngine.from_checkpoint(str(Path(root) / "krylov_ckpt"),
+                                            device=device)
+    sync()
+    restore_s = time.perf_counter() - t0
+    if (eng.t, eng.S, eng.rows_ingested) != (ticks * BLOCK, S,
+                                             ticks * S * BLOCK):
+        raise AssertionError(f"restored t, S, rows_ingested = "
+                             f"{eng.t, eng.S, eng.rows_ingested}")
+    for label, c in _topo_cohorts().items():
+        if not np.array_equal(eng.query_cohort(c), pair[0][label]):
+            raise AssertionError(f"topology: the restored engine's {label} "
+                                 "differs from the pair's")
+    # every user within Theorem 3.1, against the exact window Gram
+    win = torch.zeros((S, WINDOW, D), device=device)
+    for tick, rows in enumerate(feed):
+        if tick >= ticks - WINDOW // BLOCK:
+            slot = (tick - (ticks - WINDOW // BLOCK)) * BLOCK
+            win[:, slot:slot + BLOCK].copy_(torch.from_numpy(
+                rows.reshape(S, BLOCK, D)))
+    n_win = min(eng.t, WINDOW)
+    err = errors.cova_error_gram(errors.window_gram(win),
+                                 eng.base.query(eng.state, eng.t))
+    err = err.cpu().numpy()
+    if not np.isfinite(err).all() or err.max() > 4 * eps * n_win:
+        raise AssertionError(f"topology: restored users up to "
+                             f"{err.max():.3f} > 4εN = {4 * eps * n_win}")
+    live = eng.state.main.snap_valid.sum(dim=1).cpu().numpy()
+    log(f"topology 2 → 1: the shards restored as one engine in "
+        f"{restore_s:.3f} s, rows_ingested {eng.rows_ingested} (the "
+        f"fleet's); its {len(TOPO_COHORTS)} cohorts bit for bit the "
+        f"pair's; all {S} users within Theorem 3.1 (window_gram on the "
+        f"card): worst {err.max() / (eps * n_win):.4f}·εN (bound 4·εN); live "
+        f"snapshots even users {int(live[0::2].sum())}, odd users "
+        f"{int(live[1::2].sum())}")
+    del eng, win, feed
+    gc.collect()
+
+    # the history pair against the history phase
+    mine = []
+    for pid in range(2):
+        with np.load(Path(root) / f"history_{pid}.npz") as z:
+            mine.append({k: z[k] for k in z.files})
+    for (label, t1, t2), want in hist["answers"].items():
+        key = f"{label}_{t1}_{t2}"
+        for pid in range(2):
+            got = mine[pid][key]
+            if not np.array_equal(got, want):
+                rel = float(np.linalg.norm(got.astype(np.float64) - want)
+                            / max(np.linalg.norm(want), 1e-30))
+                raise AssertionError(
+                    f"topology history pair: process {pid} {label} "
+                    f"[{t1}, {t2}) differs from the history phase's "
+                    f"(relative Frobenius {rel:.3e})")
+    half = HISTORY_STREAMS // 2
+    log(f"topology history pair: S = {HISTORY_STREAMS} ({half} + {half}), "
+        f"{hist['ticks']} ticks: {kids[0]['history_ms_tick']:.3f} and "
+        f"{kids[1]['history_ms_tick']:.3f} ms/tick (one process, the "
+        f"history phase: {hist['ms_tick']:.3f}); {len(hist['answers'])} "
+        f"intervals bit for bit the history phase's; launches "
+        f"{kids[0]['history_launches']} and {kids[1]['history_launches']}; "
+        f"remote fetches "
+        f"{kids[0]['history_fetches']} and {kids[1]['history_fetches']}, "
+        f"published {kids[0]['history_published']} and "
+        f"{kids[1]['history_published']}, spills "
+        f"{kids[0]['history_spills']} and {kids[1]['history_spills']}; the "
+        f"queries {kids[0]['history_query_s']:.3f} and "
+        f"{kids[1]['history_query_s']:.3f} s")
+    launches = {k: fn.launches + sum(kid[pair][k] for kid in kids
+                                     for pair in ("krylov_launches",
+                                                  "history_launches"))
+                for k, fn in counters.items()}
+    tmp.cleanup()
+    return {"launches": launches, "ms_tick": [k["ms_tick"] for k in kids],
+            "threads": [k["threads"] for k in kids], "ms_one": ms_one,
+            "restore_s": restore_s}
 
 
 # ---------------------------------------------------------------------------
@@ -1999,7 +2379,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int,
-                    default=math.ceil(2.5 * WINDOW / BLOCK))
+                    default=3 * WINDOW // (2 * BLOCK))
     ap.add_argument("--fast-ticks", type=int, default=16)
     ap.add_argument("--fine-ticks", type=int,
                     default=math.ceil(1.25 * WINDOW / BLOCK))
@@ -2009,9 +2389,14 @@ def main(argv=None) -> int:
     ap.add_argument("--score-ticks", type=int, default=64)
     ap.add_argument("--history-ticks", type=int,
                     default=WINDOW // BLOCK + 512 // BLOCK)
+    ap.add_argument("--topology-ticks", type=int, default=160)
     ap.add_argument("--launch-sizes", action="store_true",
                     help="internal: time the dump-step kernels at the "
                     "launch sizes given on standard input")
+    ap.add_argument("--topology-child", nargs=3, metavar=("PID", "PORT",
+                                                          "DIR"),
+                    help="internal: one process of the topology phase's "
+                    "pair")
     args = ap.parse_args(argv)
     if args.score_ticks <= SCORE_SWITCH:
         ap.error(f"--score-ticks must pass the switch at tick {SCORE_SWITCH}")
@@ -2036,6 +2421,9 @@ def main(argv=None) -> int:
     torch.set_float32_matmul_precision("highest")
     if args.launch_sizes:
         return launch_sizes_main()
+    if args.topology_child:
+        pid, port, root = args.topology_child
+        return topology_child(int(pid), int(port), root)
     from repro_torch.kernels import dispatch
 
     rng = np.random.default_rng(args.seed)
@@ -2097,6 +2485,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    topo = run_topology(args.topology_ticks, hist, args.seed + 700)
+    log(f"phase topology: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     srv = run_serve(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2130,6 +2524,7 @@ def main(argv=None) -> int:
     paths = {"krylov": kry["launches"], "fine": fine["launches"],
              "seq-dsfd": seq["launches"], "time-dsfd": tds["launches"],
              "score": sco["launches"], "history": hist["launches"],
+             "topology": topo["launches"],
              "serve": {"flash_fwd": srv["launches"]}}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{src}",

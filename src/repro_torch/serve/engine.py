@@ -8,10 +8,10 @@ Counterpart of ``repro/serve/engine.py``.  Two serving paths live here:
   next queued request and splicing its caches into the batch at the slot
   index.
 * ``SketchFleetEngine`` — S per-user sliding-window sketches on one
-  device: admission, ticks, user and cohort queries through the cached
-  merge tree, the scoring plane, the history plane of retired window
-  content, and checkpoints in the reference's layout (the multi-process
-  engine, a topology, is ROADMAP item 11).
+  device, or this process's share of them under a ``FleetTopology``:
+  admission, ticks, user and cohort queries through the cached merge
+  tree, the scoring plane, the history plane of retired window content,
+  and checkpoints in the reference's layout.
 """
 
 from __future__ import annotations
@@ -20,13 +20,14 @@ import dataclasses
 import time
 import warnings
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import local_device
 from repro_torch.models import api
 from repro_torch.models.layers.attention import KVCache
 from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
@@ -34,8 +35,8 @@ from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
 from repro_torch.serve.serve_step import build_decode_step, \
     build_prefill_step
 from repro_torch.sketch import capability
-from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
-    restore_fleet, save_fleet
+from repro_torch.sketch.api import agg_tree, make_sketch, restore_fleet, \
+    save_fleet, shard_streams
 from repro_torch.sketch.history import HistoryPlane, install_query_interval
 from repro_torch.sketch.query import as_cohort
 from repro_torch.sketch.score import ScorePlane
@@ -172,10 +173,59 @@ class ServeEngine:
         return self.done
 
 
-def _score_key(name: str, S: int) -> str:
-    """The scoring plane's aux leaf ``name`` of streams [0, S), keyed by
+def _score_key(name: str, lo: int, hi: int) -> str:
+    """The scoring plane's aux leaf ``name`` of streams [lo, hi), keyed by
     stream range as the reference's processes key theirs."""
-    return f"{name}_{0:08d}_{S:08d}"
+    return f"{name}_{lo:08d}_{hi:08d}"
+
+
+def _score_aux_slice(aux: Dict[str, np.ndarray], lo: int,
+                     hi: int) -> Optional[Dict[str, np.ndarray]]:
+    """Streams ``[lo, hi)`` of the scoring plane's accumulators from aux
+    leaves keyed ``{name}_{save_lo:08d}_{save_hi:08d}``, whatever process
+    count saved them.  Streams no saved range covers start cold; None
+    when the checkpoint holds no score leaves at all."""
+    out: Dict[str, np.ndarray] = {}
+    found = False
+    for base in ScorePlane.KEYS:
+        acc = None
+        for k, v in aux.items():
+            if not k.startswith(base + "_"):
+                continue
+            try:
+                klo, khi = (int(p) for p in k[len(base) + 1:].split("_"))
+            except ValueError:
+                continue
+            a, b = max(lo, klo), min(hi, khi)
+            if a >= b:
+                continue
+            v = np.asarray(v)
+            if acc is None:
+                acc = np.zeros((hi - lo,), v.dtype)
+            acc[a - lo:b - lo] = v[a - klo:b - klo]
+            found = True
+        if acc is not None:
+            out[base] = acc
+    if not found:
+        return None
+    cold = ScorePlane(hi - lo).state_dict()
+    for base in ScorePlane.KEYS:
+        out.setdefault(base, cold[base])
+    return out
+
+
+def _fleet_rows(fc, espec: Dict[str, Any]) -> int:
+    """The whole fleet's ingested rows at the save.  A port shard records
+    the fleet's count it was restored with (``rows_base``) and adds only
+    its own rows after, so the fleet's is that base plus each shard's own;
+    without a base on every shard (a plain or a reference checkpoint), the
+    handed-back manifest's count."""
+    engines = [m["sketch_spec"].get("engine") or {}
+               for m in fc.shard_manifests]
+    if not engines or not all("rows_base" in e for e in engines):
+        return int(espec.get("rows_ingested", 0))
+    return int(engines[0]["rows_base"]) + sum(
+        int(e["rows_ingested"]) - int(e["rows_base"]) for e in engines)
 
 
 def _splice_caches(big: KVCache, one: KVCache, slot: int) -> None:
@@ -244,26 +294,44 @@ class SketchFleetEngine:
     ``SketchFleetEngine.from_checkpoint(path)`` rebuilds an engine (from
     either package's checkpoint) that goes on exactly as the saved one
     would have.
+
+    Ownership routing (a fleet across processes): with ``topology`` (a
+    ``repro_torch.parallel.topology.FleetTopology``) the engine holds the
+    users ``[topology.lo, topology.hi)`` on this process's
+    ``launch.mesh.local_device``.  ``submit``, ``submit_many``,
+    ``query_user`` and ``score_rows`` take global user ids; an id another
+    process owns raises ``OwnershipError`` naming it (``submit_many``
+    admits nothing of a mixed batch).  ``query_cohort``,
+    ``query_global``, ``query_interval`` and ``anomalies(collective=True)``
+    are collectives: every process issues the same sequence between the
+    same ticks.  ``checkpoint`` writes this process's shard;
+    ``from_checkpoint(..., topology=)`` takes its range from whatever
+    checkpoint it finds and keeps the pending rows it now owns.
     """
 
     def __init__(self, name: str = "dsfd", *, d: int, streams: int,
                  eps: float = 1 / 8, window: int = 1024, block: int = 8,
                  ingest: str = "async", queue_capacity: Optional[int] = None,
-                 history: bool = False,
+                 topology=None, history: bool = False,
                  history_hot_nodes: Optional[int] = None,
                  history_dir: Optional[str] = None,
                  score: bool = False, score_ema: float = 0.05,
                  score_zscore: float = 4.0, score_warmup: int = 5,
                  device="cuda", **hyper):
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if topology is None
+                       else local_device(topology, device))
         self.base = make_sketch(name, d=d, eps=eps, window=window,
                                 device=self.device, **hyper)
-        self.fleet = fleet_streams(self.base, streams)
+        self.topology = topology
+        self.fleet = shard_streams(self.base, streams, topology=topology)
         self.S, self.d, self.block = int(streams), int(d), int(block)
+        self.S_local = (self.S if topology is None
+                        else int(topology.local_size))
         self.window = int(window)
         self.state = self.fleet.init()
         self.t = 0                                  # fleet clock (ticks)
         self.rows_ingested = 0
+        self._rows_base = 0     # the fleet's count as of the last restore
         self._wire_ingest(ingest, queue_capacity)
         self.tree = agg_tree(self.fleet)  # the cohort-query cache
         self.history = None
@@ -271,14 +339,15 @@ class SketchFleetEngine:
             self._attach_history(HistoryPlane(
                 streams=self.S, d=self.d, ell=int(self.base.meta["ell"]),
                 window=self.window, hot_capacity=history_hot_nodes,
-                spill_dir=history_dir, device=self.device))
+                spill_dir=history_dir, topology=topology,
+                device=self.device))
         self._wire_score(score, ema=score_ema, zscore=score_zscore,
                          warmup=score_warmup)
 
     def _wire_ingest(self, mode: str, capacity: Optional[int]) -> None:
         """The admission queue and slab pipeline (also the restore path)."""
         self.ingest = mode
-        self.queue = AdmissionQueue(self.S, self.d, capacity=capacity)
+        self.queue = AdmissionQueue(self.S_local, self.d, capacity=capacity)
         self.transfer = SlabTransfer(self.device)
         self.pipe = make_pipeline(mode, self.queue, block=self.block,
                                   transfer=self.transfer)
@@ -293,7 +362,7 @@ class SketchFleetEngine:
             return
         if not capability.has(self.fleet, "score"):
             self.fleet.score()         # the capability raiser names the fix
-        self.score_plane = ScorePlane(self.S, ema=ema, zscore=zscore,
+        self.score_plane = ScorePlane(self.S_local, ema=ema, zscore=zscore,
                                       warmup=warmup)
 
     def _attach_history(self, plane: HistoryPlane) -> None:
@@ -311,12 +380,20 @@ class SketchFleetEngine:
         snapshot, per-user FIFO order kept.  The warm ``AggTree`` nodes,
         the history index (hot nodes and pending units as aux leaves, the
         spill dir by path) and the scoring plane's accumulators ride in
-        the same checkpoint, under the reference's names."""
+        the same checkpoint, under the reference's names.  Under a topology
+        this writes the process's shard: pending users by global id, no
+        tree nodes (the partitioned plane restarts cold, its keys scoped
+        by a version every process restarts in lockstep), the score
+        accumulators keyed by the process's stream range."""
         self.pipe.flush_to_queue()
         users, rows = self.queue.snapshot()
-        aux = {"pending_user": users, "pending_rows": rows}
-        tree_meta, tree_arrays = self.tree.state_dict(t=self.t)
-        aux.update(tree_arrays)
+        lo = 0 if self.topology is None else int(self.topology.lo)
+        aux = {"pending_user": (users + np.int32(lo)).astype(np.int32),
+               "pending_rows": rows}
+        tree_meta = None
+        if self.topology is None:
+            tree_meta, tree_arrays = self.tree.state_dict(t=self.t)
+            aux.update(tree_arrays)
         hist_meta = None
         if self.history is not None:
             hist_meta, hist_arrays = self.history.state_dict()
@@ -324,30 +401,44 @@ class SketchFleetEngine:
         score_meta = None
         if self.score_plane is not None:
             for k, v in self.score_plane.state_dict().items():
-                aux[_score_key(k, self.S)] = v
+                aux[_score_key(k, lo, lo + self.S_local)] = v
             score_meta = self.score_plane.spec()
         # rows_ingested rides in the JSON spec (an unbounded integer)
+        engine = {"block": self.block,
+                  "rows_ingested": int(self.rows_ingested),
+                  "ingest": self.ingest,
+                  "queue_capacity": self.queue.capacity,
+                  "agg_tree": tree_meta,
+                  "history": hist_meta,
+                  "score": score_meta}
+        if self.topology is not None:
+            # a shard counts the fleet's rows at its restore plus its own
+            # since: the base lets a restore sum the shards' own rows
+            engine["rows_base"] = int(self._rows_base)
         return save_fleet(path, self.fleet, self.state, self.t, aux=aux,
-                          spec_extra={"engine": {
-                              "block": self.block,
-                              "rows_ingested": int(self.rows_ingested),
-                              "ingest": self.ingest,
-                              "queue_capacity": self.queue.capacity,
-                              "agg_tree": tree_meta,
-                              "history": hist_meta,
-                              "score": score_meta}},
+                          spec_extra={"engine": engine},
                           keep=keep)
 
     @classmethod
     def from_checkpoint(cls, path: str, *, step: Optional[int] = None,
-                        device="cuda") -> "SketchFleetEngine":
+                        device="cuda", topology=None) -> "SketchFleetEngine":
         """Rebuild an engine from :meth:`checkpoint` output of either
         package, on ``device`` (the card by default).  The clock, the
         ingested-row count, the pending rows, the history index and the
         scoring plane are restored, so what follows is the same as an
         uninterrupted run; saved ``AggTree`` nodes make the first
-        aggregate queries warm (any mismatch leaves the cache cold)."""
-        fc = restore_fleet(path, step=step, device=device)
+        aggregate queries warm (any mismatch leaves the cache cold).
+
+        With ``topology``, this process's share, whatever process count
+        saved the checkpoint (``restore_fleet``'s elastic reassembly): the
+        pending rows it now owns, its slice of the score accumulators.
+        The history index restores only under the saving partition, as in
+        the reference.  ``rows_ingested`` comes back as the whole fleet's
+        count at the save, on every process and whoever saved: the
+        port's shards carry the count they were restored with, so their
+        own rows sum; the reference's shards give the first shard's
+        count, as the reference does."""
+        fc = restore_fleet(path, step=step, device=device, topology=topology)
         ss = fc.manifest["sketch_spec"]
         espec = ss.get("engine")
         if espec is None:
@@ -362,41 +453,88 @@ class SketchFleetEngine:
         eng.device = fc.fleet.meta["device"]
         eng.base = fc.fleet.meta["base"]
         eng.fleet = fc.fleet
+        eng.topology = topology
         eng.S = int(ss["streams"])
+        eng.S_local = (eng.S if topology is None
+                       else int(topology.local_size))
         eng.d = int(spec["d"])
         eng.block = int(espec["block"])
         eng.window = int(spec["window"])
         eng.state = fc.state
         eng.t = int(fc.t)
-        eng.rows_ingested = int(espec.get("rows_ingested", 0))
+        eng.rows_ingested = eng._rows_base = _fleet_rows(fc, espec)
         eng._wire_ingest(espec.get("ingest", "async"),
                          espec.get("queue_capacity"))
-        eng.queue.load(fc.aux["pending_user"], fc.aux["pending_rows"])
+        # pending users are saved by global id: keep the ones this process
+        # owns now (the others' owners pick up the rest)
+        users = np.asarray(fc.aux["pending_user"], np.int32).reshape(-1)
+        rows = np.asarray(fc.aux["pending_rows"])
+        lo = 0 if topology is None else int(topology.lo)
+        owned = (users >= lo) & (users < lo + eng.S_local)
+        eng.queue.load(users[owned] - np.int32(lo), rows[owned])
         eng.tree = agg_tree(eng.fleet)
-        eng.tree.load_state_dict(espec.get("agg_tree"), fc.aux, eng.state)
+        if topology is None:
+            eng.tree.load_state_dict(espec.get("agg_tree"), fc.aux,
+                                     eng.state)
         eng.history = None
         if espec.get("history") is not None:
             eng._attach_history(HistoryPlane.from_state_dict(
-                espec["history"], fc.aux, device=eng.device))
+                espec["history"], fc.aux, topology=topology,
+                device=eng.device))
         smeta = espec.get("score")
         eng._wire_score(smeta is not None,
                         **(smeta or dict(ema=0.0, zscore=0.0, warmup=0)))
-        keys = {k: _score_key(k, eng.S) for k in ScorePlane.KEYS}
-        if smeta is not None and all(v in fc.aux for v in keys.values()):
-            eng.score_plane.load_state_dict(
-                {k: fc.aux[v] for k, v in keys.items()})
+        if smeta is not None:
+            arrays = _score_aux_slice(fc.aux, lo, lo + eng.S_local)
+            if arrays is not None:
+                eng.score_plane.load_state_dict(arrays)
         return eng
 
     # -- admission ---------------------------------------------------------
 
+    def _route(self, user) -> int:
+        """A global user id as an index of this process's streams (the
+        identity without a topology); ``OwnershipError`` names the owner
+        of an id this process does not hold."""
+        if isinstance(user, bool) or not isinstance(user, (int, np.integer)):
+            raise ValueError(
+                f"user id must be an integer, got {type(user).__name__} "
+                f"({user!r})")
+        u = int(user)
+        if not 0 <= u < self.S:
+            raise ValueError(f"user id {u} outside the fleet's "
+                             f"[0, {self.S}) stream range")
+        return u if self.topology is None else self.topology.to_local(u)
+
     def submit(self, user: int, row: np.ndarray) -> bool:
-        """Admit one row for ``user``; ``True`` accepted, ``False``
-        deferred (drain with ``step``/``run`` and resubmit)."""
+        """Admit one row for ``user`` (a global id); ``True`` accepted,
+        ``False`` deferred (drain with ``step``/``run`` and resubmit)."""
+        if self.topology is not None:
+            user = self._route(user)
         return self.queue.submit(user, row)
 
     def submit_many(self, users, rows) -> np.ndarray:
-        """Batched admission; returns the (n,) bool acceptance mask (at
-        ``queue_capacity`` the longest fitting prefix is admitted)."""
+        """Batched admission of global ids; returns the (n,) bool
+        acceptance mask (at ``queue_capacity`` the longest fitting prefix
+        is admitted).  Under a topology a batch holding an id another
+        process owns raises ``OwnershipError`` and admits nothing."""
+        if self.topology is not None:
+            ua = np.asarray(users)
+            if ua.ndim != 1 or (ua.size
+                                and not np.issubdtype(ua.dtype, np.integer)):
+                raise ValueError(
+                    f"users must be a 1-D integer array, got shape "
+                    f"{ua.shape} dtype {ua.dtype}")
+            if ua.size:
+                bad = (ua < 0) | (ua >= self.S)
+                if bad.any():
+                    raise ValueError(
+                        f"user id {int(ua[bad][0])} outside the fleet's "
+                        f"[0, {self.S}) stream range")
+                owned = (ua >= self.topology.lo) & (ua < self.topology.hi)
+                if not owned.all():
+                    self.topology.to_local(int(ua[~owned][0]))  # raises
+            users = (ua - self.topology.lo).astype(ua.dtype, copy=False)
         return self.queue.submit_many(users, rows)
 
     @property
@@ -416,8 +554,8 @@ class SketchFleetEngine:
             return 0
         if nrows == 0:
             if self._zero_slab is None:
-                self._zero_slab = np.zeros((self.S, self.block, self.d),
-                                           np.float32)
+                self._zero_slab = np.zeros((self.S_local, self.block,
+                                            self.d), np.float32)
             slab = self._zero_slab
         rows = self.transfer.to_compute(slab)
         scores = None
@@ -432,7 +570,7 @@ class SketchFleetEngine:
         self.rows_ingested += nrows
         self.tree.advance(self.state, touched)
         if scores is not None:
-            cnt = np.zeros((self.S,), np.int64)
+            cnt = np.zeros((self.S_local,), np.int64)
             cnt[touched] = counts
             self.score_plane.observe(scores.cpu().numpy(), cnt)
         if self.history is not None:
@@ -470,11 +608,8 @@ class SketchFleetEngine:
     # -- queries -----------------------------------------------------------
 
     def _user(self, user: int):
-        """That user's (S = 1) state."""
-        u = int(user)
-        if not 0 <= u < self.S:
-            raise ValueError(f"user id {u} outside the fleet's "
-                             f"[0, {self.S}) stream range")
+        """That user's (S = 1) state (``user`` a global id)."""
+        u = self._route(user)
         return take(self.state, slice(u, u + 1))
 
     def query_user(self, user: int) -> np.ndarray:
@@ -485,7 +620,8 @@ class SketchFleetEngine:
         """ONE compressed (2ℓ, d) sketch over a cohort of users' windows
         (a ``Cohort``, an int, an iterable of ids, or None for all), from
         the cached ``AggTree``: repeated and overlapping cohort queries
-        between ticks reuse its nodes (O(log S) merges warm)."""
+        between ticks reuse its nodes (O(log S) merges warm).  A collective
+        under a topology."""
         g = self.tree.query(self.state, as_cohort(users), self.t)
         return self.base.query(g, self.t)[0].cpu().numpy()
 
@@ -500,7 +636,8 @@ class SketchFleetEngine:
         (``history=True``): O(log(t2 − t1)) node merges warm.  Only
         intervals that have left the live window are addressable
         (``t2 − 1 <= t − window``).  Without a plane, the fleet's
-        capability raiser says how to build one."""
+        capability raiser says how to build one.  A collective under a
+        topology."""
         return self.fleet.query_interval(self.state, t1, t2,
                                          as_cohort(users)).cpu().numpy()
 
@@ -521,17 +658,27 @@ class SketchFleetEngine:
         g = self.tree.query(self.state, as_cohort(users), self.t)
         return self.base.score(g, rows, self.t)[0].cpu().numpy()
 
-    def anomalies(self, *, reset: bool = False) -> np.ndarray:
-        """User ids currently flagged by the per-user EWMA thresholds
-        (``score=True`` engines); ``reset=True`` clears the flags after
-        reading."""
+    def anomalies(self, *, reset: bool = False,
+                  collective: bool = False) -> np.ndarray:
+        """Global user ids currently flagged by the per-user EWMA
+        thresholds (``score=True`` engines); ``reset=True`` clears the
+        flags after reading.  Under a topology a process knows only its
+        own users; ``collective=True`` gathers every process's into the
+        same sorted array on all of them (a collective)."""
         if self.score_plane is None:
             raise ValueError(
                 "this engine scores nothing — build it with "
                 "SketchFleetEngine(..., score=True[, score_zscore=..., "
                 "score_warmup=...]) to run the per-user EWMA scoring "
                 "plane at ingest")
-        return np.asarray(self.score_plane.anomalies(reset=reset), np.int64)
+        local = np.asarray(self.score_plane.anomalies(reset=reset), np.int64)
+        if self.topology is None:
+            return local
+        local = local + np.int64(self.topology.lo)
+        if collective:
+            local = np.sort(np.concatenate(
+                self.topology.allgather_array("anomalies", local)))
+        return local
 
     def ranks(self) -> np.ndarray:
         """Per-user working rank ℓ (adaptive-rank variants only,

@@ -20,8 +20,7 @@ fields are capabilities (``sketch/capability.py``): every variant scores
 rows (``score``), adaptive-rank FD reports its ranks (``ranks``), fleets
 answer cohorts (``query_cohort``), and a fleet with a history plane
 answers intervals of retired window content (``query_interval``,
-``sketch/history.py``).  The host baselines and the multi-device fleet
-(ROADMAP item 11) are not ported yet.
+``sketch/history.py``).  The host baselines are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,10 +43,14 @@ from repro_torch.core.seq_dsfd import layered_init, layered_merge, \
     layered_query_rows, layered_space, layered_update, layered_update_block, \
     make_seq_config, make_time_config
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import local_device
+from repro_torch.parallel.topology import PartitionedAggTree, \
+    process_runtime
 from repro_torch.sketch import capability
 from repro_torch.sketch.basis import residual_scores
 from repro_torch.sketch.query import ALL, AggTree, Cohort  # noqa: F401
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.tree import tree_map
 
 
 class SlidingSketch(NamedTuple):
@@ -323,12 +326,12 @@ def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
     device.
 
     Replaces the reference's ``vmap_streams`` (one fused XLA program over
-    S) and ``shard_streams`` (the same over a device mesh): the port's
-    functions already carry the stream axis, so the fleet differs from
-    its base in ``init`` (S streams), ``space`` (a :class:`FleetSpace`)
-    and ``query_cohort``, served from one :class:`AggTree` per fleet,
-    created at its first use (:func:`agg_tree`).  The multi-device fleet
-    is ROADMAP item 11."""
+    S): the port's functions already carry the stream axis, so the fleet
+    differs from its base in ``init`` (S streams), ``space`` (a
+    :class:`FleetSpace`) and ``query_cohort``, served from one
+    :class:`AggTree` per fleet, created at its first use
+    (:func:`agg_tree`).  :func:`shard_streams` is the reference's
+    device-sharded fleet."""
     S = int(streams)
     if S < 1:
         raise ValueError(f"fleet size {S} < 1")
@@ -358,13 +361,86 @@ def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
     ))
 
 
-def agg_tree(fleet: SlidingSketch) -> AggTree:
+def shard_streams(sk: SlidingSketch, streams: int, *, axis: str = "streams",
+                  topology=None) -> SlidingSketch:
+    """The reference's device-sharded fleet of ``streams``.
+
+    PyTorch's idiom is one process a card, so without a ``topology`` this
+    is the fleet on this process's one device (:func:`fleet_streams`),
+    whose checkpoints record ``sharded: true`` over one device as the
+    reference's do.  A fleet over several cards is a topology with one
+    process a card: each process holds its own contiguous range
+    ``[topology.lo, topology.hi)`` (state, ``update_block``, ``query``,
+    ``score`` and ``ranks`` on local shapes), while ``query_cohort`` takes
+    global cohorts and is a collective answered through a
+    :class:`~repro_torch.parallel.topology.PartitionedAggTree`, the answer
+    of the fleet nobody split.  Without a topology, a multi-process
+    runtime is refused, as in the reference: a global-shape fleet would
+    exist on no process."""
+    S = int(streams)
+    if topology is not None:
+        return _shard_streams_topology(sk, S, axis, topology)
+    world, _ = process_runtime()
+    if world > 1:
+        raise ValueError(
+            f"shard_streams(streams={S}) in a multi-process runtime "
+            f"(world_size={world}) needs a topology: this process's fleet "
+            "covers only its own device, so a global-shape fleet state "
+            "would exist on no process.  Pass topology=FleetTopology("
+            "streams) (repro_torch.parallel.topology) so each process owns "
+            "a contiguous stream range, or build a per-process private "
+            "fleet with fleet_streams.")
+    fleet = fleet_streams(sk, S)
+    return fleet._replace(name=f"shard[{sk.name}x{S}/1]",
+                          meta=dict(fleet.meta, devices=1, axis=axis))
+
+
+def _shard_streams_topology(sk: SlidingSketch, S: int, axis: str,
+                            topology) -> SlidingSketch:
+    """This process's share of a topology fleet: the fleet of its
+    ``topology.local_size`` streams, with ``query_cohort`` over global
+    stream ids through the collective ``PartitionedAggTree``."""
+    if topology.S != S:
+        raise ValueError(
+            f"topology covers {topology.S} streams but shard_streams was "
+            f"asked for {S} — build both from the same fleet size")
+    local = fleet_streams(sk, topology.local_size)
+    box: Dict[str, PartitionedAggTree] = {}
+
+    def tree() -> PartitionedAggTree:
+        if "tree" not in box:
+            box["tree"] = PartitionedAggTree(sk, topology)
+        return box["tree"]
+
+    def query_cohort(state, cohort=ALL, t=None):
+        return tree().query(state, cohort, t)
+
+    def space(state):
+        per = sk.space(state)
+        cache_rows = tree().space()
+        ranks = sk.ranks(state) if capability.has(sk, "ranks") else None
+        return FleetSpace(per_stream=per, total=per.sum() + cache_rows,
+                          cache_rows=cache_rows, ranks=ranks)
+
+    return local._replace(
+        name=(f"topo[{sk.name}x{S}@{topology.pid}/{topology.P}"
+              f":{topology.lo}-{topology.hi}]"),
+        meta=dict(local.meta, streams=S, devices=1, axis=axis,
+                  topology=topology, local_streams=topology.local_size,
+                  local_range=(topology.lo, topology.hi), agg_tree=tree),
+        space=space,
+        query_cohort=query_cohort,
+    )
+
+
+def agg_tree(fleet: SlidingSketch):
     """The fleet's query-plane tree, created at its first use: for cache
-    accounting and the engine's ``advance``."""
+    accounting and the engine's ``advance``.  A topology fleet's is its
+    collective :class:`~repro_torch.parallel.topology.PartitionedAggTree`."""
     tree = fleet.meta.get("agg_tree")
     if tree is None:
-        raise ValueError(f"agg_tree needs a fleet from fleet_streams, got "
-                         f"{fleet.name!r}")
+        raise ValueError(f"agg_tree needs a fleet from fleet_streams or "
+                         f"shard_streams, got {fleet.name!r}")
     return tree()
 
 
@@ -406,20 +482,18 @@ def query_interval(fleet: SlidingSketch, state, t1, t2, cohort=ALL):
 # Fleet persistence — the reference's checkpoint layout
 # ---------------------------------------------------------------------------
 
-_TOPOLOGY = ("a multi-process fleet (topology, shard checkpoints "
-             "shard-LLLLLL-HHHHHH/) is ROADMAP item 11, not ported yet")
-
-
 class FleetCheckpoint(NamedTuple):
     """What :func:`restore_fleet` gives back: the rebuilt fleet, its state
     on the restoring device, the fleet clock at the save, the auxiliary
-    host arrays saved beside it, and the manifest."""
+    host arrays saved beside it, the manifest, and every shard's manifest
+    in stream order (the one manifest of a plain checkpoint)."""
 
     fleet: SlidingSketch
     state: Any
     t: int
     aux: Dict[str, np.ndarray]
     manifest: Dict[str, Any]
+    shard_manifests: Tuple[Dict[str, Any], ...] = ()
 
 
 def _spec_to_disk(base: SlidingSketch) -> Dict[str, Any]:
@@ -458,7 +532,11 @@ def save_fleet(path: str, fleet: SlidingSketch, state, t, *,
     in the reference's layout (``train/checkpoint.py``): the state in the
     reference's tree and dtypes, and a ``sketch_spec`` manifest section
     naming the base sketch in the registry, the fleet size and the clock,
-    so either package rebuilds the fleet from the checkpoint alone.
+    so either package rebuilds the fleet from the checkpoint alone.  A
+    :func:`shard_streams` fleet records ``sharded: true`` over its one
+    device; a topology fleet writes this process's shard, a
+    self-describing checkpoint under ``path/shard-LLLLLL-HHHHHH/``, beside
+    its siblings' (:func:`restore_fleet` reassembles any process count).
 
     ``aux``: a flat ``{name: numpy array}`` of host extras saved in the
     same checkpoint (the engine's pending rows, index arrays);
@@ -466,18 +544,24 @@ def save_fleet(path: str, fleet: SlidingSketch, state, t, *,
     section."""
     base = fleet.meta.get("base")
     if base is None:
-        raise ValueError(f"save_fleet needs a fleet from fleet_streams, got "
-                         f"{fleet.name!r}")
+        raise ValueError(f"save_fleet needs a fleet from fleet_streams or "
+                         f"shard_streams, got {fleet.name!r}")
     aux = dict(aux or {})
+    devices = fleet.meta.get("devices")
+    topo = fleet.meta.get("topology")
     sketch_spec: Dict[str, Any] = {
         "sketch": _spec_to_disk(base),
         "streams": int(fleet.meta["streams"]),
-        "sharded": False,
-        "mesh_axis": None,
-        "mesh_devices": None,
+        "sharded": devices is not None,
+        "mesh_axis": fleet.meta.get("axis"),
+        "mesh_devices": None if devices is None else int(devices),
         "t": int(t),
         "aux_keys": sorted(aux),
     }
+    if topo is not None:
+        sketch_spec["topology"] = topo.spec()
+        sketch_spec["local_streams"] = int(topo.local_size)
+        path = fleet_shard_dir(path, topo.lo, topo.hi)
     if spec_extra:
         sketch_spec.update(spec_extra)
     try:
@@ -489,49 +573,144 @@ def save_fleet(path: str, fleet: SlidingSketch, state, t, *,
             "scalars/strings") from e
     tree = {"aux": {k: np.asarray(aux[k]) for k in aux},
             "state": convert.fleet_state_to_numpy(base, state)}
-    return ckpt.save(path, int(t), tree, sketch_spec=sketch_spec, keep=keep)
+    return ckpt.save(path, int(t), tree, sketch_spec=sketch_spec,
+                     mesh_shape=None if devices is None else (int(devices),),
+                     keep=keep)
 
 
-def _has_shards(path: str) -> bool:
+def fleet_shard_dir(path: str, lo: int, hi: int) -> str:
+    """A process's shard directory of a topology fleet's checkpoint."""
+    return os.path.join(str(path), f"shard-{int(lo):06d}-{int(hi):06d}")
+
+
+def _fleet_shards(path: str):
+    """``[(lo, hi, dir)]`` of the shard checkpoints under ``path``, in
+    stream order; ``[]`` for a plain fleet checkpoint."""
     try:
-        entries = os.listdir(path)
+        entries = sorted(os.listdir(path))
     except (FileNotFoundError, NotADirectoryError):
-        return False
-    return any(re.fullmatch(r"shard-(\d{6})-(\d{6})", e)
-               and os.path.isdir(os.path.join(path, e)) for e in entries)
+        return []
+    out = []
+    for name in entries:
+        m = re.fullmatch(r"shard-(\d{6})-(\d{6})", name)
+        if m and os.path.isdir(os.path.join(path, name)):
+            out.append((int(m.group(1)), int(m.group(2)),
+                        os.path.join(path, name)))
+    return out
 
 
-def restore_fleet(path: str, *, step: Optional[int] = None, device="cuda",
-                  topology=None) -> FleetCheckpoint:
-    """Rebuild a fleet from a :func:`save_fleet` checkpoint of either
-    package: the base sketch from the registry through the ``sketch_spec``
-    section, the state on ``device`` (the card by default).  The
-    reference's ``sharded: true`` checkpoints restore too (their leaves
-    are full arrays); the ``aux`` arrays come back as numpy at their
-    on-disk dtype (float64/int64 accumulators included).  Continuing from
-    ``.state`` at clock ``.t`` is the same as never having stopped."""
-    if topology is not None or _has_shards(path):
-        raise NotImplementedError(_TOPOLOGY)
-    dev = resolve_device(device)
-    manifest = ckpt.read_manifest(path, step=step)
+def _fleet_spec_of(manifest, path) -> Dict[str, Any]:
     ss = manifest.get("sketch_spec")
     if not ss:
         raise ValueError(
             f"checkpoint under {path!r} has no sketch_spec manifest "
             "section — not a fleet checkpoint (train states restore via "
             "repro_torch.train.checkpoint.restore)")
-    spec = ss["sketch"]
-    kw = _spec_from_disk(spec)
-    sk = make_sketch(spec["name"], device=dev, **kw)
-    fleet = fleet_streams(sk, int(ss["streams"]))
+    return ss
+
+
+def _read_leaves(path: str, ss, step: int):
+    """``(state, aux)`` of one checkpoint with numpy leaves: the state in
+    the reference's tree, the aux arrays at their on-disk dtypes."""
     # only the structure of the template is read: one stream on the host
-    template = make_sketch(spec["name"], device="cpu", **kw).init()
+    spec = ss["sketch"]
+    template = make_sketch(spec["name"], device="cpu",
+                           **_spec_from_disk(spec)).init()
     tree_like = {"aux": {k: 0 for k in ss.get("aux_keys", [])},
                  "state": template}
-    # the step resolved above: a save landing meanwhile must not change
-    # which checkpoint the leaves come from
-    tree, manifest = ckpt.restore(path, tree_like, step=int(manifest["step"]),
-                                  device="cpu", host_leaves=lambda p: True)
-    state = convert.fleet_state_from_numpy(sk, tree["state"], dev)
-    return FleetCheckpoint(fleet, state, int(ss["t"]), dict(tree["aux"]),
-                           manifest)
+    tree, _ = ckpt.restore(path, tree_like, step=step, device="cpu",
+                           host_leaves=lambda p: True)
+    return tree["state"], dict(tree["aux"])
+
+
+def restore_fleet(path: str, *, step: Optional[int] = None, device="cuda",
+                  topology=None) -> FleetCheckpoint:
+    """Rebuild a fleet from a :func:`save_fleet` checkpoint of either
+    package: the base sketch from the registry through the ``sketch_spec``
+    section, the state on ``device`` (the card by default; under a
+    ``topology``, this process's :func:`~repro_torch.launch.mesh.
+    local_device`).  The ``aux`` arrays come back as numpy at their
+    on-disk dtype (float64/int64 accumulators included).  Continuing from
+    ``.state`` at clock ``.t`` is the same as never having stopped.
+
+    Process elasticity, as in the reference: the process counts at the
+    save and at the restore are independent.  A plain checkpoint restored
+    under a ``topology`` gives this process's slice; the shards of a
+    topology fleet (``shard-LLLLLL-HHHHHH/``) restored without one are
+    gathered into one fleet; restored under another process count, the
+    overlapping shards are sliced and concatenated.  Every leaf is an
+    exact row slice, so every reassembly is bit for bit; ``aux`` arrays
+    are concatenated in stream order (consumers filter by ownership)."""
+    shards = _fleet_shards(path)
+    if shards:
+        sources = []
+        for lo, hi, sdir in shards:
+            manifest = ckpt.read_manifest(sdir, step=step)
+            sources.append((lo, hi, sdir, manifest,
+                            _fleet_spec_of(manifest, sdir)))
+    else:
+        manifest = ckpt.read_manifest(path, step=step)
+        ss0 = _fleet_spec_of(manifest, path)
+        sources = [(0, int(ss0["streams"]), path, manifest, ss0)]
+    ss = sources[0][4]
+    S, t = int(ss["streams"]), int(ss["t"])
+    for _, _, sdir, _, ssi in sources:
+        if ssi["sketch"] != ss["sketch"] or int(ssi["streams"]) != S:
+            raise ValueError(
+                f"shard {sdir!r} disagrees with its siblings on the fleet "
+                "spec — shards of one checkpoint must come from one fleet")
+        if int(ssi["t"]) != t:
+            raise ValueError(
+                f"shard {sdir!r} was saved at clock {ssi['t']} but its "
+                f"siblings at {t} — processes must checkpoint the same "
+                "tick (the engine checkpoint path is a collective)")
+    spec = ss["sketch"]
+    axis = ss.get("mesh_axis") or "streams"
+    if topology is not None:
+        if topology.S != S:
+            raise ValueError(
+                f"checkpoint holds {S} streams but the topology covers "
+                f"{topology.S}")
+        dev = local_device(topology, device)
+        tlo, thi = topology.lo, topology.hi
+    else:
+        dev = resolve_device(device)
+        tlo, thi = 0, S
+    sk = make_sketch(spec["name"], device=dev, **_spec_from_disk(spec))
+    fleet = (shard_streams(sk, S, axis=axis, topology=topology)
+             if shards or topology is not None or ss.get("sharded")
+             else fleet_streams(sk, S))
+
+    # the overlapping shards in stream order, each sliced to [tlo, thi),
+    # each from the step its manifest was read at (a save landing
+    # meanwhile must not change which checkpoint the leaves come from);
+    # the manifest handed back is the one of the shard holding stream tlo
+    # (the reference hands every process the first shard's, so a history
+    # engine's shard restores under its own partition only on process 0)
+    cover = tlo
+    pieces, aux_pieces, manifests = [], [], []
+    for lo, hi, sdir, m, ssi in sources:             # in stream order
+        if hi <= tlo or lo >= thi:
+            continue
+        if lo > cover:
+            break
+        cover = max(cover, hi)
+        manifests.append(m)
+        state_np, aux = _read_leaves(sdir, ssi, int(m["step"]))
+        a, b = max(tlo, lo) - lo, min(thi, hi) - lo
+        pieces.append(tree_map(lambda x: x[a:b], state_np))
+        aux_pieces.append(aux)
+    if cover < thi:
+        raise ValueError(
+            f"checkpoint under {path!r} has no shard covering streams "
+            f"[{cover}, {thi}) — incomplete save (a process died before "
+            "its shard landed?)")
+    state_np = (pieces[0] if len(pieces) == 1 else
+                tree_map(lambda *xs: np.concatenate(xs, axis=0), *pieces))
+    aux_out: Dict[str, np.ndarray] = {}
+    for k in sorted({k for p in aux_pieces for k in p}):
+        vals = [p[k] for p in aux_pieces if k in p]
+        aux_out[k] = vals[0] if len(vals) == 1 else np.concatenate(vals)
+    state = convert.fleet_state_from_numpy(sk, state_np, dev)
+    return FleetCheckpoint(fleet, state, t, aux_out, manifests[0],
+                           tuple(src[3] for src in sources))

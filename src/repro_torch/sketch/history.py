@@ -45,9 +45,16 @@ which checkpoint retention never prunes.
 
 ``SketchFleetEngine(..., history=True)`` owns a plane: every ``step()``
 that advances the clock observes the slab and retires the units that
-just left the window; engine checkpoints carry the index.  The
-multi-process plane (a ``topology``, the publish-before-fetch collective)
-is ROADMAP item 11.
+just left the window; engine checkpoints carry the index.
+
+Under a ``FleetTopology`` (``parallel/topology.py``) each process holds
+its own stream range's snapshots, and ``query_interval`` is a collective,
+the ``PartitionedAggTree``'s protocol: every process publishes, per cover
+node, whether it is empty there and the values of its one-owner segments
+(maximal canonical nodes inside its range), then fetches the others' and
+folds the spine at the same midpoints, which gives the one-process
+answer.  Keys carry no version: retired nodes never change, so a fetched
+value is kept.
 """
 
 from __future__ import annotations
@@ -62,14 +69,11 @@ import torch
 
 from repro_torch.core.fd import fd_compress
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.parallel.topology import pack_leaves, unpack_leaves
 from repro_torch.sketch.query import ALL, as_cohort, canonical_cover
 from repro_torch.train import checkpoint as ckpt
 
 NodeKey = Tuple[int, int]        # (level L, index i): units [i·2^L, (i+1)·2^L)
-
-_TOPOLOGY = ("the multi-process history plane (a topology and its "
-             "publish-before-fetch collective) is ROADMAP item 11, not "
-             "ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -237,20 +241,33 @@ class _NodeStore:
 class HistoryPlane:
     """The time-dyadic index of retired window content (module docstring).
 
+    With a ``topology`` this process holds the streams ``[topology.lo,
+    topology.hi)`` (slabs of that many rows) and ``query_interval`` is a
+    collective over ``topology.transport``.
+
     Counters: ``retired_units`` (level-0 insertions, once per expired
     clock unit), ``retire_events``, ``consolidations`` (parent merges,
     amortized one per unit), ``time_merges`` / ``stream_merges`` (query
-    folds along each axis), and the store's ``spills`` / ``faults`` /
-    ``evictions``."""
+    folds along each axis), the store's ``spills`` / ``faults`` /
+    ``evictions``, and the collective's ``remote_fetches`` /
+    ``published``."""
 
     def __init__(self, *, streams: int, d: int, ell: int, window: int,
                  hot_capacity: Optional[int] = None,
                  spill_dir: Optional[str] = None, topology=None,
                  device="cuda"):
-        if topology is not None:
-            raise NotImplementedError(_TOPOLOGY)
         self.device = resolve_device(device)
         self.S = int(streams)
+        self.topology = topology
+        if topology is not None:
+            if topology.S != self.S:
+                raise ValueError(
+                    f"topology covers {topology.S} streams but the history "
+                    f"plane was asked for {self.S}")
+            self.lo, self.hi = topology.lo, topology.hi
+        else:
+            self.lo, self.hi = 0, self.S
+        self.S_local = self.hi - self.lo
         self.d, self.ell, self.window = int(d), int(ell), int(window)
         self.m = 2 * self.ell
         self.store = _NodeStore(hot_capacity, spill_dir, self.device)
@@ -262,9 +279,14 @@ class HistoryPlane:
         self.consolidations = 0
         self.time_merges = 0
         self.stream_merges = 0
+        self.remote_fetches = 0
+        self.published = 0
+        self._published: Set[str] = set()
         # (key, lo, hi) -> the (2ℓ, d) value of a canonical stream segment
         # of one node; nodes are immutable, so entries never go stale
         self._reduced: Dict[Tuple[NodeKey, int, int], torch.Tensor] = {}
+        # fetched remote segments and emptiness flags, kept for good
+        self._remote: Dict[str, Any] = {}
         # unit 0 never carries a row (timestamps start at 1), but the index
         # is built over [0, ·): seed it empty so every carry chain is
         # anchored at the origin
@@ -278,11 +300,11 @@ class HistoryPlane:
         All-zero columns are recorded by absence: they retire as empty
         nodes."""
         slab = torch.as_tensor(slab, dtype=torch.float32).to(self.device)
-        if slab.dim() != 3 or slab.shape[0] != self.S \
+        if slab.dim() != 3 or slab.shape[0] != self.S_local \
                 or slab.shape[2] != self.d:
             raise ValueError(
                 f"slab shape {tuple(slab.shape)} does not match the "
-                f"plane's (S={self.S}, ·, d={self.d})")
+                f"plane's (S_local={self.S_local}, ·, d={self.d})")
         if int(first_ts) <= self.retired_through:
             raise ValueError(
                 f"unit {int(first_ts)} was already retired (retired_through"
@@ -307,7 +329,7 @@ class HistoryPlane:
         if live:                    # one batched compress for every unit
             stacked = torch.stack([self._pending[u] for u in live])
             out = fd_compress(stacked.reshape(-1, 1, self.d), self.ell)
-            out = out.reshape(len(live), self.S, self.m, self.d)
+            out = out.reshape(len(live), self.S_local, self.m, self.d)
             for k, u in enumerate(live):
                 snaps[u] = out[k].clone()
         for u in units:
@@ -361,13 +383,21 @@ class HistoryPlane:
         segs: List[Tuple[int, int]] = []
         for lo, hi in as_cohort(cohort).resolve(self.S):
             canonical_cover(0, self.S, lo, hi, segs)
+        if self.topology is not None and self.topology.P > 1:
+            return self._query_collective(dyadic_cover(t1, t2), segs)
         keys = [k for k in dyadic_cover(t1, t2) if not self.store.is_empty(k)]
         values = self._reduce(keys, segs)
+        return self._fold(keys, segs, values.__getitem__)
+
+    def _fold(self, keys: List[NodeKey], segs: List[Tuple[int, int]],
+              value) -> torch.Tensor:
+        """The answer: each node's segment values ``value((key, lo, hi))``
+        folded left in cohort order, the nodes folded left in time."""
         acc = None
         for key in keys:
             v = None
             for lo, hi in segs:
-                sv = values[(key, lo, hi)]
+                sv = value((key, lo, hi))
                 if v is None:
                     v = sv
                 else:
@@ -398,7 +428,7 @@ class HistoryPlane:
 
         def visit(k: NodeKey, a: int, b: int) -> int:
             if b - a == 1:
-                vals[(k, a, b)] = arrs[k][a]
+                vals[(k, a, b)] = arrs[k][a - self.lo]
                 return 0
             mid = (a + b) // 2
             h = 1 + max(visit(k, a, mid), visit(k, mid, b))
@@ -430,6 +460,97 @@ class HistoryPlane:
     def _merge2(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _merge(a[None], b[None], self.ell)[0]
 
+    # -- the collective query (a topology of several processes) -------------
+
+    def _query_collective(self, cover: List[NodeKey],
+                          segs: List[Tuple[int, int]]) -> torch.Tensor:
+        """Publish before fetch: this process's emptiness flag of every
+        cover node and the values of its one-owner segments (batched as
+        in :meth:`_reduce`), then the one-process fold with the other
+        processes' segments fetched and the spine merged at the same
+        midpoints.  A node counts as empty only where it is empty on every
+        process."""
+        topo = self.topology
+        owned = [(lo, hi) for seg in segs for lo, hi in topo.atoms(*seg)
+                 if topo.owner_of_range(lo, hi) == topo.pid]
+        values = self._reduce([k for k in cover
+                               if not self.store.is_empty(k)], owned)
+        for key in cover:
+            self._publish(self._flag_key(key, topo.pid),
+                          b"1" if self.store.is_empty(key) else b"0")
+            for lo, hi in owned:
+                k = self._atom_key(key, lo, hi)
+                if k not in self._published:
+                    self._publish(k, pack_leaves(
+                        [self._owned(values, key, lo, hi).cpu().numpy()]))
+                    self.published += 1
+        keys = [k for k in cover if not self._global_empty(k)]
+        return self._fold(keys, segs,
+                          lambda ks: self._gseg(values, *ks))
+
+    def _flag_key(self, key: NodeKey, pid: int) -> str:
+        return (f"{self.topology.namespace}/hist/e{key[0]:02d}-"
+                f"{key[1]:08d}/p{pid}")
+
+    def _atom_key(self, key: NodeKey, lo: int, hi: int) -> str:
+        return (f"{self.topology.namespace}/hist/n{key[0]:02d}-"
+                f"{key[1]:08d}/{lo:06d}-{hi:06d}")
+
+    def _publish(self, k: str, data: bytes) -> None:
+        if k not in self._published:
+            self.topology.transport.publish(k, data)
+            self._published.add(k)
+
+    def _owned(self, values, key: NodeKey, lo: int, hi: int) -> torch.Tensor:
+        """An owned segment's value; a node empty here but not on every
+        process holds only zero buffers here, and the zero buffer is a
+        fixed point of the merge."""
+        if self.store.is_empty(key):
+            return torch.zeros((self.m, self.d), device=self.device)
+        return values[(key, lo, hi)]
+
+    def _global_empty(self, key: NodeKey) -> bool:
+        """Empty on every process: local emptiness says nothing of the
+        other owners' streams, so the flags are a vote (kept for good)."""
+        topo = self.topology
+        if not self.store.is_empty(key):
+            return False
+        for p in range(topo.P):
+            if p == topo.pid:
+                continue
+            k = self._flag_key(key, p)
+            if k not in self._remote:
+                self._remote[k] = topo.transport.fetch(k, topo.timeout_s)
+            if self._remote[k] != b"1":
+                return False
+        return True
+
+    def _gseg(self, values, key: NodeKey, lo: int, hi: int) -> torch.Tensor:
+        """A global segment's value: owned ranges from ``values``, the other
+        processes' one-owner ranges fetched, spine ranges merged at the
+        canonical midpoint."""
+        topo = self.topology
+        owner = topo.owner_of_range(lo, hi)
+        if owner == topo.pid:
+            return self._owned(values, key, lo, hi)
+        k = self._atom_key(key, lo, hi)
+        hit = self._remote.get(k)
+        if hit is not None:
+            return hit
+        if owner is not None:
+            tpl = [np.zeros((self.m, self.d), np.float32)]
+            arr = unpack_leaves(topo.transport.fetch(k, topo.timeout_s),
+                                tpl)[0]
+            v = torch.from_numpy(arr).to(self.device)
+            self.remote_fetches += 1
+        else:
+            mid = (lo + hi) // 2
+            v = self._merge2(self._gseg(values, key, lo, mid),
+                             self._gseg(values, key, mid, hi))
+            self.stream_merges += 1
+        self._remote[k] = v
+        return v
+
     # -- accounting ---------------------------------------------------------
 
     @property
@@ -454,7 +575,7 @@ class HistoryPlane:
         stay in the spill dir, which is part of the saved state (recorded
         by path)."""
         meta = {
-            "scope": [0, self.S],
+            "scope": [self.lo, self.hi],
             "streams": self.S, "d": self.d, "ell": self.ell,
             "window": self.window,
             "retired_through": self.retired_through,
@@ -481,10 +602,10 @@ class HistoryPlane:
                         device="cuda") -> "HistoryPlane":
         """Rebuild a plane from :meth:`state_dict` output of either
         package, on ``device``.  The stream partition must be the saving
-        one (retired snapshots are per-stream arrays)."""
-        if topology is not None:
-            raise NotImplementedError(_TOPOLOGY)
-        scope = [0, int(meta["streams"])]
+        one: retired snapshots are per-stream arrays, and resharding them
+        is refused, as in the reference."""
+        scope = ([topology.lo, topology.hi] if topology is not None
+                 else [0, int(meta["streams"])])
         if list(meta["scope"]) != scope:
             raise ValueError(
                 f"history restore needs the same stream partition: the "
@@ -495,7 +616,8 @@ class HistoryPlane:
         plane = cls(streams=int(meta["streams"]), d=int(meta["d"]),
                     ell=int(meta["ell"]), window=int(meta["window"]),
                     hot_capacity=meta.get("hot_capacity"),
-                    spill_dir=meta.get("spill_dir"), device=device)
+                    spill_dir=meta.get("spill_dir"), topology=topology,
+                    device=device)
         store = plane.store
         store.empty = {(int(L), int(i)) for L, i in meta["empty"]}
         store.on_disk = {(int(L), int(i)) for L, i in meta["on_disk"]}

@@ -27,6 +27,7 @@ import torch
 from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro.sketch import api as RA
 from repro.train import checkpoint as rckpt
+from repro_torch.parallel.topology import FleetTopology, MemTransport
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
 from repro_torch.sketch.query import Cohort
@@ -402,11 +403,15 @@ def test_save_fleet_rejects_non_fleets_and_shards(tmp_path):
     ckpt.save(str(tmp_path), 1, {"w": torch.ones(2)})
     with pytest.raises(ValueError, match="sketch_spec"):
         PA.restore_fleet(str(tmp_path), device="cpu")
+    # a shard directory that holds no checkpoint, and a topology over a
+    # checkpoint that is not a fleet's
     os.makedirs(tmp_path / "shards" / "shard-000000-000002")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         PA.restore_fleet(str(tmp_path / "shards"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        PA.restore_fleet(str(tmp_path), device="cpu", topology=object())
+    topo = FleetTopology(4, num_processes=2, process_id=0,
+                         transport=MemTransport())
+    with pytest.raises(ValueError, match="sketch_spec"):
+        PA.restore_fleet(str(tmp_path), device="cpu", topology=topo)
 
 
 # ---------------------------------------------------------------------------

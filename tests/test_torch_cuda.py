@@ -3,7 +3,8 @@ the krylov engine through them (the fused kernels at ε = 1/4, the split
 route's kernels at ε = 1/128), the dense serving path through the
 flash kernel against the same engine on the CPU, the history plane on
 the card against the CPU, checkpoints that cross between card and CPU,
-and the async pipeline's unwind with a copy in flight.
+the async pipeline's unwind with a copy in flight, and a fleet across two
+processes that share the card.
 
 Every test here needs an NVIDIA card (the kernels have no CPU or
 interpret mode) and skips without one.  The file imports neither JAX nor
@@ -342,6 +343,141 @@ def test_checkpoint_crosses_between_card_and_cpu(cuda, tmp_path):
         q = src.query_interval(None, 1, 25).astype(np.float64)
         r = dst.query_interval(None, 1, 25).astype(np.float64)
         np.testing.assert_allclose(r.T @ r, q.T @ q, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# A fleet across processes on the card
+# ---------------------------------------------------------------------------
+
+_PAIR_SCRIPT = """
+import os, sys
+pid, port, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.kernels.fused_tick import kernel
+from repro_torch.launch import mesh
+from repro_torch.parallel.topology import FleetTopology
+from repro_torch.sketch.api import make_sketch, shard_streams
+from repro_torch.sketch.query import ALL, Cohort
+from repro_torch.tree import leaves
+
+mesh.init_distributed(pid, 2, "127.0.0.1", port, timeout_s=30)
+try:
+    X = np.load(os.path.join(root, "rows.npy"))
+    S, n, d = X.shape
+    topo = FleetTopology(S, timeout_s=30)
+    dev = mesh.local_device(topo)                 # one card: both on cuda:0
+    assert dev == torch.device("cuda", 0)
+    sk = make_sketch("dsfd", d=d, eps=0.25, window=16, mode="krylov",
+                     use_kernel=True, device=dev)
+    fleet = shard_streams(sk, S, topology=topo)
+    st = fleet.update_block(
+        fleet.init(), torch.from_numpy(X[topo.lo:topo.hi]).to(dev),
+        torch.arange(1, n + 1, dtype=torch.int32, device=dev))
+    assert kernel.gram_power_cuda.launches > 0
+    out = {}
+    for name, c in (("all", ALL), ("mid", Cohort.range(2, 6))):
+        for i, leaf in enumerate(leaves(fleet.query_cohort(st, c, n))):
+            out[f"{name}_{i:03d}"] = leaf.cpu().numpy()
+    np.savez(os.path.join(root, f"pair_{pid}.npz"), **out)
+    topo.barrier("done")
+finally:
+    mesh.shutdown()
+"""
+
+
+def test_two_process_pair_on_one_card_matches_one_process(cuda, tmp_path):
+    """Two processes share the card (both on ``cuda:0``), each ingests its
+    half of S = 8 krylov streams through the fused kernels, and their
+    collective cohort answers are the one-process fleet's on the card, bit
+    for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.sketch.api import fleet_streams, make_sketch
+    from repro_torch.sketch.query import ALL, Cohort
+    from repro_torch.tree import leaves
+
+    S, n, d = 8, 40, 32
+    rng = np.random.default_rng(12)
+    X = _unit(rng.normal(size=(S, n, d)))
+    X[1::2] = _unit(rng.normal(size=(S // 2, n, 3)) @ rng.normal(
+        size=(3, d)))                              # odd users dump
+    np.save(tmp_path / "rows.npy", X)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PAIR_SCRIPT, str(pid), str(port),
+         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    sk = make_sketch("dsfd", d=d, eps=0.25, window=16, mode="krylov",
+                     use_kernel=True)
+    fleet = fleet_streams(sk, S)
+    st = fleet.update_block(fleet.init(), torch.from_numpy(X).cuda(),
+                            torch.arange(1, n + 1, dtype=torch.int32,
+                                         device="cuda"))
+    for name, c in (("all", ALL), ("mid", Cohort.range(2, 6))):
+        want = [x.cpu().numpy() for x in leaves(fleet.query_cohort(st, c,
+                                                                   n))]
+        for pid in range(2):
+            got = np.load(tmp_path / f"pair_{pid}.npz")
+            for i, w in enumerate(want):
+                np.testing.assert_array_equal(got[f"{name}_{i:03d}"], w,
+                                              err_msg=f"{name} pid {pid}")
+
+
+def test_shard_checkpoints_cross_between_card_and_cpu(cuda, tmp_path):
+    """Shards written by a topology engine on the card restore on the CPU
+    (gathered, and under two processes) with every leaf bit for bit, and
+    the CPU's shards restore on the card the same way."""
+    from repro_torch.parallel.topology import FleetTopology, MemTransport
+    from repro_torch.sketch.api import restore_fleet
+    from repro_torch.tree import leaves
+
+    S = 6
+    rng = np.random.default_rng(10)
+    rows = _unit(rng.normal(size=(S, 24, 16)))
+    for src_dev, dst_dev in (("cuda", "cpu"), ("cpu", "cuda")):
+        path = str(tmp_path / f"shards-{src_dev}")
+        states = []
+        for pid in range(2):
+            topo = FleetTopology(S, num_processes=2, process_id=pid,
+                                 transport=MemTransport())
+            eng = SketchFleetEngine("dsfd", d=16, streams=S, eps=0.25,
+                                    window=16, block=4, mode="krylov",
+                                    use_kernel=True, topology=topo,
+                                    device=src_dev)
+            users = np.repeat(np.arange(topo.lo, topo.hi), 24)
+            eng.submit_many(users, rows[topo.lo:topo.hi].reshape(-1, 16))
+            eng.run()
+            eng.checkpoint(path)
+            states.append([x.cpu() for x in leaves(eng.state)])
+        whole = [torch.cat(xs) for xs in zip(*states)]
+        fc = restore_fleet(path, device=dst_dev)
+        for x, y in zip(whole, leaves(fc.state)):
+            assert y.device.type == dst_dev and torch.equal(x, y.cpu())
+        for pid in range(2):
+            topo = FleetTopology(S, num_processes=2, process_id=pid,
+                                 transport=MemTransport())
+            fc = restore_fleet(path, device=dst_dev, topology=topo)
+            for x, y in zip(states[pid], leaves(fc.state)):
+                assert y.device.type == dst_dev and torch.equal(x, y.cpu())
 
 
 def test_flush_to_queue_with_a_copy_in_flight(cuda):

@@ -21,6 +21,7 @@ import torch
 from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro.sketch import history as RH
 from repro_torch.core.fd import fd_compress
+from repro_torch.parallel.topology import FleetTopology, MemTransport
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
 from repro_torch.sketch.history import HistoryPlane, dyadic_cover, \
@@ -240,9 +241,11 @@ def test_restore_refuses_partition_mismatch():
     with pytest.raises(ValueError, match="same stream partition"):
         HistoryPlane.from_state_dict(dict(meta, scope=[0, 4]), {},
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        HistoryPlane.from_state_dict(meta, {}, topology=object(),
-                                     device="cpu")
+    # restoring under another partition is refused too
+    topo = FleetTopology(S, num_processes=2, process_id=1,
+                         transport=MemTransport())
+    with pytest.raises(ValueError, match="same stream partition"):
+        HistoryPlane.from_state_dict(meta, {}, topology=topo, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -333,9 +336,9 @@ def test_explanatory_raisers(tmp_path):
     with pytest.raises(ValueError, match="somewhere to spill"):
         HistoryPlane(streams=S, d=D, ell=ELL, window=W, hot_capacity=4,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        HistoryPlane(streams=S, d=D, ell=ELL, window=W, topology=object(),
-                     device="cpu")
+    with pytest.raises(ValueError, match="topology covers"):
+        HistoryPlane(streams=S, d=D, ell=ELL, window=W, device="cpu",
+                     topology=FleetTopology(2 * S, transport=MemTransport()))
 
 
 def test_install_query_interval_protocol_hook():

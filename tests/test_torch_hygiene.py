@@ -15,14 +15,16 @@ from repro_torch.core import dsfd, fd, seq_dsfd
 from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import dispatch
+from repro_torch.launch import mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import api, transformer
 from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
+from repro_torch.parallel.topology import FleetTopology, MemTransport
 from repro_torch.serve.engine import EngineConfig, ServeEngine, \
     SketchFleetEngine
 from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
-    restore_fleet, save_fleet
+    restore_fleet, save_fleet, shard_streams
 from repro_torch.sketch.history import HistoryPlane
 from repro_torch.train import checkpoint as ckpt
 
@@ -51,7 +53,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {"repro_torch.core.seq_dsfd", "repro_torch.sketch.basis",
             "repro_torch.sketch.score", "repro_torch.sketch.capability",
             "repro_torch.sketch.query", "repro_torch.train.checkpoint",
-            "repro_torch.sketch.history"} <= names
+            "repro_torch.sketch.history", "repro_torch.parallel.topology",
+            "repro_torch.launch.mesh"} <= names
+
+
+def _topo(S, P=2, pid=0):
+    return FleetTopology(S, num_processes=P, process_id=pid,
+                         transport=MemTransport())
 
 
 def _tiny_model():
@@ -105,6 +113,9 @@ def no_cuda(monkeypatch):
     lambda: SketchFleetEngine("dsfd", d=8, streams=2, history=True),
     lambda: HistoryPlane(streams=2, d=8, ell=2, window=16),
     lambda: ckpt.restore("no-such-checkpoint", {"w": 0}),
+    lambda: shard_streams(make_sketch("dsfd", d=8), 2, topology=_topo(2)),
+    lambda: SketchFleetEngine("dsfd", d=8, streams=2, topology=_topo(2)),
+    lambda: mesh.local_device(_topo(2)),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
@@ -112,7 +123,8 @@ def no_cuda(monkeypatch):
         "make_sketch-fd-adaptive", "engine-seq-dsfd", "engine-time-dsfd",
         "engine-score", "agg_tree", "layered_init", "layered_run_stream",
         "adaptive_fd_init", "convert-layered", "convert-adaptive",
-        "engine-history", "history-plane", "checkpoint-restore"])
+        "engine-history", "history-plane", "checkpoint-restore",
+        "topology-fleet", "topology-engine", "local-device"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -137,9 +149,17 @@ def test_restores_run_on_the_cpu_only_when_named(no_cuda, tmp_path):
     eng.checkpoint(str(tmp_path / "engine"))
     fleet = fleet_streams(make_sketch("dsfd", d=8, device="cpu"), 2)
     save_fleet(str(tmp_path / "fleet"), fleet, fleet.init(), 0)
+    # an engine without history: its shard restores under any partition
+    SketchFleetEngine("dsfd", d=8, streams=2, eps=0.25, window=16,
+                      device="cpu").checkpoint(str(tmp_path / "engine2"))
     for call in (lambda **kw: restore_fleet(str(tmp_path / "fleet"), **kw),
                  lambda **kw: SketchFleetEngine.from_checkpoint(
-                     str(tmp_path / "engine"), **kw)):
+                     str(tmp_path / "engine"), **kw),
+                 lambda **kw: restore_fleet(str(tmp_path / "fleet"),
+                                            topology=_topo(2, 2, 1), **kw),
+                 lambda **kw: SketchFleetEngine.from_checkpoint(
+                     str(tmp_path / "engine2"), topology=_topo(2, 2, 1),
+                     **kw)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
         call(device="cpu")
