@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--ticks 192] [--fast-ticks 16]
-                          [--fine-ticks 160] [--layered-ticks 192]
+    python3 chip_smoke.py [--seed 0] [--ticks 160] [--fast-ticks 12]
+                          [--fine-ticks 160] [--layered-ticks 160]
                           [--time-ticks 160] [--score-ticks 64]
-                          [--history-ticks 192] [--topology-ticks 160]
+                          [--history-ticks 192] [--topology-ticks 128]
+                          [--train-steps 30] [--train-extra-steps 2]
 
 Phases, each printing its seconds on a line of its own:
 
@@ -29,12 +30,16 @@ Phases, each printing its seconds on a line of its own:
    non-causal case and a 64-row query tail (S=192, bf16), beside
    ``scaled_dot_product_attention``, with the device times of both; and
    how far the bf16 kernel's o lies from the plain version's on inputs
-   scaled ×8, against a single bf16 rounding of p.
+   scaled ×8, against a single bf16 rounding of p; the flash backward at
+   the train phase's shape (B=8, S=1024, H=9, Hkv=3, dh=64, causal) in
+   f32 and bf16 and at dh = 128 in both, against ``flash_bwd_ref`` on the
+   forward kernel's residuals, the f32 case timed beside SDPA's backward
+   on the same inputs.
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
-   ``submit_many`` with 8 unit-norm rows per user per tick for 1.5·N rows
-   per user.  Both fused kernels' launch counts must be > 0 and the split
+   ``submit_many`` with 8 unit-norm rows per user per tick for 1.25·N
+   rows per user.  Both fused kernels' launch counts must be > 0 and the split
    kernels' 0; every one of the 1024 users is held to Theorem 3.1
    (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) against the exact window Gram from
    ``window_gram`` on the card (the script keeps every user's last N rows
@@ -62,7 +67,7 @@ Phases, each printing its seconds on a line of its own:
 6. layered — Seq-DS-FD at full width:
    ``SketchFleetEngine("seq-dsfd", d=300, streams=128, eps=1/32,
    window=1024, block=8, mode="krylov", R=64)`` (7 levels, θⱼ = 32·2ʲ)
-   for 192 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
+   for 160 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
    with 2 % at 0.99·R; then Time-DS-FD, ``("time-dsfd", streams=32,
    R=16)`` (10 levels, θⱼ = 2ʲ) for 160 ticks, half its users idle every
    other 4 ticks.  Every user of both is held to βε‖A_W‖_F² (β = 4,
@@ -101,7 +106,7 @@ Phases, each printing its seconds on a line of its own:
    children (``chip_smoke.py --topology-child PID PORT DIR``) that meet
    through ``launch/mesh.py::init_distributed`` (gloo, a ``TCPStore`` on
    127.0.0.1) and each hold 128 of the same fleet's users on ``cuda:0``
-   (the odd users at k = 10, so both own users that dump) for 160 ticks,
+   (the odd users at k = 10, so both own users that dump) for 128 ticks,
    each tick's rows made before the timed ticks, each child only its
    own users'; each child's intra-op CPU threads are its share of the
    host's cores (``init_distributed``).  Both must launch the fused
@@ -128,7 +133,27 @@ Phases, each printing its seconds on a line of its own:
    width prefills one 512-token prompt through the kernel and through its
    plain version: the last-position logits must agree within 1e-4
    relative (Frobenius).
-11. launch sizes — in a fresh process (``--launch-sizes``), each
+11. train  — the training path at full width: ``train()`` (the
+   launcher's code path) on smollm-135m (30 layers, d_model 576, 9/3
+   heads, dh 64, vocab 49152) with ``use_flash=True``, ``remat="full"``,
+   f32 parameters (bf16 activations promote to f32 at the first
+   projection, so the flash runs in f32), seq 1024, batch 8, seeded
+   weights: AdamW with the DS-FD gradient monitor for 30 steps (finite
+   losses, the last 5's mean below the first 5's by 0.1), then two steps
+   with ``--compress``'s FD gradient compression and two with Sketchy
+   (cut from three each: a step is ~1 minute of ``fd_compress``).  Every
+   run must end with finite losses and parameters, its last loss
+   (computed after the first update) apart from its first; the
+   compression's last step must project every compressed leaf onto a
+   nonzero basis learned from the first step, with a finite
+   error-feedback accumulator; Sketchy's momenta and window sketches must
+   be finite and its momenta nonzero.  Each run counts the flash
+   launches from 0: forward
+   2 × 30 layers a step (full remat), backward 30.  Then a 2-layer f32
+   train step at full width through the flash kernels against the same
+   step through their plain versions: loss and every gradient within
+   1e-4 relative.
+12. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
@@ -714,6 +739,96 @@ def p_rounding(rng) -> None:
         log(f"kernels flash p rounding at ×8 inputs ({label}): max |o − "
             f"plain| {float((o.float() - o_p.float()).abs().max()):.4e}, "
             f"bf16 values that differ {float((o != o_p).float().mean()):.4f}")
+
+
+# (label, B, S, H, Hkv, dh, dtype, causal): the train phase's shape
+# (smollm-135m at seq 1024, batch 8; it runs f32, see run_train) timed
+# first, then bf16 at the same shape and dh = 128 in both types
+FLASH_BWD_SHAPES = [
+    ("train f32", 8, 1024, 9, 3, 64, "float32", True),
+    ("train bf16", 8, 1024, 9, 3, 64, "bfloat16", True),
+    ("dh=128 f32", 2, 1024, 8, 2, 128, "float32", True),
+    ("dh=128 bf16", 2, 1024, 8, 2, 128, "bfloat16", True),
+]
+# f32: the same identities in f32, another summation order (measured
+# ~1e-5 at gradients of ~10); bf16: each gradient rounded once to bf16
+# from f32 sums in another order, one bf16 step (2⁻⁸ relative) at most
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def flash_bwd_bound(B, S, H, Hkv, dh, dtype, causal):
+    """Least time (ms) of the flash backward: q, o, dO read and dq written
+    (B·H rows), k, v read and dk, dv written (B·Hkv rows), lse read, once
+    each, over HBM bandwidth; five products (S, dP, dV, dQ, dK) of 2·dh
+    operations per (query, key) pair the mask keeps, over the peak rate of
+    the inputs' type."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * 4 * B * S * dh * (H + Hkv) + 4 * B * H * S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 10 * dh * pairs * B * H
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
+    return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def check_flash_bwd(rng) -> dict:
+    """The backward kernel against ``flash_bwd_ref`` on the forward
+    kernel's residuals and a random dO, at each shape of
+    ``FLASH_BWD_SHAPES``; the first is timed beside its bound, its plain
+    version and SDPA's backward on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel, ref
+
+    dev = torch.device("cuda")
+    worst, timed = 0.0, None
+    for label, B, S, H, Hkv, dh, dtype, causal in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (B * h, S, dh)).astype(np.float32)).to(dev, getattr(torch, dtype))
+            for h in (H, Hkv, Hkv, H))
+        o, lse = kernel.flash_fwd(q, k, v, causal)
+        got = kernel.flash_bwd(q, k, v, o, lse, do, causal)
+        want = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        tol = FLASH_BWD_TOL[dtype]
+        errs = [_held("flash_bwd", f"{label} d{n}", a, b, tol, tol)
+                for n, a, b in zip("qkv", got, want)]
+        worst = max(worst, max(errs))
+        log(f"kernels flash_bwd {label} (B,S,H,Hkv,dh)=({B},{S},{H},{Hkv},"
+            f"{dh}) {dtype} causal={causal}: dq/dk/dv err "
+            + "/".join(f"{e:.3e}" for e in errs))
+        if timed is not None:
+            continue
+        del want
+        q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh).requires_grad_(True)
+                      for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                            enable_gqa=True)
+        do4 = do.view_as(o4)
+
+        def library():
+            return torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                       retain_graph=True)
+        t = time_in_turns({
+            "kernel": lambda: kernel.flash_bwd(q, k, v, o, lse, do, causal),
+            "plain": lambda: ref.flash_bwd_ref(q, k, v, o, lse, do,
+                                               causal=causal),
+            "library": library}, rounds=3, reps=5)
+        bound, by = flash_bwd_bound(B, S, H, Hkv, dh, dtype, causal)
+        dev_k = device_ms(lambda: kernel.flash_bwd(q, k, v, o, lse, do,
+                                                   causal), reps=10)
+        dev_lib = device_ms(library, reps=10)
+        log(f"kernels time flash_bwd {label}: kernel_ms {t['kernel']:.4f} "
+            f"plain_ms {t['plain']:.4f} library_ms (sdpa backward) "
+            f"{t['library']:.4f} bound_ms {bound:.4f} ({by}); device time "
+            f"(torch.profiler) kernel {fmt_ms(dev_k)} ms, sdpa backward "
+            f"{fmt_ms(dev_lib)} ms")
+        timed = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
+                     bound_by=by, library_ms=t["library"], device_ms=dev_k,
+                     library_device_ms=dev_lib, shape=label)
+        del q4, k4, v4, o4
+    return dict(max_abs_err=worst, **timed)
 
 
 # ---------------------------------------------------------------------------
@@ -2375,21 +2490,286 @@ def check_plain_prefill(seed: int, device: str = "cuda") -> None:
         f"{PLAIN_RTOL:.0e})")
 
 
+# ---------------------------------------------------------------------------
+# phase train: the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "smollm-135m", 1024, 8
+TRAIN_SKETCH = dict(d=128, eps=0.125, window=128)            # as --sketch
+TRAIN_COMPRESS = dict(rank=8, eps=0.125, window=32, min_size=4096)
+TRAIN_DROP = 0.1       # mean of the last 5 losses below the first 5 by this
+
+
+def _train_runs(steps: int, extra: int):
+    """(label, steps, TrainStepConfig, optimizer or None) of the phase."""
+    from repro_torch.sketch import CompressConfig, SketchConfig, \
+        SketchyConfig, sketchy_dsfd
+    from repro_torch.train.train_step import TrainStepConfig
+
+    return [("adamw+monitor", steps,
+             TrainStepConfig(sketch=SketchConfig(**TRAIN_SKETCH)), None),
+            ("adamw+compress", extra,
+             TrainStepConfig(compress=CompressConfig(**TRAIN_COMPRESS)),
+             None),
+            ("sketchy", extra, TrainStepConfig(),
+             sketchy_dsfd(SketchyConfig()))]
+
+
+def _finite(tensors) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(x).all()) for x in tensors)
+
+
+def _check_train_state(label: str, res: dict, n: int, lows: list) -> None:
+    """The state a train run ends in: finite parameters; for the
+    compression, the first step's projections zero (the empty sketch's
+    basis) and the last step's nonzero (a learned basis) for every
+    compressed leaf, finite error-feedback accumulators and sketches; for
+    Sketchy, finite sketches, finite nonzero momenta and a nonzero
+    window in every sketched leaf."""
+    from repro_torch.tree import leaves, map_dicts
+
+    def tensors(tree):
+        return [x for x in leaves(tree) if x is not None]
+
+    if not _finite(tensors(res["params"])):
+        raise AssertionError(f"train {label}: non-finite parameters")
+    if label == "adamw+compress":
+        per = len(lows) // n
+        if per == 0 or len(lows) != per * n:
+            raise AssertionError(f"train {label}: {len(lows)} projections "
+                                 f"in {n} steps")
+        first = [float(x) for x in lows[:per]]
+        last = [float(x) for x in lows[-per:]]
+        if any(x != 0.0 for x in first) or not all(
+                np.isfinite(x) and x > 0.0 for x in last):
+            raise AssertionError(
+                f"train {label}: ‖low‖ per compressed leaf {first} at the "
+                f"first step (want 0: empty sketch), {last} at the last "
+                "(want finite and > 0: a learned basis)")
+        if not _finite(tensors(res["sketch_state"]["compress"])):
+            raise AssertionError(f"train {label}: non-finite compression "
+                                 "state")
+        log(f"train {label}: {per} compressed leaves; ‖low‖ at the last "
+            f"step {min(last):.4e} to {max(last):.4e} (0 at the first)")
+    elif label == "sketchy":
+        import torch
+
+        from repro_torch.sketch import SketchyConfig
+
+        st = res["opt_state"]
+        mom = tensors(st.mom)
+        if not (_finite(tensors(st.sketch)) and _finite(mom)
+                and all(bool((m != 0).any()) for m in mom)):
+            raise AssertionError(f"train {label}: Sketchy state not finite "
+                                 "or a momentum all zero")
+        # every sketched leaf's curvature window holds the steps' rows
+        energy = []
+        map_dicts(lambda p, sk: sk is None or energy.append(float(torch.sum(
+            SketchyConfig().sketch(p.shape[-1], p.device).query_rows(sk)
+            ** 2))), res["params"], st.sketch)
+        if not energy or min(energy) <= 0.0:
+            raise AssertionError(f"train {label}: a sketched leaf's window "
+                                 f"is empty ({energy})")
+        log(f"train {label}: {len(energy)} sketched leaves, window energy "
+            f"{min(energy):.4f} to {max(energy):.4f}")
+
+
+def run_train(steps: int, extra: int, seed: int,
+              device: str = "cuda") -> dict:
+    """``train()`` — the launcher's code path — on smollm-135m at full
+    width with the flash gate and full remat, f32 parameters and bf16
+    activations, seq 1024, batch 8: AdamW with the DS-FD monitor for
+    ``steps`` steps (the loss must fall), then ``extra`` steps with FD
+    gradient compression and ``extra`` with Sketchy.  Every run must end
+    with finite losses and parameters and a last loss apart from its first
+    (each step's loss precedes its update); the compression's first step
+    must project onto the empty sketch's zero basis and its last onto a
+    learned one (nonzero ``low`` for every compressed leaf), with finite
+    error-feedback accumulators and sketches; Sketchy's momenta and
+    sketches must be finite and its momenta nonzero.  Each run counts the flash launches from 0 (fwd = 2·layers·steps under full
+    remat, bwd = layers·steps), records the dtype the flash ran in, the
+    host-clock time of each step (each ends in a host read of its
+    metrics), its FD-compression time and the peak memory.  Returns the
+    AdamW run's launches."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel, ops
+    from repro_torch.sketch import compress, sketchy
+    from repro_torch.train.loop import LoopConfig, train
+
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_flash=True,
+                              remat="full")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    saved = {"flash": ops.flash_forward, "compress": compress.fd_compress,
+             "sketchy": sketchy.fd_compress,
+             "project": compress.project_rank_r}
+    flash_dtypes, fd_s, lows = set(), [], []
+
+    def flash_seen(q, *a, **k):
+        flash_dtypes.add(str(q.dtype).replace("torch.", ""))
+        return saved["flash"](q, *a, **k)
+
+    def fd_timed(name):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = saved[name](*a, **k)
+            torch.cuda.synchronize()
+            fd_s.append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    def project_seen(X, V):
+        coef, low = saved["project"](X, V)
+        lows.append(torch.linalg.vector_norm(low))
+        return coef, low
+
+    out = {}
+    for label, n, tsc, opt in _train_runs(steps, extra):
+        stamps, fd_s[:], lows[:] = [], [], []
+        flash_dtypes.clear()
+        kernel.flash_fwd.launches = kernel.flash_bwd.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            ops.flash_forward = flash_seen
+            compress.fd_compress = fd_timed("compress")
+            sketchy.fd_compress = fd_timed("sketchy")
+            compress.project_rank_r = project_seen
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train(cfg, device=dev,
+                        loop=LoopConfig(steps=n, seed=seed,
+                                        log_every=10 ** 9),
+                        tsc=tsc, opt=opt, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH,
+                        hooks={"on_step": lambda it, m: stamps.append(
+                            time.perf_counter())})
+        finally:
+            ops.flash_forward = saved["flash"]
+            compress.fd_compress = saved["compress"]
+            sketchy.fd_compress = saved["sketchy"]
+            compress.project_rank_r = saved["project"]
+        fwd, bwd = kernel.flash_fwd.launches, kernel.flash_bwd.launches
+        losses = [h["loss"] for h in res["history"]]
+        if len(losses) != n or not np.isfinite(losses).all() \
+                or losses[-1] == losses[0]:
+            raise AssertionError(f"train {label}: losses {losses} (finite, "
+                                 "the last apart from the first)")
+        if (fwd, bwd) != (2 * cfg.n_layers * n, cfg.n_layers * n):
+            raise AssertionError(
+                f"train {label}: flash launches fwd {fwd} bwd {bwd}, "
+                f"expected {2 * cfg.n_layers * n} and {cfg.n_layers * n}")
+        if flash_dtypes != {"float32"}:
+            raise AssertionError(f"train {label}: flash ran in "
+                                 f"{flash_dtypes}, expected float32")
+        step_s = np.diff([t0] + stamps)
+        med = float(np.median(step_s[1:] if n > 1 else step_s))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fd_share = sum(fd_s) / float(step_s.sum())
+        log(f"train {label}: {n} steps, losses {losses[0]:.4f} → "
+            f"{losses[-1]:.4f}; first step {1e3 * step_s[0]:.3f} ms, then "
+            f"median {1e3 * med:.3f} ms/step ({tokens / med:.1f} tokens/s); "
+            f"FD compression {sum(fd_s):.3f} s of {float(step_s.sum()):.3f}"
+            f" s ({100 * fd_share:.1f}%, {len(fd_s)} calls); flash "
+            f"launches fwd {fwd} bwd {bwd} ({cfg.n_layers} layers × {n} "
+            f"steps × 2 and × 1), in {sorted(flash_dtypes)}; peak memory "
+            f"{peak:.2f} GiB; stragglers {res['stragglers']}")
+        _check_train_state(label, res, n, lows)
+        if label.startswith("adamw+monitor"):
+            first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+            if not last < first - TRAIN_DROP:
+                raise AssertionError(
+                    f"train {label}: mean of the last 5 losses {last:.4f} "
+                    f"not below the first 5's {first:.4f} by {TRAIN_DROP}")
+            mon = res["history"][-1]
+            log(f"train {label}: last 5 mean {last:.4f} vs first 5 "
+                f"{first:.4f}; monitor sketch/top_energy "
+                f"{mon['sketch/top_energy']:.4f}, window_norm2 "
+                f"{mon['sketch/window_norm2']:.4f}")
+            out = {"launches": {"flash_fwd": fwd, "flash_bwd": bwd}}
+        del res
+    return out
+
+
+def check_plain_train_step(seed: int, device: str = "cuda") -> None:
+    """Full width, 2 layers, f32: one train step's loss and every
+    gradient through the flash kernels and through their plain versions
+    on the card (seq 1024, batch 2)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attn import kernel, ops, ref
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+    from repro_torch.train.train_step import loss_fn
+    from repro_torch.tree import leaves
+
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                              use_flash=True, remat="full")
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed + 2),
+                         dtype=torch.float32, device=dev)
+    grad_of = [p.requires_grad_(True) for p in leaves(params)]
+    _, batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                             global_batch=2, seed=seed).next_batch(
+        {"step": 0})
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def step():
+        tot, _ = loss_fn(cfg, params, batch)
+        return tot.detach(), torch.autograd.grad(tot, grad_of)
+
+    n0 = kernel.flash_fwd.launches, kernel.flash_bwd.launches
+    loss_k, grads_k = step()
+    saved = ops.flash_forward, ops.flash_backward
+    ops.flash_forward, ops.flash_backward = ref.flash_ref, ref.flash_bwd_ref
+    try:
+        loss_p, grads_p = step()
+    finally:
+        ops.flash_forward, ops.flash_backward = saved
+    torch.cuda.synchronize()
+    n = (kernel.flash_fwd.launches - n0[0], kernel.flash_bwd.launches - n0[1])
+    if n != (2 * cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"flash launches {n} in a {cfg.n_layers}-layer "
+                             "train step and its plain twin")
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    rel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+              for a, b in zip(grads_k, grads_p))
+    if not (rel_loss <= PLAIN_RTOL and rel <= PLAIN_RTOL):
+        raise AssertionError(f"2-layer f32 train step: kernel vs plain loss "
+                             f"{rel_loss:.3e}, worst gradient {rel:.3e} "
+                             f"(relative, tol {PLAIN_RTOL:.0e})")
+    log(f"train 2-layer f32 step at full width, S={TRAIN_SEQ}: kernel vs "
+        f"plain loss relative error {rel_loss:.3e}, worst gradient "
+        f"(relative Frobenius, {len(grad_of)} leaves) {rel:.3e} (tol "
+        f"{PLAIN_RTOL:.0e})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int,
-                    default=3 * WINDOW // (2 * BLOCK))
-    ap.add_argument("--fast-ticks", type=int, default=16)
+                    default=5 * WINDOW // (4 * BLOCK))
+    ap.add_argument("--fast-ticks", type=int, default=12)
     ap.add_argument("--fine-ticks", type=int,
                     default=math.ceil(1.25 * WINDOW / BLOCK))
     ap.add_argument("--layered-ticks", type=int,
-                    default=math.ceil(1.5 * WINDOW / BLOCK))
+                    default=math.ceil(1.25 * WINDOW / BLOCK))
     ap.add_argument("--time-ticks", type=int, default=160)
     ap.add_argument("--score-ticks", type=int, default=64)
     ap.add_argument("--history-ticks", type=int,
                     default=WINDOW // BLOCK + 512 // BLOCK)
-    ap.add_argument("--topology-ticks", type=int, default=160)
+    ap.add_argument("--topology-ticks", type=int, default=128)
+    ap.add_argument("--train-steps", type=int, default=30)
+    ap.add_argument("--train-extra-steps", type=int, default=2)
     ap.add_argument("--launch-sizes", action="store_true",
                     help="internal: time the dump-step kernels at the "
                     "launch sizes given on standard input")
@@ -2398,6 +2778,12 @@ def main(argv=None) -> int:
                     help="internal: one process of the topology phase's "
                     "pair")
     args = ap.parse_args(argv)
+    if args.train_steps < 10:
+        ap.error("--train-steps must give 10 losses: the first and the "
+                 "last 5 are compared")
+    if args.train_extra_steps < 2:
+        ap.error("--train-extra-steps must be 2 or more: the compression's "
+                 "first step projects onto an empty sketch")
     if args.score_ticks <= SCORE_SWITCH:
         ap.error(f"--score-ticks must pass the switch at tick {SCORE_SWITCH}")
     if args.history_ticks <= max(WINDOW // BLOCK, HISTORY_RESUMED):
@@ -2444,6 +2830,7 @@ def main(argv=None) -> int:
     stats.update(check_split_kernels(rng))
     stats["flash_fwd"] = check_flash(rng)
     p_rounding(rng)
+    stats["flash_bwd"] = check_flash_bwd(rng)
     log(f"phase kernels: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -2497,6 +2884,15 @@ def main(argv=None) -> int:
     check_plain_prefill(args.seed)
     log(f"phase serve: {time.perf_counter() - t:.3f} s")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trn = run_train(args.train_steps, args.train_extra_steps, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_plain_train_step(args.seed)
+    log(f"phase train: {time.perf_counter() - t:.3f} s")
+
     t = time.perf_counter()
     at = time_launch_sizes_apart({"krylov": kry["timing"],
                                   "fine": fine["timing"]})
@@ -2507,6 +2903,7 @@ def main(argv=None) -> int:
     launches = {n: kry["launches"][n] for n in FUSED}
     launches.update({n: fine["launches"][n] for n in FINE.launched})
     launches["flash_fwd"] = srv["launches"]
+    launches["flash_bwd"] = trn["launches"]["flash_bwd"]
     for label, run in (("krylov", kry), ("fine", fine)):
         for name, spread in run["launch_streams"].items():
             stats[name].update(launch_streams=spread,
@@ -2519,13 +2916,15 @@ def main(argv=None) -> int:
         "rank1_downdate": ("rank1_downdate.cu", "rank1_downdate/kernel.py:43"),
         "window_gram": ("window_gram.cu", "window_gram/kernel.py:34"),
         "flash_fwd": ("flash_attn.cu", "flash_attn/kernel.py:86"),
+        "flash_bwd": ("flash_attn_bwd.cu", "flash_attn/ops.py:58"),
     }
     # and the launches of every path that ran it, each counted from 0
     paths = {"krylov": kry["launches"], "fine": fine["launches"],
              "seq-dsfd": seq["launches"], "time-dsfd": tds["launches"],
              "score": sco["launches"], "history": hist["launches"],
              "topology": topo["launches"],
-             "serve": {"flash_fwd": srv["launches"]}}
+             "serve": {"flash_fwd": srv["launches"]},
+             "train": trn["launches"]}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{src}",
                  replaces=f"src/repro/kernels/{tpu}",

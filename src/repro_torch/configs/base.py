@@ -103,6 +103,16 @@ class ModelConfig:
             param_dtype="float32", act_dtype="float32", remat="none")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (sequence length, global batch) cell of a workload, as the
+    reference's; ``train/train_step.py::auto_microbatches`` reads it."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # 'train' | 'prefill' | 'decode'
+
+
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 # configurations of the reference whose family the port does not run yet

@@ -13,7 +13,11 @@ the reference's tree and dtypes (the leaves of a fleet checkpoint).  Model
 weights
 cross the same way: the reference's parameter tree with numpy leaves
 becomes the port's nested dict of tensors, with the same keys and the
-stacked ``(L, ...)`` layout.
+stacked ``(L, ...)`` layout.  Training state crosses too: optimizer
+states (``AdamState``, ``FactoredState``, ``SketchyState`` with its
+per-leaf DS-FD states), the gradient monitor's and the compression's
+states; the reference's single-stream DS-FD states become the port's
+S = 1 states.
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dsfd import DSFDConfig, DSFDState, SketchState
+from repro_torch.core.dsfd import DSFDConfig, DSFDState, SketchState, \
+    make_config
 from repro_torch.core.fd import AdaptiveFDState, FDState
 from repro_torch.core.seq_dsfd import LayeredConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.params import ParamDef
+from repro_torch.tree import map_dicts
 
 _DTYPES = {"buf": torch.float32, "sig1": torch.float32,
            "energy": torch.float32, "snap_v": torch.float32,
@@ -250,3 +256,91 @@ def model_params_from_reference(params_np: Any, cfg: ModelConfig,
         return {k: conv(defs[k], tree[k], f"{path}/{k}") for k in defs}
 
     return conv(api.param_defs(cfg), params_np, "")
+
+
+# ---------------------------------------------------------------------------
+# Training state: optimizer, monitor and compression states
+# ---------------------------------------------------------------------------
+
+
+def _tensors(tree, dev):
+    """Nested dicts of numpy leaves as tensors on ``dev``."""
+    return map_dicts(lambda x: _tensor(x, dev), tree)
+
+
+def one_dsfd_state_from_numpy(cfg: DSFDConfig, leaves: Any,
+                              device="cuda") -> DSFDState:
+    """The port's S = 1 state from the reference's state of one DS-FD
+    sketch (no stream axis) with numpy leaves."""
+    lead = DSFDState(*(SketchState(*(np.asarray(x)[None] for x in sk))
+                       for sk in leaves))
+    return dsfd_state_from_numpy(cfg, lead, device)
+
+
+def opt_state_from_reference(state: Any, device="cuda", *,
+                             sketchy: Any = None):
+    """An optimizer state of the reference (numpy leaves) as the port's:
+    ``AdamState`` and ``FactoredState`` field by field (the bf16 momentum
+    stays bf16), ``sgdm``'s plain tree, and ``SketchyState`` — whose
+    per-leaf DS-FD states need the ``SketchyConfig`` that made them."""
+    from repro_torch.train.optimizer import AdamState, FactoredState
+
+    dev = resolve_device(device)
+    name = type(state).__name__
+    if name == "AdamState":
+        return AdamState(*(_tensors(x, dev) for x in state))
+    if name == "FactoredState":
+        return FactoredState(*(_tensors(x, dev) for x in state))
+    if name == "SketchyState":
+        from repro_torch.sketch.sketchy import SketchyState
+        if sketchy is None:
+            raise ValueError("a SketchyState needs its SketchyConfig")
+
+        def sk(leaf):
+            if leaf is None:
+                return None
+            d = np.asarray(leaf.main.buf).shape[-1]
+            cfg = make_config(d, sketchy.eps,
+                              sketchy.window * sketchy.summary_rows,
+                              mode="fast")
+            return one_dsfd_state_from_numpy(cfg, leaf, dev)
+
+        return SketchyState(sketch=map_dicts(sk, state.sketch),
+                            diag=_tensors(state.diag, dev),
+                            mom=_tensors(state.mom, dev))
+    if isinstance(state, dict):
+        return _tensors(state, dev)
+    raise TypeError(f"unknown optimizer state {name}")
+
+
+def monitor_state_from_reference(cfg: Any, state: Any,
+                                 device="cuda") -> dict:
+    """The gradient monitor's state (``sketch/monitor.py``) from the
+    reference's, for the port's ``SketchConfig`` ``cfg``."""
+    dev = resolve_device(device)
+    dcfg = make_config(cfg.d, cfg.eps, cfg.window, mode=cfg.mode)
+    return {"dsfd": one_dsfd_state_from_numpy(dcfg, state["dsfd"], dev),
+            "norm_hist": _tensor(state["norm_hist"], dev)}
+
+
+def compress_state_from_reference(cfg: Any, state: Any,
+                                  device="cuda") -> dict:
+    """The gradient compression's state (``sketch/compress.py``) from the
+    reference's, for the port's ``CompressConfig`` ``cfg``."""
+    dev = resolve_device(device)
+
+    def leaf(st):
+        if st is None:
+            return None
+        d = np.asarray(st["err"]).shape[-1]
+        return {"dsfd": one_dsfd_state_from_numpy(cfg.dsfd(d), st["dsfd"],
+                                                  dev),
+                "err": _tensor(st["err"], dev),
+                "step": _tensor(st["step"], dev)}
+
+    def walk(tree):
+        if isinstance(tree, dict) and "err" not in tree:
+            return {k: walk(v) for k, v in tree.items()}
+        return leaf(tree)          # a leaf's state is itself a dict
+
+    return walk(state)

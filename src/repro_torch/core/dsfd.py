@@ -44,7 +44,6 @@ from repro_torch.core.fd import fd_absorb, fd_compress, fd_init, fd_rotate, \
     fd_shrink
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.fused_tick.ops import fused_krylov_step, gram_power
-from repro_torch.sketch.basis import residual_scores
 from repro_torch.tree import take, tree_map
 
 _NEG = -(2 ** 30)
@@ -466,6 +465,8 @@ def dsfd_score(cfg: DSFDConfig, state: DSFDState, X,
     energy outside the span of its live snapshots ∪ residual,
     ``‖x‖² − ‖x Vᵀ‖²`` clamped at 0 (``sketch/basis.py``).  ``now``
     re-applies expiry first, as in ``dsfd_query_rows``."""
+    # imported here: ``sketch/`` builds on this module
+    from repro_torch.sketch.basis import residual_scores
     return residual_scores(dsfd_query_rows(cfg, state, now=now), X)
 
 

@@ -1,1 +1,1 @@
-"""Vector-stream sources."""
+"""Vector-stream and token sources."""

@@ -1,1 +1,2 @@
-"""Flash-attention forward: the CUDA kernel, its plain version, wrappers."""
+"""Flash attention, forward and backward: the CUDA kernels, their plain
+versions, wrappers."""

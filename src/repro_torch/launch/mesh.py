@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -72,6 +72,13 @@ def init_distributed(rank: int, world_size: int, addr: str = "127.0.0.1",
                             timeout=datetime.timedelta(seconds=timeout_s))
     _STORE = store
     return store
+
+
+def process_runtime() -> Tuple[int, int]:
+    """(world size, rank) of ``torch.distributed``, (1, 0) without it."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
 
 
 def default_store() -> dist.Store:

@@ -27,6 +27,10 @@ def param_defs(cfg: ModelConfig):
     return model_module(cfg).param_defs(cfg)
 
 
+def forward_train(cfg: ModelConfig, params, batch):
+    return model_module(cfg).forward_train(cfg, params, batch)
+
+
 def forward_prefill(cfg: ModelConfig, params, batch):
     return model_module(cfg).forward_prefill(cfg, params, batch)
 

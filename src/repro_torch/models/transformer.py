@@ -1,18 +1,21 @@
 """Decoder-only dense transformer: smollm-135m / qwen1.5-0.5b / minitron-4b
-/ llama3-8b (GQA), prefill and decode.
+/ llama3-8b (GQA), training forward, prefill and decode.
 
 Counterpart of ``repro/models/transformer.py`` for the dense family.
 Pre-norm RMSNorm blocks, RoPE, SwiGLU, KV-cache prefill and decode.  The
 reference's ``lax.scan`` over the stacked ``(L, ...)`` layer weights is a
-Python loop over the layer axis; the weights keep the stacked layout.
-MoE, M-RoPE and training come in later slices (ROADMAP item 15).
+Python loop over the layer axis; the weights keep the stacked layout, and
+its ``jax.checkpoint`` policies become ``torch.utils.checkpoint`` per
+layer.  MoE and M-RoPE come in later slices (ROADMAP item 15).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as tcp
 
 from repro_torch.configs.base import ModelConfig, not_ported
 from repro_torch.models.layers.attention import (KVCache, attention_any,
@@ -98,6 +101,65 @@ def _attn_out_and_mlp(cfg: ModelConfig, lp, x, attn):
     x = x + matmul(attn.reshape(B, S, cfg.n_heads * cfg.dh), lp["wo"])
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+
+
+def _layer_train(cfg: ModelConfig, x, lp, positions):
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h, positions)
+    attn = attention_any(q, k, v, causal=True,
+                         chunk_threshold=cfg.attn_full_threshold,
+                         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+                         use_flash=cfg.use_flash)
+    return _attn_out_and_mlp(cfg, lp, x, attn)
+
+
+_SAVED_BY_MINIMAL = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The policy of ``remat="minimal"``: keep the matrix products' outputs
+    (the reference's ``dots_with_no_batch_dims_saveable``), recompute the
+    rest."""
+    del ctx, args, kwargs
+    return (tcp.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_MINIMAL
+            else tcp.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, body):
+    """``body`` under the config's remat policy: "full" keeps only the
+    layer's inputs and recomputes its forward in the backward, "minimal"
+    also keeps its matrix products, "none" keeps everything."""
+    if cfg.remat == "full":
+        return functools.partial(tcp.checkpoint, body, use_reentrant=False)
+    if cfg.remat == "minimal":
+        return functools.partial(
+            tcp.checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(
+                tcp.create_selective_checkpoint_contexts, _save_matmuls))
+    if cfg.remat == "none":
+        return body
+    raise ValueError(f"remat {cfg.remat!r} not in ('none', 'minimal', "
+                     "'full')")
+
+
+def forward_train(cfg: ModelConfig, params, batch
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) → (logits (B, S, V) f32, aux).  aux, the MoE balance
+    loss averaged over layers in the reference, is 0 for the dense
+    family."""
+    _dense_only(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+    x = embed(tokens, params["embed"]).to(_act(cfg))
+    layer = _remat(cfg, functools.partial(_layer_train, cfg))
+    for i in range(cfg.n_layers):
+        x = layer(x, _layer(params, i), positions)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return _final_logits(cfg, params, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch import convert
-from repro_torch.launch.mesh import default_store
+from repro_torch.launch.mesh import default_store, process_runtime
 from repro_torch.sketch.query import ALL, AggTree, as_cohort, \
     canonical_cover
 from repro_torch.tree import leaves, tree_map
@@ -259,15 +259,6 @@ def unpack_state(data: bytes, base, template=None, device=None):
 # ---------------------------------------------------------------------------
 # FleetTopology — the per-process view of the partition
 # ---------------------------------------------------------------------------
-
-
-def process_runtime() -> Tuple[int, int]:
-    """(world size, rank) of ``torch.distributed``, (1, 0) without it."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
 
 
 class FleetTopology:

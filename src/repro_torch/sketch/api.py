@@ -43,9 +43,7 @@ from repro_torch.core.seq_dsfd import layered_init, layered_merge, \
     layered_query_rows, layered_space, layered_update, layered_update_block, \
     make_seq_config, make_time_config
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.launch.mesh import local_device
-from repro_torch.parallel.topology import PartitionedAggTree, \
-    process_runtime
+from repro_torch.launch.mesh import local_device, process_runtime
 from repro_torch.sketch import capability
 from repro_torch.sketch.basis import residual_scores
 from repro_torch.sketch.query import ALL, AggTree, Cohort  # noqa: F401
@@ -404,6 +402,10 @@ def _shard_streams_topology(sk: SlidingSketch, S: int, axis: str,
         raise ValueError(
             f"topology covers {topology.S} streams but shard_streams was "
             f"asked for {S} — build both from the same fleet size")
+    # imported here: ``parallel/topology.py`` builds on ``sketch/query.py``,
+    # and this package's ``__init__`` imports the modules built on this one
+    from repro_torch.parallel.topology import PartitionedAggTree
+
     local = fleet_streams(sk, topology.local_size)
     box: Dict[str, PartitionedAggTree] = {}
 

@@ -1,1 +1,1 @@
-"""Persistence shared by fleets and the history plane."""
+"""Training: the step, the loop, optimizers and persistence."""

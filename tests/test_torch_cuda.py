@@ -783,3 +783,213 @@ def test_serve_engine_on_the_card_goes_through_flash(cuda):
                             else 0)
         out[dev] = ({u: r.out_tokens for u, r in done.items()}, eng.ticks)
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S", [64, 256, 1024])
+def test_flash_backward_kernel_matches_plain_version(cuda, S, dh, G, causal,
+                                                     dtype):
+    """The backward kernel against ``flash_bwd_ref`` on the same residuals
+    (the forward kernel's o and lse) and dO, one launch a call.  f32: 1e-4
+    (the same f32 identities, another summation order); bf16: 2e-2 (each
+    gradient rounded to bf16 once from f32 sums in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(S + dh + G)
+    q, k, v, do = (torch.randn((h, S, dh), generator=g, device=cuda)
+                   .to(dtype) for h in (2 * G, 2, 2, 2 * G))
+    o, lse = flash_ops.flash_forward(q, k, v, causal=causal)
+    n0 = flash_kernel.flash_bwd.launches
+    got = flash_ops.flash_backward(q, k, v, o, lse, do, causal=causal)
+    assert flash_kernel.flash_bwd.launches == n0 + 1
+    want = flash_ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_flash_backward_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((2, 128, 64), device=cuda)
+    lse = torch.zeros((2, 128), device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        flash_kernel.flash_bwd(q, q, q, q, lse[:, :64], q)
+    with pytest.raises(ValueError, match="do"):
+        flash_kernel.flash_bwd(q, q, q, q, lse, q.to(torch.bfloat16))
+    q = torch.zeros((2, 96, 64), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_kernel.flash_bwd(q, q, q, q, torch.zeros((2, 96), device=cuda),
+                               q)
+
+
+def test_flash_backward_fits_a_block(cuda):
+    """The backward's shared memory (its C formula, the larger of its two
+    tiled passes) fits what a block may opt in to at both head dims:
+    165,888 B at dh = 128, as ``csrc/flash_attn_bwd.cu`` states."""
+    lib = flash_kernel._bwd_lib()
+    have = lib.flash_attn_bwd_max_smem(cuda.index or 0)
+    need = {dh: lib.flash_attn_bwd_smem_bytes(dh) for dh in (64, 128)}
+    assert need[128] == 165_888 and need[64] < need[128] <= have
+
+
+def test_two_layer_train_step_on_the_card_matches_the_cpu(cuda):
+    """A reduced smollm-135m with head_dim 64 and the flash gate, remat
+    "full": one step's loss and every gradient on the card (both flash
+    kernels) against the CPU (their plain versions).  Loss 1e-5 relative;
+    gradients 1e-3 relative plus 1e-6 (f32 throughout, TF32 off: only
+    summation orders differ, through two layers and a 128-way head)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.train_step import loss_fn
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              head_dim=64, use_flash=True, remat="full")
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    _, batch = TokenPipeline(vocab=cfg.vocab, seq_len=256,
+                             global_batch=2).next_batch({"step": 0})
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        ps = [t.requires_grad_(True) for t in leaves(p)]
+        n0 = flash_kernel.flash_fwd.launches, flash_kernel.flash_bwd.launches
+        tot, _ = loss_fn(cfg, p, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()})
+        grads = torch.autograd.grad(tot, ps)
+        fwd = flash_kernel.flash_fwd.launches - n0[0]
+        bwd = flash_kernel.flash_bwd.launches - n0[1]
+        assert (fwd, bwd) == ((2 * cfg.n_layers, cfg.n_layers)
+                              if dev == "cuda" else (0, 0))
+        out[dev] = (tot.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+
+
+def _grad_tree(cfg, seed, scale=0.05):
+    """A gradient tree with ``cfg``'s leaves, drawn with numpy (CPU)."""
+    from repro_torch.tree import map_dicts
+
+    rng = np.random.default_rng(seed)
+    params = init_params(api.param_defs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    return map_dicts(lambda p: torch.from_numpy(
+        (scale * rng.standard_normal(tuple(p.shape))).astype(np.float32)),
+        params)
+
+
+def _gram_rows(rows):
+    r = rows.detach().cpu().double().reshape(-1, rows.shape[-1])
+    return r.T @ r
+
+
+def test_gradient_monitor_on_the_card_matches_the_cpu(cuda):
+    """The monitor's count-sketch row (``index_add_``: atomics on the
+    card, so another summation order of the same f32 addends) within
+    1e-5, as the CPU's against the reference; then 6 ``sketch_update``
+    steps: metrics 1e-4 relative and the window Gram BᵀB 1e-4 (the DS-FD
+    shrinks' SVDs are cuSOLVER's here and LAPACK's there; rows are unique
+    only up to sign, their Gram is not).  θ = window/ℓ = 2.5: the
+    running bound σ̂₁² that triggers a rotation grows by a unit row's
+    energy, 1 ± a rounding, a step, so an integer θ puts the trigger on a
+    tie that the card's and the CPU's roundings break apart (at window 8,
+    σ̂₁² = 1.99999976 on the card and ≥ 2 on the CPU after two steps)."""
+    from repro_torch.sketch import monitor
+
+    cfg = get_config("smollm-135m").reduced()
+    scfg = monitor.SketchConfig(d=64, eps=0.25, window=10)
+    g = _grad_tree(cfg, 0)
+    torch.testing.assert_close(monitor.project_grads(scfg, _to(g, cuda)).cpu(),
+                               monitor.project_grads(scfg, g), rtol=1e-5,
+                               atol=1e-5)
+    st = {"cpu": None, "cuda": None}
+    for step in range(6):
+        g = _grad_tree(cfg, step, scale=0.05 * (1 + step % 3))
+        m = {}
+        for dev in st:
+            st[dev], m[dev] = monitor.sketch_update(
+                scfg, st[dev], _to(g, dev), torch.tensor(step, device=dev))
+        for k in m["cpu"]:
+            torch.testing.assert_close(
+                m["cuda"][k].cpu(), m["cpu"][k], rtol=1e-4, atol=1e-6,
+                msg=lambda e: f"step {step} {k}: {e}")
+    assert st["cuda"]["dsfd"].main.buf.is_cuda
+    q = {dev: scfg.sketch(dev).query_rows(st[dev]["dsfd"]) for dev in st}
+    torch.testing.assert_close(_gram_rows(q["cuda"]), _gram_rows(q["cpu"]),
+                               rtol=0, atol=1e-4)
+
+
+def test_gradient_compression_on_the_card_matches_the_cpu(cuda):
+    """4 steps of ``compress_grads`` (the first projects onto the empty
+    sketch's basis, the later ones onto the learned one): compressed
+    gradients and error-feedback accumulators 1e-4, the window Gram 1e-4,
+    as the CPU's against the reference (sign-invariant projections onto
+    the sketch basis, whose SVDs differ in rounding)."""
+    from repro_torch.core.dsfd import dsfd_query_rows
+    from repro_torch.sketch import compress
+    from repro_torch.tree import leaves
+
+    cfg = get_config("smollm-135m").reduced()
+    ccfg = compress.CompressConfig(rank=4, eps=0.25, window=8,
+                                   min_size=2048, summary_rows=2)
+    st = {"cpu": None, "cuda": None}
+    for step in range(4):
+        g = _grad_tree(cfg, step)
+        out = {}
+        for dev in st:
+            out[dev], st[dev] = compress.compress_grads(ccfg, _to(g, dev),
+                                                        st[dev])
+        for a, b in zip(leaves(out["cuda"]), leaves(out["cpu"])):
+            assert a.is_cuda and torch.isfinite(a).all()
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    for name in ("embed", "wq", "wd"):
+        a, b = (s[name] if name == "embed" else s["layers"][name]
+                for s in (st["cuda"], st["cpu"]))
+        assert int(a["step"]) == int(b["step"]) == 4
+        torch.testing.assert_close(a["err"].cpu(), b["err"], rtol=0,
+                                   atol=1e-4)
+        dcfg = ccfg.dsfd(b["err"].shape[-1])
+        torch.testing.assert_close(
+            _gram_rows(dsfd_query_rows(dcfg, a["dsfd"])),
+            _gram_rows(dsfd_query_rows(dcfg, b["dsfd"])), rtol=0, atol=1e-4)
+
+
+def test_sketchy_update_on_the_card_matches_the_cpu(cuda):
+    """Two ``sketchy_dsfd`` updates from the same parameters and state
+    (each run on its own copy: the update writes in place): parameters
+    within 1e-5, as the CPU's step against the reference's; momenta (the
+    normalised updates, entries ≤ 1) 1e-4; each sketched leaf's window
+    Gram 1e-4."""
+    from repro_torch.sketch import sketchy
+    from repro_torch.tree import leaves, map_dicts
+
+    cfg = get_config("smollm-135m").reduced()
+    scfg = sketchy.SketchyConfig(lr=2e-2, rank=4, eps=0.5, window=16,
+                                 summary_rows=2, warmup=4)
+    opt = sketchy.sketchy_dsfd(scfg)
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(1), device="cpu")
+    run = {}
+    for dev in ("cpu", "cuda"):
+        p = map_dicts(lambda t: t.to(dev, copy=True), params)
+        state = opt.init(p)
+        for step in range(2):
+            p, state = opt.update(_to(_grad_tree(cfg, step), dev), state, p,
+                                  torch.tensor(step, dtype=torch.int32,
+                                               device=dev))
+        run[dev] = (p, state)
+    (pc, sc), (pg, sg) = run["cpu"], run["cuda"]
+    for a, b in zip(leaves(pg), leaves(pc)):
+        assert a.is_cuda and torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    for a, b in zip(leaves(sg.mom), leaves(sc.mom)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    for name in ("wq", "wd"):
+        a, b = sg.sketch["layers"][name], sc.sketch["layers"][name]
+        d = params["layers"][name].shape[-1]
+        torch.testing.assert_close(
+            _gram_rows(scfg.sketch(d, cuda).query_rows(a)),
+            _gram_rows(scfg.sketch(d, "cpu").query_rows(b)), rtol=0,
+            atol=1e-4)

@@ -1,5 +1,5 @@
-"""The port's flash-attention forward (``repro_torch.kernels.flash_attn``)
-held against the reference's.
+"""The port's flash attention (``repro_torch.kernels.flash_attn``), forward
+and backward, held against the reference's.
 
 On the CPU the port's wrappers run the plain version (``ref.py``); it is
 held against the reference's Pallas kernel in interpret mode and against
@@ -12,6 +12,13 @@ the same way (round to nearest even).  The CUDA kernel itself is held
 against the plain version on the card (``test_torch_cuda.py``, ``gpu``
 marker, and ``chip_smoke.py``).
 
+The backward: ``flash_attention`` is a ``torch.autograd.Function`` whose
+CPU backward is ``ref.flash_bwd_ref``; its dq, dk, dv are held against
+``jax.grad`` through the reference's custom VJP (its pure-JAX ``_bwd``)
+on the forward test's cases, at the reference's own VJP test tolerance
+in f32 (atol 5e-5, rtol 5e-4) and 2e-2 in bf16 (one rounding of each
+gradient to bf16).
+
 The bf16 kernel computes on the tensor cores, which take bf16 operands:
 ``_tensor_core_model`` repeats its arithmetic in torch (bf16 q·kᵀ
 accumulated in f32 and scaled after, the online softmax over its 128-key
@@ -23,12 +30,15 @@ f32 p, where a single bf16 rounding of p would not.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash_attn.kernel import flash_fwd_pallas
+from repro.kernels.flash_attn.ops import \
+    flash_attention as ref_flash_attention
 from repro.kernels.flash_attn.ops import \
     flash_attention_bshd as ref_flash_bshd
 from repro.kernels.flash_attn.ref import flash_ref as jax_flash_ref
@@ -102,13 +112,85 @@ def test_plain_version_first_query_sees_one_key():
     torch.testing.assert_close(lse[:, 0], s00)
 
 
-def test_no_backward_yet():
+def test_autograd_works():
+    """``flash_attention`` is differentiable in q, k and v; the autograd
+    node keeps only (q, k, v, o, lse), never an S×S tensor; under
+    ``torch.no_grad()`` it records nothing."""
     (q, k, v), _ = _inputs(2, 1, 64, 64, "float32")
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.flash_attention(q, k, v)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    o = ops.flash_attention(q, k, v)
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5 and max(t.numel() for t in saved) == q.numel()
+    dq, dk, dv = torch.autograd.grad(o.sum(), (q, k, v))
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     with torch.no_grad():
-        assert ops.flash_attention(q, k, v).shape == q.shape
+        assert ops.flash_attention(q, k, v).grad_fn is None
+
+
+def _grads_of(fn, q, k, v):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    return torch.autograd.grad(torch.sin(fn(q, k, v)).float().sum(),
+                               (q, k, v))
+
+
+def _jax_grads(fn, q, k, v):
+    return jax.grad(lambda q, k, v: jnp.sum(jnp.sin(fn(q, k, v)).astype(
+        jnp.float32)), argnums=(0, 1, 2))(q, k, v)
+
+
+GRAD_TOL = {"float32": (5e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("BH,BHkv,S,dh,causal,dtype", CASES + [
+    (4, 2, 256, 64, False, "float32")])   # the reference VJP test's cases
+def test_flash_gradients_match_jax_grad(BH, BHkv, S, dh, causal, dtype):
+    """dq, dk, dv through the port's plain backward against ``jax.grad``
+    through the reference's custom VJP (its ``_bwd``, pure JAX), for
+    Σ sin(o): f32 at the reference test's atol 5e-5, rtol 5e-4 (both
+    compute the flash identities in f32); bf16 at 2e-2 (each gradient is
+    rounded to bf16 once from f32 values on both sides)."""
+    (q, k, v), (qj, kj, vj) = _inputs(BH, BHkv, S, dh, dtype, seed=1)
+    got = _grads_of(lambda *a: ops.flash_attention(*a, causal, 128, 128),
+                    q, k, v)
+    want = _jax_grads(lambda *a: ref_flash_attention(*a, causal, 128, 128),
+                      qj, kj, vj)
+    atol, rtol = GRAD_TOL[dtype]
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=atol, rtol=rtol,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,dh", [(2, 256, 4, 2, 64),
+                                          (1, 256, 3, 3, 128)])
+def test_flash_attention_bshd_gradients_match(B, S, H, Hkv, dh):
+    rng = np.random.default_rng(5)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, S, H, dh), (B, S, Hkv, dh), (B, S, Hkv, dh))]
+    got = _grads_of(lambda *a: ops.flash_attention_bshd(
+        *a, causal=True, cq=128, ckv=128), *map(torch.from_numpy, arrs))
+    want = _jax_grads(lambda *a: ref_flash_bshd(*a, causal=True, cq=128,
+                                                ckv=128),
+                      *map(jnp.asarray, arrs))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("G,causal", [(1, True), (3, True), (2, False)])
+def test_plain_backward_matches_autograd_through_the_forward(G, causal):
+    """``flash_bwd_ref`` against autograd through ``flash_ref`` (the plain
+    forward, differentiated op by op) on the same dO: 1e-5, f32 both."""
+    (q, k, v), _ = _inputs(2 * G, 2, 128, 64, "float32", seed=G)
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        q.shape).astype(np.float32))
+    o, lse = ref.flash_ref(q, k, v, causal=causal)
+    got = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(ref.flash_ref(qq, kk, vv, causal=causal)[0],
+                               (qq, kk, vv), do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 def test_argument_checks():
@@ -119,6 +201,8 @@ def test_argument_checks():
         ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.flash_fwd(q, k, v)            # checked before any build
+    with pytest.raises(ValueError, match="flash_bwd: q must be"):
+        kernel.flash_bwd(q, k, v, q, q[:, :, 0], q)
 
 
 KV_TILE = 128       # keys per KV tile of the bf16 kernel

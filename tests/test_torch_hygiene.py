@@ -17,6 +17,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.kernels import dispatch
 from repro_torch.launch import mesh
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import api, transformer
 from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
@@ -25,8 +26,13 @@ from repro_torch.serve.engine import EngineConfig, ServeEngine, \
     SketchFleetEngine
 from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
     restore_fleet, save_fleet, shard_streams
+from repro_torch.sketch.compress import CompressConfig, compress_init
 from repro_torch.sketch.history import HistoryPlane
+from repro_torch.sketch.monitor import SketchConfig, sketch_init
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.loop import train
+from repro_torch.train.optimizer import adamw
+from repro_torch.train.train_step import TrainStepConfig, init_sketch_state
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -54,7 +60,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.sketch.score", "repro_torch.sketch.capability",
             "repro_torch.sketch.query", "repro_torch.train.checkpoint",
             "repro_torch.sketch.history", "repro_torch.parallel.topology",
-            "repro_torch.launch.mesh"} <= names
+            "repro_torch.launch.mesh", "repro_torch.train.train_step",
+            "repro_torch.train.loop", "repro_torch.train.optimizer",
+            "repro_torch.data.tokens", "repro_torch.sketch.monitor",
+            "repro_torch.sketch.compress", "repro_torch.sketch.sketchy",
+            "repro_torch.launch.train"} <= names
 
 
 def _topo(S, P=2, pid=0):
@@ -116,6 +126,12 @@ def no_cuda(monkeypatch):
     lambda: shard_streams(make_sketch("dsfd", d=8), 2, topology=_topo(2)),
     lambda: SketchFleetEngine("dsfd", d=8, streams=2, topology=_topo(2)),
     lambda: mesh.local_device(_topo(2)),
+    lambda: train(get_config("smollm-135m").reduced()),
+    lambda: launch_train.main(["--steps", "1"]),
+    lambda: init_sketch_state(TrainStepConfig(sketch=SketchConfig(d=8)),
+                              _tiny_model()[1], adamw()),
+    lambda: sketch_init(SketchConfig(d=8)),
+    lambda: compress_init(CompressConfig(min_size=1), _tiny_model()[1]),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
@@ -124,7 +140,8 @@ def no_cuda(monkeypatch):
         "engine-score", "agg_tree", "layered_init", "layered_run_stream",
         "adaptive_fd_init", "convert-layered", "convert-adaptive",
         "engine-history", "history-plane", "checkpoint-restore",
-        "topology-fleet", "topology-engine", "local-device"])
+        "topology-fleet", "topology-engine", "local-device", "train",
+        "launch-train", "init-sketch-state", "sketch-init", "compress-init"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -166,6 +183,18 @@ def test_restores_run_on_the_cpu_only_when_named(no_cuda, tmp_path):
     back = SketchFleetEngine.from_checkpoint(str(tmp_path / "engine"),
                                              device="cpu")
     assert back.history is not None and back.history.device.type == "cpu"
+
+
+def test_training_state_runs_on_the_cpu_when_named(no_cuda):
+    _, params = _tiny_model()
+    tsc = TrainStepConfig(sketch=SketchConfig(d=8),
+                          compress=CompressConfig(min_size=1))
+    sk = init_sketch_state(tsc, params, adamw(), device="cpu")
+    assert sk["monitor"]["norm_hist"].device.type == "cpu"
+    assert sk["compress"]["embed"]["err"].device.type == "cpu"
+    assert sketch_init(SketchConfig(d=8), "cpu")["dsfd"].main.buf.shape \
+        == (1, 16, 8)
+    assert init_sketch_state(TrainStepConfig(), params, adamw()) is None
 
 
 def test_init_cache_runs_on_the_cpu_when_named(no_cuda):
