@@ -26,15 +26,18 @@ Phases, each printing its seconds on a line of its own:
    as the library yardsticks (window_gram and power_iter also by device
    time under ``torch.profiler``); the flash forward at llama3-8b's
    prefill shapes (buckets 512 and 256, bf16, and the 2-layer f32
-   prefill's), smollm's (G=3, dh=64, bf16), qwen1.5's (G=1, f32), one
-   non-causal case and a 64-row query tail (S=192, bf16), beside
+   prefill's), the train phase's f32 shape (B=8, S=1024, H=9, Hkv=3,
+   dh=64), smollm's (G=3, dh=64, bf16), qwen1.5's (G=1, f32), one
+   non-causal case and a 64-row query tail (S=192, bf16), the bucket-512,
+   f32-prefill and train shapes timed beside
    ``scaled_dot_product_attention``, with the device times of both; and
    how far the bf16 kernel's o lies from the plain version's on inputs
    scaled ×8, against a single bf16 rounding of p; the flash backward at
    the train phase's shape (B=8, S=1024, H=9, Hkv=3, dh=64, causal) in
    f32 and bf16 and at dh = 128 in both, against ``flash_bwd_ref`` on the
    forward kernel's residuals, the f32 case timed beside SDPA's backward
-   on the same inputs.
+   on the same inputs, with the GFLOP the kernel executes (seven products
+   over the tiles it visits) beside the bound's five.
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
@@ -614,13 +617,14 @@ def check_split_kernels(rng) -> dict:
 # phase 2 (cont.): the flash-attention forward
 # ---------------------------------------------------------------------------
 
-# (label, B, S, H, Hkv, dh, dtype, causal); llama3-8b's are timed, the
-# first in the kernels line, the f32 one (the 2-layer f32 prefill's
-# shape) beside it
+# (label, B, S, H, Hkv, dh, dtype, causal); those in FLASH_TIMED are
+# timed: llama3-8b's bucket 512 in the kernels line, the f32 prefill's (the
+# 2-layer f32 prefill's shape) and the train phase's f32 shape beside it
 FLASH_SHAPES = [
     ("llama3-8b bucket 512", 1, 512, 32, 8, 128, "bfloat16", True),
     ("llama3-8b bucket 256", 1, 256, 32, 8, 128, "bfloat16", True),
     ("llama3-8b f32 prefill", 1, 512, 32, 8, 128, "float32", True),
+    ("train f32", 8, 1024, 9, 3, 64, "float32", True),
     ("smollm G=3", 2, 256, 9, 3, 64, "bfloat16", True),
     ("qwen1.5 G=1", 1, 512, 16, 16, 64, "float32", True),
     ("non-causal", 1, 512, 32, 8, 128, "bfloat16", False),
@@ -631,6 +635,9 @@ FLASH_SHAPES = [
 # another summation order.  lse is f32 in both types.
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-3
+# timed shapes and their keys in the kernels line's flash_fwd entry
+FLASH_TIMED = {"llama3-8b bucket 512": None, "llama3-8b f32 prefill": "f32",
+               "train f32": "f32_train"}
 
 
 def flash_bound(B, S, H, Hkv, dh, dtype, causal):
@@ -646,9 +653,20 @@ def flash_bound(B, S, H, Hkv, dh, dtype, causal):
     return max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
+def _ratio(kernel_ms, library_ms) -> str:
+    return (f": the kernel {kernel_ms / library_ms:.3f}× the library's"
+            if kernel_ms and library_ms else "")
+
+
 def check_flash(rng) -> dict:
+    """The forward kernel against ``flash_ref`` at each shape of
+    ``FLASH_SHAPES``; those in ``FLASH_TIMED`` timed beside their bound,
+    their plain version and SDPA (``enable_gqa``; at f32 also SDPA's
+    memory-efficient kernel on K and V expanded to H heads, which
+    ``enable_gqa`` does not reach)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attn import kernel, ref
 
@@ -676,7 +694,7 @@ def check_flash(rng) -> dict:
         log(f"kernels flash_fwd {label} (B,S,H,Hkv,dh)=({B},{S},{H},{Hkv},"
             f"{dh}) {dtype} causal={causal}: o err {err:.3e}, lse err "
             f"{err_lse:.3e}")
-        if not label.startswith("llama3-8b"):
+        if label not in FLASH_TIMED:
             continue
         q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh) for t in (q, k, v))
 
@@ -693,21 +711,34 @@ def check_flash(rng) -> dict:
         bound, by = flash_bound(B, S, H, Hkv, dh, dtype, causal)
         dev_k = device_ms(lambda: kernel.flash_fwd(q, k, v, causal))
         dev_lib = device_ms(library)
-        ratio = (f": the kernel {dev_k / dev_lib:.3f}× the library's"
-                 if dev_k and dev_lib else "")
         log(f"kernels time flash_fwd {label}: kernel_ms {t['kernel']:.4f} "
             f"plain_ms {t['plain']:.4f} library_ms (sdpa) "
             f"{t['library']:.4f} bound_ms {bound:.4f} ({by}); sdpa vs "
             f"plain max err {lib_err:.3e}; device time (torch.profiler) "
-            f"kernel {fmt_ms(dev_k)} ms, sdpa {fmt_ms(dev_lib)} ms{ratio}")
+            f"kernel {fmt_ms(dev_k)} ms, sdpa {fmt_ms(dev_lib)} ms"
+            f"{_ratio(dev_k, dev_lib)}")
         # the CUDA-event times of both calls are the host's at the bf16
         # shapes; the device times are what the kernel is judged on
-        timed.setdefault(dtype, dict(
+        timed[FLASH_TIMED[label]] = dict(
             ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
             bound_by=by, library_ms=t["library"], device_ms=dev_k,
-            library_device_ms=dev_lib))
-    return dict(max_abs_err=worst, **timed["bfloat16"],
-                f32=timed["float32"])
+            library_device_ms=dev_lib)
+        if dtype == "float32":
+            ke, ve = (x.repeat_interleave(H // Hkv, 1) for x in (k4, v4))
+
+            def expanded():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(q4, ke, ve,
+                                                          is_causal=causal)
+            exp_err = float((expanded().reshape_as(o) - o_p).abs().max())
+            dev_exp = device_ms(expanded)
+            log(f"kernels time flash_fwd {label}: sdpa's memory-efficient "
+                f"kernel on k, v expanded to {H} heads (outside the call): "
+                f"device {fmt_ms(dev_exp)} ms{_ratio(dev_k, dev_exp)}, vs "
+                f"plain max err {exp_err:.3e}")
+            timed[FLASH_TIMED[label]]["library_expanded_device_ms"] = dev_exp
+    main = timed.pop(None)
+    return dict(max_abs_err=worst, **main, **timed)
 
 
 def p_rounding(rng) -> None:
@@ -756,6 +787,27 @@ FLASH_BWD_SHAPES = [
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
+def flash_bwd_executed_gflop(B, S, H, Hkv, dh, causal):
+    """GFLOP the backward kernel executes: seven products of 2·dh
+    operations per (query, key) pair of the tiles it visits (S and dP in
+    both roles; dQ, dK and dV once).  dQ visits, per query tile, the
+    64-key tiles up to the diagonal; dK/dV, per key tile, the 64-row query
+    tiles from the diagonal down (tiles of ``kernel.bwd_plan``)."""
+    from repro_torch.kernels.flash_attn import kernel
+
+    rows = kernel.bwd_plan(dh, S, B * H, B * Hkv)[1]
+    n = S // kernel.STREAM
+    dq_pairs = dkv_pairs = 0
+    for t in range(-(-S // rows)):
+        lo, hi = t * rows, min(S, (t + 1) * rows)
+        # the kept tile's rows are padded to `rows`
+        dq_pairs += rows * kernel.STREAM * (
+            -(-hi // kernel.STREAM) if causal else n)
+        dkv_pairs += rows * kernel.STREAM * (
+            n - lo // kernel.STREAM if causal else n)
+    return 2 * dh * B * H * (3 * dq_pairs + 4 * dkv_pairs) / 1e9
+
+
 def flash_bwd_bound(B, S, H, Hkv, dh, dtype, causal):
     """Least time (ms) of the flash backward: q, o, dO read and dq written
     (B·H rows), k, v read and dk, dv written (B·Hkv rows), lse read, once
@@ -778,6 +830,7 @@ def check_flash_bwd(rng) -> dict:
     version and SDPA's backward on the same inputs."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attn import kernel, ref
 
@@ -819,15 +872,32 @@ def check_flash_bwd(rng) -> dict:
         dev_k = device_ms(lambda: kernel.flash_bwd(q, k, v, o, lse, do,
                                                    causal), reps=10)
         dev_lib = device_ms(library, reps=10)
+        # SDPA's memory-efficient kernel, which enable_gqa does not reach:
+        # K and V expanded to H heads outside the call, so its dK and dV
+        # are per query head (the group sum not included)
+        qe, ke, ve = (x.detach().repeat_interleave(H // x.shape[1], 1)
+                      .requires_grad_(True) for x in (q4, k4, v4))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            oe = F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal)
+        dev_exp = device_ms(lambda: torch.autograd.grad(
+            oe, (qe, ke, ve), do4, retain_graph=True), reps=10)
+        pairs = (S * (S + 1) // 2 if causal else S * S) * B * H
+        gflop = 10 * dh * pairs / 1e9
+        done = flash_bwd_executed_gflop(B, S, H, Hkv, dh, causal)
         log(f"kernels time flash_bwd {label}: kernel_ms {t['kernel']:.4f} "
             f"plain_ms {t['plain']:.4f} library_ms (sdpa backward) "
             f"{t['library']:.4f} bound_ms {bound:.4f} ({by}); device time "
             f"(torch.profiler) kernel {fmt_ms(dev_k)} ms, sdpa backward "
-            f"{fmt_ms(dev_lib)} ms")
+            f"{fmt_ms(dev_lib)} ms{_ratio(dev_k, dev_lib)}; sdpa's "
+            f"memory-efficient backward on k, v expanded to {H} heads "
+            f"{fmt_ms(dev_exp)} ms{_ratio(dev_k, dev_exp)}; executed "
+            f"{done:.2f} GFLOP (7 products over the tiles visited) for the "
+            f"bound's {gflop:.2f} (5)")
         timed = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
                      bound_by=by, library_ms=t["library"], device_ms=dev_k,
-                     library_device_ms=dev_lib, shape=label)
-        del q4, k4, v4, o4
+                     library_device_ms=dev_lib,
+                     library_expanded_device_ms=dev_exp, shape=label)
+        del q4, k4, v4, o4, qe, ke, ve, oe
     return dict(max_abs_err=worst, **timed)
 
 

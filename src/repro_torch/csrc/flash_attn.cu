@@ -61,15 +61,35 @@
 //   in the warpgroup's Q panels in the swizzle TMA reads and stored by
 //   TMA; lse in f32.
 //
-// f32 design (flash_fwd_f32): the CUDA-core kernel of the first port,
-// kept because f32 has no tensor-core path here (TF32 would round q, k and
-// v to 10 mantissa bits, and no kernel of the port uses it).  One CTA per
-// (bh, 64-row q tile) of 256 threads; 64 query rows (scaled, as in the
-// reference) and each 64-key tile of K and V staged through shared memory
-// in f32 (113.5 KB at dh=128, rows at an odd stride so the score loop's
-// column reads are free of bank conflicts); f32 FMA for both products.
-// What bounds it is the f32 FMA rate and the shared-memory reads that feed
-// it.  S must be a multiple of 64 for both kernels (the wrapper checks).
+// f32 design (flash_fwd_f32): the CUDA cores, register-blocked.  f32 has
+// no tensor-core path here: TF32 would round q, k and v to 10 mantissa
+// bits, and no kernel of the port uses it.  At smollm-135m's training
+// shape (B=8, S=1024, H=9, Hkv=3, dh=64, causal) the function's 9.67 GFLOP
+// take 0.144 ms at the f32 peak (67 TFLOP/s), its ~57 MB 0.017 ms at
+// 3.35 TB/s: it is bound by the FMA rate, and so is the kernel.
+// - A CTA of 256 threads owns 128 query rows of one head.  A thread holds
+//   8 rows × 8 keys of the scores at dh = 64 (128-key KV tiles) or 8 × 4
+//   at dh = 128 (64-key tiles: a 128-key K ring would not fit), and 8 rows
+//   × dh/16 columns of o (csrc/flash_f32.cuh: the layout, the products,
+//   their shared-memory wavefronts, 8 to 12.8 FFMAs each).
+// - Q, times scale·log2 e, is loaded once, transposed.  K comes through a
+//   2-stage cp.async ring (tile j + 1 in flight while j is computed); V,
+//   one tile, is copied while its tile's scores and softmax are computed
+//   and waited for before P·V.  Two barriers a KV tile: the ring's, and
+//   P's and V's.  Shared memory 204,800 B at dh = 64 and 196,608 B at
+//   dh = 128, one CTA (8 warps) a SM.
+// - The online softmax runs in registers, in base 2 (p = 2^(s − m), s and
+//   m in units of log2 e): the 16 threads of a row side are a half warp
+//   and reduce the row's max and sum with shfl_xor; m, l and the
+//   correction never leave registers.  P is written once to shared memory
+//   (transposed) and read once by P·V.
+// - A query tail past S (S a multiple of 64, not of 128) is zero in Q and
+//   never stored; keys past S are zero-filled by the copy and masked to
+//   -1e30 like keys past the diagonal.  Causal CTAs stop at the diagonal;
+//   blockIdx.y runs the query tiles from the last (longest) to the first
+//   and blockIdx.x the heads, so every head's longest tile is in the first
+//   wave.  At the training shape: 72 heads × 8 query tiles = 576 CTAs,
+//   4.4 waves over 132 SMs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -78,196 +98,144 @@
 #include <stdint.h>
 #include <stdio.h>
 
-namespace {
+#include "flash_f32.cuh"
 
-constexpr float kNegInf = -1e30f;
+namespace {
 
 // ---------------------------------------------------------------------------
 // f32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;   // 8 warps; a 16×16 grid for the tile products
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 64;         // query rows per CTA
-constexpr int kBKV = 64;        // keys per KV tile
-constexpr int kLDP = kBKV + 1;  // row stride of the score tile
+constexpr int kThreads = 256;   // a 16 × 16 grid of 8-row patches
+constexpr int kBQ = 128;        // query rows per CTA
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Keys per KV tile: 128 at dh = 64 (a patch of 8 rows × 8 keys a
+// thread), 64 at dh = 128 (8 × 4: a 128-key K ring would not fit).
+__host__ __device__ constexpr int kv_tile(int dh) {
+  return dh == 64 ? 128 : 64;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Dynamic shared memory of one CTA, in floats: Q and K tiles at an odd
-// stride, the V tile, the score tile, and m, l, c per query row.
+// Dynamic shared memory of one CTA, in floats: Q transposed (dh × 128),
+// the K ring (2 tiles), the V tile and P transposed (a tile's keys × 128
+// rows), rows padded at dh = 64 (csrc/flash_f32.cuh).
 constexpr size_t smem_floats(int dh) {
-  return (size_t)kBQ * (dh + 1) + (size_t)kBKV * (dh + 1) +
-         (size_t)kBKV * dh + (size_t)kBQ * kLDP + 3 * (size_t)kBQ;
+  return (size_t)dh * kBQ + 3 * (size_t)kv_tile(dh) * row_floats(dh, dh) +
+         (size_t)kv_tile(dh) * row_floats(kBQ, dh);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int S, int G, float scale,
               int causal) {
-  constexpr int LD = DH + 1;
-  constexpr int NC = DH / 16;   // output columns per thread
-  constexpr int RW = kBQ / kWarps;  // softmax rows per warp
-  extern __shared__ float smem[];
-  float* sQ = smem;             // kBQ × LD
-  float* sK = sQ + kBQ * LD;    // kBKV × LD
-  float* sV = sK + kBKV * LD;   // kBKV × DH
-  float* sP = sV + kBKV * DH;   // kBQ × kLDP: scores, then probabilities
-  float* sM = sP + kBQ * kLDP;  // running row max
-  float* sL = sM + kBQ;         // running row sum
-  float* sC = sL + kBQ;         // this tile's correction exp(m − m′)
+  constexpr int NC = DH / 16;   // output columns a thread
+  constexpr int BKV = kv_tile(DH), NB = BKV / 16;
+  constexpr int TILE = BKV * row_floats(DH, DH);  // a K or V tile
+  extern __shared__ __align__(16) float smem[];
+  float* sQt = smem;                    // DH × kBQ
+  float* sK = sQt + DH * kBQ;           // 2 tiles of BKV × DH
+  float* sV = sK + 2 * TILE;            // BKV × DH
+  float* sPt = sV + TILE;               // BKV × kBQ
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kBQ;
-  const int bh = blockIdx.y;
-  const float* gq = q + ((size_t)bh * S + q0) * DH;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const int rows = min(kBQ, S - q0);
   const size_t kv_base = (size_t)(bh / G) * S * DH;
+  const float* gk = k + kv_base;
+  const float* gv = v + kv_base;
+  const int n_kv = (S + BKV - 1) / BKV;
+  const int kv_end = causal ? min(n_kv, (q0 + rows - 1) / BKV + 1) : n_kv;
 
-  for (int idx = tid; idx < kBQ * DH; idx += kThreads) {
-    const int r = idx / DH, c = idx - r * DH;
-    sQ[r * LD + c] = gq[idx] * scale;
-  }
-  if (tid < kBQ) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
-  float acc[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) acc[a][b] = 0.f;
+  // the first K tile is in flight while Q is staged
+  stage_rows_upto<DH, kThreads, BKV>(sK, gk, S);
+  cp_async_commit();
+  // q · scale · log2 e: the softmax runs in base 2 (m in units of log2 e)
+  stage_t<kBQ, DH, kThreads>(sQt, q + ((size_t)bh * S + q0) * DH, rows,
+                             scale * kLog2e);
 
-  // causal: the first tile whose first key lies after this CTA's last query
-  const int n_kv = S / kBKV;
-  const int kv_end = causal ? min(n_kv, (q0 + kBQ - 1) / kBKV + 1) : n_kv;
+  float acc[8][NC], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
 
   for (int kj = 0; kj < kv_end; ++kj) {
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    const float* gk = k + kv_base + (size_t)kj * kBKV * DH;
-    const float* gv = v + kv_base + (size_t)kj * kBKV * DH;
-    for (int idx = tid; idx < kBKV * DH; idx += kThreads) {
-      const int r = idx / DH, c = idx - r * DH;
-      sK[r * LD + c] = gk[idx];
-      sV[idx] = gv[idx];
-    }
-    __syncthreads();
+    const int st = kj & 1, key0 = kj * BKV;
+    cp_async_wait_all();
+    __syncthreads();  // K tile kj is in; tile kj − 1's V, P, K stage free
+    // V of this tile (waited for before P·V), then the next K tile
+    stage_rows_upto<DH, kThreads, BKV>(sV, gv + (size_t)key0 * DH,
+                                       S - key0);
+    cp_async_commit();
+    if (kj + 1 < kv_end)
+      stage_rows_upto<DH, kThreads, BKV>(sK + (st ^ 1) * TILE,
+                                         gk + (size_t)(key0 + BKV) * DH,
+                                         S - key0 - BKV);
+    cp_async_commit();
+    const float* cK = sK + st * TILE;
 
-    // scores: thread (ty, tx) owns rows ty + 16a and columns tx + 16b
-    float s[4][4];
+    float s[8][NB];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = sQ[(ty + 16 * a) * LD + d];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kb[b] = sK[(tx + 16 * b) * LD + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b;
-        const bool masked = causal && kj * kBKV + c > q0 + r;
-        sP[r * kLDP + c] = masked ? kNegInf : s[a][b];
-      }
-    __syncthreads();
+      for (int n = 0; n < NB; ++n) s[i][n] = 0.f;
+    mma_tb<kBQ, DH, NB>(s, sQt, cK, ty, tx);
 
-    // online softmax: warp w owns rows RW·w .. RW·w + RW − 1, a lane owns
-    // columns lane and lane + 32 of each
-    for (int rr = 0; rr < RW; ++rr) {
-      const int r = warp * RW + rr;
-      float* row = sP + r * kLDP;
-      const float x0 = row[lane], x1 = row[lane + 32];
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      const float psum = warp_sum(p0 + p1);
-      __syncwarp();  // every lane has read sM[r] before lane 0 writes it
-      if (lane == 0) {
-        const float c = expf(m_prev - m_new);
-        sL[r] = sL[r] * c + psum;
-        sM[r] = m_new;
-        sC[r] = c;
+    // online softmax over the row side, in registers; keys past the
+    // diagonal or past S are masked
+    const bool edge = (causal && key0 + BKV - 1 > q0) || key0 + BKV > S;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + row_of<kBQ>(i, ty);
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const int key = key0 + tx + 16 * n;
+        if (edge && ((causal && key > row) || key >= S)) s[i][n] = kNegInf;
+        mx = fmaxf(mx, s[i][n]);
       }
-    }
-    __syncthreads();
-
-    // acc = acc·c + P·V: thread (ty, tx) owns rows ty + 16a, columns tx + 16b
-    float pv[4][NC];
+      const float m_new = fmaxf(m[i], half_max(mx));
+      const float c = exp2f(m[i] - m_new);
+      float sum = 0.f;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < NC; ++b) pv[a][b] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < kBKV; ++j) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = sP[(ty + 16 * a) * kLDP + j];
-#pragma unroll
-      for (int b = 0; b < NC; ++b) {
-        const float vb = sV[j * DH + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) pv[a][b] = fmaf(pa[a], vb, pv[a][b]);
+      for (int n = 0; n < NB; ++n) {
+        s[i][n] = exp2f(s[i][n] - m_new);
+        sum += s[i][n];
       }
+      l[i] = l[i] * c + half_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) acc[i][cc] *= c;
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float c = sC[ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < NC; ++b) acc[a][b] = acc[a][b] * c + pv[a][b];
+    for (int n = 0; n < NB; ++n) {
+      const float p[8] = {s[0][n], s[1][n], s[2][n], s[3][n],
+                          s[4][n], s[5][n], s[6][n], s[7][n]};
+      put_col<kBQ, DH>(sPt, tx + 16 * n, ty, p);
     }
+    cp_async_wait<1>();  // this tile's V (the next K may still be coming)
+    __syncthreads();     // P is whole, V is in
+    mma_tn<kBQ, DH, BKV>(acc, sPt, sV, ty, tx);
   }
 
-  // sM and sL were last written before the loop's final __syncthreads
-  float* go = o + ((size_t)bh * S + q0) * DH;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
-    const float l = fmaxf(sL[r], 1e-30f);
+  for (int i = 0; i < 8; ++i) {
+    const int r = row_of<kBQ>(i, ty);
+    if (r >= rows) continue;
+    const float lm = fmaxf(l[i], 1e-30f);
+    float* go = o + ((size_t)bh * S + q0 + r) * DH;
 #pragma unroll
-    for (int b = 0; b < NC; ++b) go[r * DH + tx + 16 * b] = acc[a][b] / l;
+    for (int h = 0; h < NC / 4; ++h)
+      st4(go + 64 * h + 4 * tx,
+          make_float4(acc[i][4 * h] / lm, acc[i][4 * h + 1] / lm,
+                      acc[i][4 * h + 2] / lm, acc[i][4 * h + 3] / lm));
+    if (tx == 0) lse[(size_t)bh * S + q0 + r] = m[i] / kLog2e + logf(lm);
   }
-  if (tid < kBQ)
-    lse[(size_t)bh * S + q0 + tid] = sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
-}
-
-// Opt `kern` in to `smem` bytes of dynamic shared memory on the current
-// card, once per card (bit `device` of *done; cards past 32 every call).
-template <typename Kernel>
-int opt_in(Kernel kern, size_t smem, unsigned* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 32 && (*done >> dev & 1u)) return 0;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e == cudaSuccess && dev < 32) *done |= 1u << dev;
-  return (int)e;
 }
 
 template <int DH>
@@ -279,13 +247,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const size_t smem = smem_floats(DH) * sizeof(float);
   const int e = opt_in(kern, smem, &done);
   if (e) return e;
-  const dim3 grid(S / kBQ, BH);
+  const dim3 grid(BH, (S + kBQ - 1) / kBQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, G, scale,
       causal);
   return (int)cudaGetLastError();
 }
+
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma and TMA
@@ -824,8 +793,27 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// S must be a multiple of this (both kernels' query and key tiles).
-int flash_attn_tile() { return kBQ > kBKV ? kBQ : kBKV; }
+// S must be a multiple of this (both kernels' granularity; a query or key
+// tile past S is masked).
+int flash_attn_tile() { return kStream; }
+
+// The f32 kernel's launch plan at (dh, S, BH): out[0..5] = threads, query
+// rows a CTA, dynamic shared memory (bytes), grid.x (heads), grid.y
+// (query tiles) and resident CTAs a SM on the current card.  Returns a
+// CUDA error code (0 on success).
+int flash_attn_f32_plan(int dh, int S, int BH, int* out) {
+  if ((dh != 64 && dh != 128) || S <= 0 || S % kStream || BH <= 0)
+    return (int)cudaErrorInvalidValue;
+  out[0] = kThreads;
+  out[1] = kBQ;
+  out[2] = (int)(smem_floats(dh) * sizeof(float));
+  out[3] = BH;
+  out[4] = (S + kBQ - 1) / kBQ;
+  static unsigned d64 = 0, d128 = 0;
+  out[5] = dh == 64 ? occupancy(flash_fwd_f32<64>, kThreads, out[2], &d64)
+                    : occupancy(flash_fwd_f32<128>, kThreads, out[2], &d128);
+  return out[5] < 0 ? (int)cudaErrorInvalidValue : 0;
+}
 
 // Dynamic shared memory one CTA needs at head dimension dh (bytes), the
 // larger of the two kernels'.
@@ -863,7 +851,7 @@ const char* flash_attn_error_string(int err) {
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    float* lse, int BH, int BHkv, int S, int dh, int bf16,
                    int causal, float scale, void* stream) {
-  if (BHkv <= 0 || BH % BHkv != 0 || S % kBQ != 0 || S % kBKV != 0)
+  if (BHkv <= 0 || BH % BHkv != 0 || S % kStream != 0)
     return (int)cudaErrorInvalidValue;
   const int G = BH / BHkv;
   const cudaStream_t st = (cudaStream_t)stream;

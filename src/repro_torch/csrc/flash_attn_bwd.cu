@@ -26,313 +26,359 @@
 // CUDA cores: TF32 would round q, k, v and dO to 10 mantissa bits, and no
 // kernel of the port uses it.
 //
-// Design: deterministic, no atomics, three launches on one stream.
-// - D: a warp per row sums dO ∘ o into an f32 scratch (BH, S) that the
-//   wrapper allocates.
-// - dQ: a CTA per (q head, 64-row q tile), 256 threads.  Q (scaled), dO,
-//   lse and D of the tile stay in shared memory; the CTA walks the 64-key
-//   tiles of K and V up to the diagonal.  Per tile: S and dP in one loop
-//   over dh (thread (ty, tx) owns rows ty + 16a and columns tx + 16b),
-//   P and dS in registers, dS through shared memory, then dQ += dS·K into
-//   a 4 × dh/16 register patch.  The heaviest tiles (nearest the end)
-//   launch first.
-// - dK, dV: a CTA per (KV head, 64-row KV tile).  K and V stay in shared
-//   memory; the CTA walks the G query heads of its group and, for each,
-//   the q tiles from the diagonal down, recomputing S and dP, and sums
-//   dV += Pᵀ dO and dK += dSᵀ qs in registers.  The group's sum never
-//   leaves the CTA, so no reduction across CTAs is needed.
-// - Rows of every tile sit at an odd stride (dh + 1, 65) in shared memory,
-//   so the column reads of the products are free of bank conflicts.
-// - Masked tiles above the diagonal are skipped; inside the diagonal tile
-//   the mask sets s to -1e30 and exp(-1e30 − lse) is exactly 0.
-// - Shared memory: 165,888 B at dh = 128 (the dK/dV pass), within what a
-//   block may opt in to (flash_attn_bwd_smem_bytes).  S must be a multiple
-//   of 64 (the wrapper checks).
+// Design: deterministic, no atomics, two launches on one stream, seven
+// products (S and dP are computed for dQ and again for dK and dV: 38.1
+// GFLOP executed at the training shape, with the diagonal tiles' masked
+// parts, for the 24.2 the bound counts).  The five-product alternative,
+// S and dP once with dQ accumulated across key tiles in a fixed order,
+// was not built: its dQ partial products do not fit the dK/dV role's
+// registers at dh = 128 (249 a thread already).
+// - D = rowsum(dO ∘ o), a warp a row, into an f32 scratch (BH, S) that
+//   the wrapper allocates: its own pass, since the dK/dV role needs D of
+//   every query row it visits from its first step.
+// - One grid for both roles (flash_bwd_f32).  Its first BHkv·tiles CTAs
+//   compute dK and dV of a (KV head, key tile), key tile 0 (the longest
+//   walk) first; the other BH·tiles compute dQ of a (query head, query
+//   tile), the last (longest) query tiles first.  The scheduler hands the
+//   CTAs out in that order as SMs free up, so the short dQ CTAs fill in
+//   behind the long dK/dV ones: at the training shape 192 + 576 CTAs, 5.8
+//   waves over 132 SMs at one CTA a SM, where two grids left the dK/dV
+//   grid's last of 1.5 waves on a few SMs.
+// - Both roles are register-blocked (csrc/flash_f32.cuh: each thread an
+//   8 × 4 patch of S and dP and an 8 × dh/16 patch of its gradients,
+//   16-byte shared loads, 8 or more FFMAs a shared-memory wavefront) and
+//   stream their tiles through a 2-stage cp.async ring (f32; bf16 tiles
+//   are widened through registers), one barrier for the ring and one for
+//   P and dS a tile.  P = exp(s − lse) is taken as 2^((s − lse)·log2 e):
+//   s − lse is rounded once in natural units, as the plain version's is,
+//   and only the small difference is scaled (2^(s·log2 e − lse·log2 e)
+//   would round two terms of ~30 at a peaked softmax).  256 threads and
+//   128-row kept tiles at dh = 64, 128 and 64 at dh = 128 (what fits
+//   227 KB of shared memory).
+// - dQ: Q (times scale) and dO stay in shared memory, transposed;
+//   the CTA walks the 64-key tiles of K and V up to the diagonal: S and dP
+//   in registers, P and dS in registers, dS once through shared memory
+//   (transposed), dQ += dS·K in registers.
+// - dK, dV: K and V stay in shared memory, transposed; the CTA walks the
+//   G query heads of its group and, for each, the 64-row q tiles from the
+//   diagonal down, streaming Q, dO, lse and D: Sᵀ and dPᵀ in registers, P
+//   and dS once through shared memory, dV += Pᵀ dO and dK += dSᵀ q in
+//   registers.  The group's sum never leaves the CTA, so no reduction
+//   across CTAs is needed, and every output is the same sum in the same
+//   order on every call: the backward is bitwise repeatable.
+// - Shared memory: 203,776 B at dh = 64 and 230,400 B at dh = 128 (the
+//   dK/dV role's; dQ's 169,984 and 213,504).
+// - Masked tiles above the diagonal are skipped; inside a diagonal tile
+//   the mask sets s to -1e30 and exp(-1e30 − lse) is exactly 0.  A query
+//   or key tile past S (S a multiple of 64, not of the tile) is zero in
+//   shared memory and never stored.  S must be a multiple of 64 (the
+//   wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;   // a 16×16 grid of threads over a 64×64 tile
-constexpr int kTile = 64;       // query rows and keys per tile
-constexpr int kLDP = kTile + 1; // row stride of the P and dS tiles
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Threads of a CTA of either role at head dimension DH; its row side
+// covers 8 · NT / 16 rows (query rows in dQ, keys in dK/dV).
+__host__ __device__ constexpr int threads_for(int dh) {
+  return dh == 64 ? 256 : 128;
 }
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+__host__ __device__ constexpr int rows_for(int dh) {
+  return threads_for(dh) / 2;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Dynamic shared memory (floats) of the dQ pass: Q, dO, K, V tiles at an
-// odd stride, the dS tile, lse and D per query row.
+// Dynamic shared memory (floats) of the dQ role: Q and dO transposed, the
+// K and V rings, dS transposed, lse and D of the tile's rows.
 constexpr size_t dq_floats(int dh) {
-  return 4 * (size_t)kTile * (dh + 1) + (size_t)kTile * kLDP + 2 * kTile;
+  return 2 * (size_t)dh * rows_for(dh) +
+         4 * (size_t)kStream * row_floats(dh, dh) +
+         (size_t)kStream * row_floats(rows_for(dh), dh) +
+         2 * (size_t)rows_for(dh);
 }
 
-// The dK/dV pass: K, V, Q, dO tiles, the P and dS tiles, lse and D.
+// The dK/dV role: K and V transposed, the Q and dO rings, P and dS, and
+// the lse and D rings.
 constexpr size_t dkv_floats(int dh) {
-  return 4 * (size_t)kTile * (dh + 1) + 2 * (size_t)kTile * kLDP +
-         2 * kTile;
+  return 2 * (size_t)dh * rows_for(dh) +
+         4 * (size_t)kStream * row_floats(dh, dh) +
+         2 * (size_t)kStream * row_floats(rows_for(dh), dh) +
+         4 * (size_t)kStream;
 }
 
-// rows × DH elements of `src` (row-major, DH wide) into `dst` at stride
-// DH + 1, times `mul`, widened to f32.
-template <int DH, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, float mul) {
-  for (int idx = threadIdx.x; idx < kTile * DH; idx += kThreads) {
-    const int r = idx / DH, c = idx - r * DH;
-    dst[r * (DH + 1) + c] = widen(src[idx]) * mul;
-  }
+// Bytes of dynamic shared memory of the kernel that runs both roles.
+constexpr size_t smem_bytes(int dh) {
+  return (dq_floats(dh) > dkv_floats(dh) ? dq_floats(dh) : dkv_floats(dh)) *
+         sizeof(float);
 }
 
 // D = rowsum(dO ∘ o): one warp a row.
 template <int DH, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 flash_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
               float* __restrict__ D, int rows) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* po = o + (size_t)row * DH;
   const T* pd = dout + (size_t)row * DH;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < DH; c += 32) acc = fmaf(widen(pd[c]), widen(po[c]), acc);
+  for (int c = lane; c < DH; c += 32)
+    acc = fmaf(widen(pd[c]), widen(po[c]), acc);
   acc = warp_sum(acc);
   if (lane == 0) D[row] = acc;
 }
 
-// s = qs kᵀ and dp = dO vᵀ for thread (ty, tx)'s 4×4 patch: rows
-// ty + 16a of sQ and sO (queries), rows tx + 16b of sK and sV (keys).
-template <int DH>
-__device__ __forceinline__ void scores(const float* sQ, const float* sO,
-                                       const float* sK, const float* sV,
-                                       int ty, int tx, float s[4][4],
-                                       float dp[4][4]) {
-  constexpr int LD = DH + 1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = sQ[(ty + 16 * a) * LD + d];
-      oa[a] = sO[(ty + 16 * a) * LD + d];
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      kb[b] = sK[(tx + 16 * b) * LD + d];
-      vb[b] = sV[(tx + 16 * b) * LD + d];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-        dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
-      }
-  }
-}
-
+// dQ of query head bh's query tile qt (BQ rows).
 template <int DH, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const float* __restrict__ lse,
-             const T* __restrict__ dout, const float* __restrict__ D,
-             T* __restrict__ dq, int S, int G, float scale, int causal) {
-  constexpr int LD = DH + 1;
-  constexpr int NC = DH / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sO = sQ + kTile * LD;
-  float* sK = sO + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sS = sV + kTile * LD;
-  float* sL = sS + kTile * kLDP;
-  float* sD = sL + kTile;
+__device__ __forceinline__ void dq_tile(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ lse,
+    const T* __restrict__ dout, const float* __restrict__ D,
+    T* __restrict__ dq, int S, int G, float scale, int causal, int bh,
+    int qt) {
+  constexpr int NT = threads_for(DH), BQ = rows_for(DH), NC = DH / 16;
+  constexpr int TILE = kStream * row_floats(DH, DH);  // a K or V tile
+  extern __shared__ __align__(16) float smem[];
+  float* sQt = smem;                    // DH × BQ
+  float* sOt = sQt + DH * BQ;           // DH × BQ
+  float* sK = sOt + DH * BQ;            // 2 tiles of kStream × DH
+  float* sV = sK + 2 * TILE;            // 2 tiles of kStream × DH
+  float* sSt = sV + 2 * TILE;           // kStream × BQ
+  float* sL = sSt + kStream * row_floats(BQ, DH);  // BQ
+  float* sD = sL + BQ;                  // BQ
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nq = S / kTile;
-  const int qi = nq - 1 - blockIdx.x;    // the longest rows first
-  const int q0 = qi * kTile;
-  const int bh = blockIdx.y;
+  const int q0 = qt * BQ;
+  const int rows = min(BQ, S - q0);
   const size_t qoff = ((size_t)bh * S + q0) * DH;
   const size_t kv_base = (size_t)(bh / G) * S * DH;
+  const T* gk = k + kv_base;
+  const T* gv = v + kv_base;
+  const int n_kv = S / kStream;
+  const int kv_end = causal ? min(n_kv, (q0 + rows - 1) / kStream + 1)
+                            : n_kv;
 
-  stage<DH>(sQ, q + qoff, scale);
-  stage<DH>(sO, dout + qoff, 1.f);
-  if (tid < kTile) {
-    sL[tid] = lse[(size_t)bh * S + q0 + tid];
-    sD[tid] = D[(size_t)bh * S + q0 + tid];
+  stage_rows<DH, NT>(sK, gk);
+  stage_rows<DH, NT>(sV, gv);
+  cp_async_commit();
+  // q · scale, so s is in natural units and P = 2^((s − lse)·log2 e)
+  stage_t<BQ, DH, NT>(sQt, q + qoff, rows, scale);
+  stage_t<BQ, DH, NT>(sOt, dout + qoff, rows, 1.f);
+  for (int r = tid; r < BQ; r += NT) {
+    sL[r] = r < rows ? lse[(size_t)bh * S + q0 + r] : 0.f;
+    sD[r] = r < rows ? D[(size_t)bh * S + q0 + r] : 0.f;
   }
-  float acc[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) acc[a][b] = 0.f;
 
-  const int kv_end = causal ? qi + 1 : nq;
+  float acc[8][NC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+
   for (int kj = 0; kj < kv_end; ++kj) {
-    __syncthreads();  // the previous tile's K and dS are no longer read
-    stage<DH>(sK, k + kv_base + (size_t)kj * kTile * DH, 1.f);
-    stage<DH>(sV, v + kv_base + (size_t)kj * kTile * DH, 1.f);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<DH>(sQ, sO, sK, sV, ty, tx, s, dp);
+    const int st = kj & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is in; tile kj − 1's stage and dS are free
+    if (kj + 1 < kv_end) {
+      const size_t off = (size_t)(kj + 1) * kStream * DH;
+      stage_rows<DH, NT>(sK + (st ^ 1) * TILE, gk + off);
+      stage_rows<DH, NT>(sV + (st ^ 1) * TILE, gv + off);
+    }
+    cp_async_commit();
+    const float* cK = sK + st * TILE;
+    const float* cV = sV + st * TILE;
+
+    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int r = ty + 16 * a, c = tx + 16 * b;
-        const bool masked = causal && kj * kTile + c > q0 + r;
-        const float p = expf((masked ? kNegInf : s[a][b]) - sL[r]);
-        sS[r * kLDP + c] = p * (dp[a][b] - sD[r]);
-      }
-    __syncthreads();
-    // dQ += dS · K: rows ty + 16a, columns tx + 16b of dh
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float da[4];
+      for (int n = 0; n < 4; ++n) s[i][n] = dp[i][n] = 0.f;
+    mma_tb<BQ, DH>(s, sQt, cK, ty, tx);
+    const bool diag = causal && kj * kStream + kStream - 1 > q0;
+    const float4 l0 = ld4(sL + 4 * ty), l1 = ld4(sL + BQ / 2 + 4 * ty);
+    const float lv[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) da[a] = sS[(ty + 16 * a) * kLDP + j];
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + row_of<BQ>(i, ty);
 #pragma unroll
-      for (int b = 0; b < NC; ++b) {
-        const float kb = sK[j * LD + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][b] = fmaf(da[a], kb, acc[a][b]);
+      for (int n = 0; n < 4; ++n) {
+        const bool masked = diag && kj * kStream + tx + 16 * n > row;
+        s[i][n] = exp2f(((masked ? kNegInf : s[i][n]) - lv[i]) * kLog2e);
       }
     }
+    mma_tb<BQ, DH>(dp, sOt, cV, ty, tx);
+    const float4 d0 = ld4(sD + 4 * ty), d1 = ld4(sD + BQ / 2 + 4 * ty);
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float ds[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ds[i] = s[i][n] * (dp[i][n] - dv[i]);
+      put_col<BQ, DH>(sSt, tx + 16 * n, ty, ds);
+    }
+    __syncthreads();  // dS is whole
+    mma_tn<BQ, DH>(acc, sSt, cK, ty, tx);
   }
-  T* out = dq + qoff;
+
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 8; ++i) {
+    const int r = row_of<BQ>(i, ty);
+    if (r >= rows) continue;
+    T* out = dq + qoff + (size_t)r * DH;
 #pragma unroll
-    for (int b = 0; b < NC; ++b)
-      narrow(out + (ty + 16 * a) * DH + tx + 16 * b, acc[a][b] * scale);
+    for (int c = 0; c < NC; ++c)
+      narrow(out + 64 * (c >> 2) + 4 * tx + (c & 3), acc[i][c] * scale);
+  }
 }
 
+// dK and dV of KV head bhkv's key tile kt (BK keys).
 template <int DH, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ lse,
-              const T* __restrict__ dout, const float* __restrict__ D,
-              T* __restrict__ dk, T* __restrict__ dv, int S, int G,
-              float scale, int causal) {
-  constexpr int LD = DH + 1;
-  constexpr int NC = DH / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;
-  float* sO = sQ + kTile * LD;
-  float* sP = sO + kTile * LD;
-  float* sS = sP + kTile * kLDP;
-  float* sL = sS + kTile * kLDP;
-  float* sD = sL + kTile;
+__device__ __forceinline__ void dkv_tile(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ lse,
+    const T* __restrict__ dout, const float* __restrict__ D,
+    T* __restrict__ dk, T* __restrict__ dv, int S, int G, float scale,
+    int causal, int bhkv, int kt) {
+  constexpr int NT = threads_for(DH), BK = rows_for(DH), NC = DH / 16;
+  constexpr int TILE = kStream * row_floats(DH, DH);  // a Q or dO tile
+  constexpr int PT = kStream * row_floats(BK, DH);    // the P or dS tile
+  extern __shared__ __align__(16) float smem[];
+  float* sKt = smem;                    // DH × BK
+  float* sVt = sKt + DH * BK;           // DH × BK
+  float* sQ = sVt + DH * BK;            // 2 tiles of kStream × DH
+  float* sO = sQ + 2 * TILE;            // 2 tiles of kStream × DH
+  float* sP = sO + 2 * TILE;            // kStream × BK
+  float* sS = sP + PT;                  // kStream × BK
+  float* sL = sS + PT;                  // 2 × kStream
+  float* sD = sL + 2 * kStream;         // 2 × kStream
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int nq = S / kTile;
-  const int kj = blockIdx.x;             // the longest walks first
-  const int k0 = kj * kTile;
-  const int bhkv = blockIdx.y;
+  const int k0 = kt * BK;
+  const int keys = min(BK, S - k0);
   const size_t koff = ((size_t)bhkv * S + k0) * DH;
+  const int nq = S / kStream;
+  const int q_first = causal ? k0 / kStream : 0;
+  const int per_head = nq - q_first;
+  const int steps = G * per_head;
 
-  stage<DH>(sK, k + koff, 1.f);
-  stage<DH>(sV, v + koff, 1.f);
-  float gk[4][NC], gv[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) gk[a][b] = gv[a][b] = 0.f;
+  // step t: query head bhkv·G + t / per_head, q tile q_first + t % per_head
+  auto issue = [&](int t, int stage) {
+    const int bh = bhkv * G + t / per_head;
+    const int q0 = (q_first + t % per_head) * kStream;
+    const size_t off = ((size_t)bh * S + q0) * DH;
+    stage_rows<DH, NT>(sQ + stage * TILE, q + off);
+    stage_rows<DH, NT>(sO + stage * TILE, dout + off);
+    stage_vec<NT>(sL + stage * kStream, lse + (size_t)bh * S + q0, 0);
+    stage_vec<NT>(sD + stage * kStream, D + (size_t)bh * S + q0, 1);
+  };
+  issue(0, 0);
+  cp_async_commit();
+  stage_t<BK, DH, NT>(sKt, k + koff, keys, 1.f);
+  stage_t<BK, DH, NT>(sVt, v + koff, keys, 1.f);
 
-  for (int g = 0; g < G; ++g) {
-    const int bh = bhkv * G + g;
-    for (int qi = causal ? kj : 0; qi < nq; ++qi) {
-      const int q0 = qi * kTile;
-      const size_t qoff = ((size_t)bh * S + q0) * DH;
-      __syncthreads();  // the previous tile's Q, dO, P and dS are read
-      stage<DH>(sQ, q + qoff, scale);
-      stage<DH>(sO, dout + qoff, 1.f);
-      if (tid < kTile) {
-        sL[tid] = lse[(size_t)bh * S + q0 + tid];
-        sD[tid] = D[(size_t)bh * S + q0 + tid];
+  float gk[8][NC], gv[8][NC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  for (int t = 0; t < steps; ++t) {
+    const int st = t & 1;
+    cp_async_wait_all();
+    __syncthreads();  // step t is in; step t − 1's stage, P and dS are free
+    if (t + 1 < steps) issue(t + 1, st ^ 1);
+    cp_async_commit();
+    const float* cQ = sQ + st * TILE;
+    const float* cO = sO + st * TILE;
+    const float* cL = sL + st * kStream;
+    const float* cD = sD + st * kStream;
+    const int q0 = (q_first + t % per_head) * kStream;
+
+    // Sᵀ, then dPᵀ (keys on the row side, the q tile's rows tx + 16n on
+    // the other), with dS from this thread's own P read back (no barrier
+    // needed), so S's registers are free during dPᵀ;
+    // P = 2^((s·scale − lse)·log2 e), s·scale − lse rounded once
+    const bool diag = causal && k0 + BK - 1 > q0;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) s[i][n] = dp[i][n] = 0.f;
+    mma_tb<BK, DH>(s, sKt, cQ, ty, tx);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int j = tx + 16 * n;
+      const float lr = cL[j];
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool masked = diag && k0 + row_of<BK>(i, ty) > q0 + j;
+        p[i] = exp2f((masked ? kNegInf : fmaf(s[i][n], scale, -lr)) *
+                     kLog2e);
       }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      scores<DH>(sQ, sO, sK, sV, ty, tx, s, dp);
+      put_col<BK, DH>(sP, j, ty, p);
+    }
+    mma_tb<BK, DH>(dp, sVt, cO, ty, tx);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int n = 0; n < 4; ++n) {
+      const int j = tx + 16 * n;
+      const float dr = cD[j];
+      const float4 p0 = ld4(sP + sw<BK, DH>(j, 4 * ty));
+      const float4 p1 = ld4(sP + sw<BK, DH>(j, BK / 2 + 4 * ty));
+      const float ds[8] = {
+          p0.x * (dp[0][n] - dr), p0.y * (dp[1][n] - dr),
+          p0.z * (dp[2][n] - dr), p0.w * (dp[3][n] - dr),
+          p1.x * (dp[4][n] - dr), p1.y * (dp[5][n] - dr),
+          p1.z * (dp[6][n] - dr), p1.w * (dp[7][n] - dr)};
+      put_col<BK, DH>(sS, j, ty, ds);
+    }
+    __syncthreads();  // P and dS are whole
+    mma_tn<BK, DH>(gv, sP, cO, ty, tx);
+    mma_tn<BK, DH>(gk, sS, cQ, ty, tx);
+  }
+
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int r = ty + 16 * a, c = tx + 16 * b;
-          const bool masked = causal && k0 + c > q0 + r;
-          const float p = expf((masked ? kNegInf : s[a][b]) - sL[r]);
-          sP[r * kLDP + c] = p;
-          sS[r * kLDP + c] = p * (dp[a][b] - sD[r]);
-        }
-      __syncthreads();
-      // dV += Pᵀ dO, dK += dSᵀ qs: key rows ty + 16a, columns tx + 16b
-#pragma unroll 2
-      for (int r = 0; r < kTile; ++r) {
-        float pa[4], da[4];
+  for (int i = 0; i < 8; ++i) {
+    const int r = row_of<BK>(i, ty);
+    if (r >= keys) continue;
+    T* ok = dk + koff + (size_t)r * DH;
+    T* ov = dv + koff + (size_t)r * DH;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pa[a] = sP[r * kLDP + ty + 16 * a];
-          da[a] = sS[r * kLDP + ty + 16 * a];
-        }
-#pragma unroll
-        for (int b = 0; b < NC; ++b) {
-          const float ob = sO[r * LD + tx + 16 * b];
-          const float qb = sQ[r * LD + tx + 16 * b];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            gv[a][b] = fmaf(pa[a], ob, gv[a][b]);
-            gk[a][b] = fmaf(da[a], qb, gk[a][b]);
-          }
-        }
-      }
+    for (int c = 0; c < NC; ++c) {
+      const int col = 64 * (c >> 2) + 4 * tx + (c & 3);
+      narrow(ok + col, gk[i][c] * scale);
+      narrow(ov + col, gv[i][c]);
     }
   }
-  T* ok = dk + koff;
-  T* ov = dv + koff;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) {
-      const int at = (ty + 16 * a) * DH + tx + 16 * b;
-      narrow(ok + at, gk[a][b]);
-      narrow(ov + at, gv[a][b]);
-    }
 }
 
-// Opt `kern` in to `smem` bytes of dynamic shared memory on the current
-// card, once per card (bit `device` of *done; cards past 32 every call).
-template <typename Kernel>
-int opt_in(Kernel kern, size_t smem, unsigned* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 32 && (*done >> dev & 1u)) return 0;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e == cudaSuccess && dev < 32) *done |= 1u << dev;
-  return (int)e;
+// The two roles as one grid: blocks [0, n_dkv) take (KV head, key
+// tile) for dK and dV, key tile 0 (the longest walk) first; the rest take
+// (query head, query tile) for dQ, the last (longest) query tiles first.
+// The scheduler hands out blocks in that order as SMs free up, so dQ's
+// short CTAs fill in behind dK/dV's long ones.
+template <int DH, typename T>
+__global__ void __launch_bounds__(DH == 64 ? 256 : 128, 1)
+flash_bwd_f32(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ lse,
+              const T* __restrict__ dout, const float* __restrict__ D,
+              T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+              int S, int BH, int BHkv, float scale, int causal) {
+  const int tiles = (S + rows_for(DH) - 1) / rows_for(DH);
+  const int n_dkv = BHkv * tiles;
+  const int b = blockIdx.x;
+  if (b < n_dkv)
+    dkv_tile<DH, T>(q, k, v, lse, dout, D, dk, dv, S, BH / BHkv, scale,
+                    causal, b % BHkv, b / BHkv);
+  else
+    dq_tile<DH, T>(q, k, v, lse, dout, D, dq, S, BH / BHkv, scale, causal,
+                   (b - n_dkv) % BH, tiles - 1 - (b - n_dkv) / BH);
 }
 
 template <int DH, typename T>
@@ -340,32 +386,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, float* D, void* dq, void* dk,
            void* dv, int BH, int BHkv, int S, float scale, int causal,
            cudaStream_t stream) {
-  static unsigned done_dq = 0, done_dkv = 0;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
+  static unsigned done = 0;
   const T* tdo = static_cast<const T*>(dout);
-  const int G = BH / BHkv;
   const int rows = BH * S;
-  const int warps = kThreads / 32;
-  flash_bwd_dot<DH, T><<<(rows + warps - 1) / warps, kThreads, 0, stream>>>(
+  flash_bwd_dot<DH, T><<<(rows + 7) / 8, 256, 0, stream>>>(
       static_cast<const T*>(o), tdo, D, rows);
   int e = (int)cudaGetLastError();
   if (e) return e;
-
-  auto kdq = flash_bwd_dq<DH, T>;
-  const size_t smem_dq = dq_floats(DH) * sizeof(float);
-  if ((e = opt_in(kdq, smem_dq, &done_dq))) return e;
-  kdq<<<dim3(S / kTile, BH), kThreads, smem_dq, stream>>>(
-      tq, tk, tv, lse, tdo, D, static_cast<T*>(dq), S, G, scale, causal);
-  if ((e = (int)cudaGetLastError())) return e;
-
-  auto kdkv = flash_bwd_dkv<DH, T>;
-  const size_t smem_dkv = dkv_floats(DH) * sizeof(float);
-  if ((e = opt_in(kdkv, smem_dkv, &done_dkv))) return e;
-  kdkv<<<dim3(S / kTile, BHkv), kThreads, smem_dkv, stream>>>(
-      tq, tk, tv, lse, tdo, D, static_cast<T*>(dk), static_cast<T*>(dv), S,
-      G, scale, causal);
+  auto kern = flash_bwd_f32<DH, T>;
+  const size_t smem = smem_bytes(DH);
+  if ((e = opt_in(kern, smem, &done))) return e;
+  const int tiles = (S + rows_for(DH) - 1) / rows_for(DH);
+  kern<<<(BH + BHkv) * tiles, threads_for(DH), smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lse, tdo, D, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), S, BH, BHkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -373,14 +408,33 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// S must be a multiple of this (the query and key tiles).
-int flash_attn_bwd_tile() { return kTile; }
+// S must be a multiple of this (the streamed tiles; a query or key tile
+// past S is masked).
+int flash_attn_bwd_tile() { return kStream; }
 
-// Dynamic shared memory the larger of the two tiled passes needs at head
-// dimension dh (bytes).
-size_t flash_attn_bwd_smem_bytes(int dh) {
-  const size_t a = dq_floats(dh), b = dkv_floats(dh);
-  return (a > b ? a : b) * sizeof(float);
+// Dynamic shared memory of the tiled kernel at head dimension dh (bytes):
+// the larger of its two roles'.
+size_t flash_attn_bwd_smem_bytes(int dh) { return smem_bytes(dh); }
+
+// The tiled kernel's launch plan at (dh, S, BH, BHkv): out[0..5] =
+// threads, rows of a kept tile (query rows of dQ, keys of dK/dV), dynamic
+// shared memory (bytes), dK/dV CTAs, dQ CTAs (the grid is both, dK/dV
+// first) and resident CTAs a SM on the current card (f32).  Returns a
+// CUDA error code (0 on success).
+int flash_attn_bwd_plan(int dh, int S, int BH, int BHkv, int* out) {
+  if ((dh != 64 && dh != 128) || S <= 0 || S % kStream || BHkv <= 0 ||
+      BH % BHkv)
+    return (int)cudaErrorInvalidValue;
+  static unsigned d64 = 0, d128 = 0;
+  const int R = rows_for(dh), NT = threads_for(dh);
+  const size_t smem = smem_bytes(dh);
+  const int occ =
+      dh == 64 ? occupancy(flash_bwd_f32<64, float>, NT, smem, &d64)
+               : occupancy(flash_bwd_f32<128, float>, NT, smem, &d128);
+  const int tiles = (S + R - 1) / R;
+  const int plan[6] = {NT, R, (int)smem, BHkv * tiles, BH * tiles, occ};
+  for (int i = 0; i < 6; ++i) out[i] = plan[i];
+  return occ < 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
 // Shared memory a CTA may opt in to on `device` (bytes), or -1.
@@ -404,7 +458,7 @@ int flash_attn_bwd(const void* q, const void* k, const void* v,
                    float* D, void* dq, void* dk, void* dv, int BH, int BHkv,
                    int S, int dh, int bf16, int causal, float scale,
                    void* stream) {
-  if (BHkv <= 0 || BH % BHkv != 0 || S % kTile != 0 || BH > 65535)
+  if (BHkv <= 0 || BH % BHkv != 0 || S % kStream != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define FLASH_BWD_ARGS \

@@ -8,6 +8,11 @@ multiple of the kernel's tile, tiles that fit one CTA's shared memory),
 allocate the outputs and scratch, launch on PyTorch's current stream
 without synchronising, raise on a nonzero ``cudaGetLastError()``, and add
 one to ``flash_fwd.launches`` or ``flash_bwd.launches``.
+
+:func:`f32_plan` and :func:`bwd_plan` are the C libraries' launch plans of
+the f32 kernels (``flash_attn_f32_plan``, ``flash_attn_bwd_plan``) in
+Python, for the CPU and the tests; :func:`plan` asks the library on the
+card, with the resident CTAs a SM that only the card knows.
 """
 
 from __future__ import annotations
@@ -39,11 +44,78 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attn_max_smem.restype = _I
         lib.flash_attn_error_string.argtypes = [_I]
         lib.flash_attn_error_string.restype = ctypes.c_char_p
+        lib.flash_attn_f32_plan.argtypes = [_I, _I, _I,
+                                            ctypes.POINTER(_I)]
+        lib.flash_attn_f32_plan.restype = _I
         lib.flash_attn_fwd.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float,
                                                              _P]
         lib.flash_attn_fwd.restype = _I
         _bound["lib"] = lib
     return lib
+
+
+STREAM = 64         # rows of a streamed tile: S must be a multiple
+
+
+def _row(w: int, dh: int) -> int:
+    """Floats a row of a row-major tile ``w`` wide takes (``row_floats``
+    of ``csrc/flash_f32.cuh``: padded by 4 at dh = 64)."""
+    return w + 4 if dh == 64 else w
+
+
+def f32_plan(dh: int, S: int, BH: int) -> tuple:
+    """``flash_attn_f32_plan`` of ``csrc/flash_attn.cu``: (threads, query
+    rows a CTA, dynamic shared memory in bytes, grid.x, grid.y) of the f32
+    forward at head dimension ``dh``: Q transposed (dh × 128), the K ring
+    (2 tiles), the V tile and P (a tile's keys × 128), in f32; a KV tile
+    is 128 keys at dh = 64 and 64 at dh = 128."""
+    rows, kv = 128, (128 if dh == 64 else 64)
+    smem = 4 * (dh * rows + 3 * kv * _row(dh, dh) + kv * _row(rows, dh))
+    return 256, rows, smem, BH, -(-S // rows)
+
+
+def bwd_plan(dh: int, S: int, BH: int, BHkv: int) -> tuple:
+    """``flash_attn_bwd_plan`` of ``csrc/flash_attn_bwd.cu``: the tiled
+    kernel's (threads, rows of a kept tile, dynamic shared memory in
+    bytes, dK/dV CTAs, dQ CTAs).  256 threads and 128 rows at dh = 64, 128
+    and 64 at dh = 128; the shared memory is the larger of the two roles':
+    dQ keeps Q and dO (dh × rows each), the K and V rings, dS, lse and D;
+    dK/dV keeps K and V, the Q and dO rings, P and dS, and the lse and D
+    rings."""
+    threads = 256 if dh == 64 else 128
+    rows = threads // 2
+    tiles = -(-S // rows)
+    ring = 4 * STREAM * _row(dh, dh)
+    dq = 4 * (2 * dh * rows + ring + STREAM * _row(rows, dh) + 2 * rows)
+    dkv = 4 * (2 * dh * rows + ring + 2 * STREAM * _row(rows, dh)
+               + 4 * STREAM)
+    return threads, rows, max(dq, dkv), BHkv * tiles, BH * tiles
+
+
+def waves(ctas: int, resident: int, sms: int = dispatch.H100_SMS) -> float:
+    """Waves of a grid of ``ctas`` CTAs over ``sms`` SMs at ``resident``
+    CTAs a SM."""
+    return ctas / (sms * resident)
+
+
+def plan(dh: int, S: int, BH: int, BHkv: int,
+         device: torch.device) -> dict:
+    """The C libraries' plans on ``device``'s card: {"fwd": (threads,
+    rows, shared memory, grid.x, grid.y, resident CTAs a SM), "bwd":
+    (threads, rows, shared memory, dK/dV CTAs, dQ CTAs, resident CTAs a
+    SM)}."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    with torch.cuda.device(index):
+        f = (ctypes.c_int * 6)()
+        dispatch.raise_on_launch(_lib().flash_attn_f32_plan(dh, S, BH, f),
+                                 _lib().flash_attn_error_string,
+                                 "flash_fwd plan")
+        b = (ctypes.c_int * 6)()
+        dispatch.raise_on_launch(
+            _bwd_lib().flash_attn_bwd_plan(dh, S, BH, BHkv, b),
+            _bwd_lib().flash_attn_bwd_error_string, "flash_bwd plan")
+    return {"fwd": tuple(f), "bwd": tuple(b)}
 
 
 def _check_tensors(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,6 +195,9 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attn_bwd_max_smem.restype = _I
         lib.flash_attn_bwd_error_string.argtypes = [_I]
         lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_attn_bwd_plan.argtypes = [_I, _I, _I, _I,
+                                            ctypes.POINTER(_I)]
+        lib.flash_attn_bwd_plan.restype = _I
         lib.flash_attn_bwd.argtypes = [_P] * 10 + [_I] * 6 + [
             ctypes.c_float, _P]
         lib.flash_attn_bwd.restype = _I

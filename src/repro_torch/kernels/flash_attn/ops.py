@@ -12,8 +12,8 @@ never an S×S tensor, and its backward recomputes P from the forward's
 
 ``cq`` and ``ckv`` are the reference's Pallas tile sizes.  They stay in
 the signatures, and S is held to them as the reference holds it (a
-multiple of ``min(cq, S)`` and ``min(ckv, S)``); the CUDA kernels tile by
-their own 64 rows, which must divide S too.
+multiple of ``min(cq, S)`` and ``min(ckv, S)``); the CUDA kernels take S
+a multiple of 64 (their own larger tiles mask what lies past S).
 """
 
 from __future__ import annotations

@@ -46,6 +46,15 @@ def host_threads(processes: int) -> int:
     return max(1, cores // max(1, int(processes)))
 
 
+def pin_host_threads(processes: int) -> int:
+    """Set this process's intra-op CPU threads to :func:`host_threads` of
+    ``processes`` (the processes that share this host's cores) unless
+    ``OMP_NUM_THREADS`` sets them; returns the count in force."""
+    if "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(host_threads(processes))
+    return torch.get_num_threads()
+
+
 def init_distributed(rank: int, world_size: int, addr: str = "127.0.0.1",
                      port: int = 29500, backend: str = "gloo", *,
                      timeout_s: float = 300.0) -> dist.Store:
@@ -53,9 +62,8 @@ def init_distributed(rank: int, world_size: int, addr: str = "127.0.0.1",
     serves a ``TCPStore`` on ``addr:port``, the others connect to it, and
     the default process group is initialized on that store.  Returns the
     store, which :func:`default_store` hands to the fleet's transport.
-    This process's intra-op CPU threads become :func:`host_threads` of
-    ``world_size`` (the processes share one host) unless
-    ``OMP_NUM_THREADS`` sets them."""
+    This process's intra-op CPU threads are pinned to its share of the
+    host (:func:`pin_host_threads` of ``world_size``)."""
     global _STORE
     rank, world_size = int(rank), int(world_size)
     if not 0 <= rank < world_size:
@@ -63,8 +71,7 @@ def init_distributed(rank: int, world_size: int, addr: str = "127.0.0.1",
     if dist.is_initialized():
         raise RuntimeError("torch.distributed is already initialized in "
                            "this process")
-    if "OMP_NUM_THREADS" not in os.environ:
-        torch.set_num_threads(host_threads(world_size))
+    pin_host_threads(world_size)
     store = dist.TCPStore(addr, int(port), world_size, rank == 0,
                           timeout=datetime.timedelta(seconds=timeout_s))
     dist.init_process_group(backend, store=store, rank=rank,

@@ -27,12 +27,16 @@ import torch
 from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro.sketch import api as RA
 from repro.train import checkpoint as rckpt
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.parallel.topology import FleetTopology, MemTransport
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
 from repro_torch.sketch.query import Cohort
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.tree import leaves
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 TOL = 1e-4
 

@@ -21,6 +21,7 @@ The unfused kernels' bf16 outputs take the reference tests' tolerances
 """
 
 import dataclasses
+import os
 
 
 import numpy as np
@@ -45,10 +46,14 @@ from repro_torch.kernels.rank1_downdate import ref as downdate_ref
 from repro_torch.kernels.window_gram import kernel as wgram_kernel
 from repro_torch.kernels.window_gram import ops as wgram_ops
 from repro_torch.kernels.window_gram import ref as wgram_ref
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.models import api
 from repro_torch.models.params import init_params
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine, \
     SketchFleetEngine
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 pytestmark = pytest.mark.gpu
 
@@ -826,11 +831,111 @@ def test_flash_backward_kernel_refuses_what_it_cannot_take(cuda):
 def test_flash_backward_fits_a_block(cuda):
     """The backward's shared memory (its C formula, the larger of its two
     tiled passes) fits what a block may opt in to at both head dims:
-    165,888 B at dh = 128, as ``csrc/flash_attn_bwd.cu`` states."""
+    203,776 B at dh = 64 and 230,400 B at dh = 128 (the dK/dV pass), as
+    ``csrc/flash_attn_bwd.cu`` states."""
     lib = flash_kernel._bwd_lib()
     have = lib.flash_attn_bwd_max_smem(cuda.index or 0)
     need = {dh: lib.flash_attn_bwd_smem_bytes(dh) for dh in (64, 128)}
-    assert need[128] == 165_888 and need[64] < need[128] <= have
+    assert need == {64: 203_776, 128: 230_400} and need[128] <= have
+
+
+# a few f32 rounding steps at the ×8 backward's gradients (~44: 2⁻²⁴·44
+# ≈ 2.6e-6 a step), for cases where the plain version lies ~0 from f64
+F64_FLOOR = 1e-5
+
+
+def _flash_bwd_f64(q, k, v, o, lse, do, *, causal):
+    """``flash_ref.flash_bwd_ref``'s identities evaluated in f64 on the
+    same (f32) inputs: P = exp(q·kᵀ/√dh − lse), D = rowsum(dO∘o),
+    dS = P∘(dO·vᵀ − D), dq = dS·k/√dh, dk = Σ_group dSᵀ·q/√dh,
+    dv = Σ_group Pᵀ·dO."""
+    BH, S, dh = q.shape
+    G = BH // k.shape[0]
+    qs = q.double() / dh ** 0.5
+    kr, vr = (t.double().repeat_interleave(G, 0) for t in (k, v))
+    s = qs @ kr.mT
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - lse.double()[..., None])
+    dof = do.double()
+    ds = p * (dof @ vr.mT - (dof * o.double()).sum(-1, keepdim=True))
+    dq = ds @ kr / dh ** 0.5
+    dk = (ds.mT @ qs).reshape(-1, G, S, dh).sum(1)
+    dv = (p.mT @ dof).reshape(-1, G, S, dh).sum(1)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("mul", [1.0, 8.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S", [64, 192, 1024])
+def test_flash_f32_kernels_match_plain_versions(cuda, S, dh, G, causal,
+                                                mul):
+    """The f32 forward and the backward in f32 and bf16 against their plain
+    versions, one launch a call: S = 64 (one KV tile, a query tile half
+    past S), 192 (a tail past the 128-row tiles) and 1024 (the training
+    shape's), q scaled by ``mul`` (×8: scores of standard deviation 8, a
+    peaked softmax).  f32 1e-4 and lse 1e-3 (the same arithmetic in
+    another summation order); bf16 2e-2 (each gradient rounded once to
+    bf16).  At ×8 the f32 backward's gradients reach ~44, and two f32
+    summation orders need not agree to 1e-4 there, so both the kernel and
+    the plain version are held to the same identities evaluated in f64 on
+    the same inputs: the kernel's max error at most twice the plain
+    version's plus ``F64_FLOOR`` (both printed).  Two backward calls on the
+    same inputs are bitwise equal at both scales."""
+    g = torch.Generator(device=cuda).manual_seed(S + dh + G + int(mul))
+    q, k, v, do = (torch.randn((h, S, dh), generator=g, device=cuda)
+                   for h in (2 * G, 2, 2, 2 * G))
+    q = mul * q
+    n0 = flash_kernel.flash_fwd.launches
+    o, lse = flash_ops.flash_forward(q, k, v, causal=causal)
+    assert flash_kernel.flash_fwd.launches == n0 + 1
+    o_p, lse_p = flash_ref.flash_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-3, atol=1e-3)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        args = [t.to(dtype) for t in (q, k, v, o, lse, do)]
+        args[4] = lse
+        n0 = flash_kernel.flash_bwd.launches
+        got = flash_ops.flash_backward(*args, causal=causal)
+        assert flash_kernel.flash_bwd.launches == n0 + 1
+        want = flash_ref.flash_bwd_ref(*args, causal=causal)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and a.shape == b.shape
+            assert bool(torch.isfinite(a).all())
+            if dtype == torch.bfloat16 or mul == 1.0:
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+        if dtype == torch.float32 and mul != 1.0:
+            exact = _flash_bwd_f64(*args, causal=causal)
+            for name, a, b, x in zip("qkv", got, want, exact):
+                e_k = float((a.double() - x).abs().max())
+                e_p = float((b.double() - x).abs().max())
+                print(f"flash_bwd f32 ×{mul:g} S={S} dh={dh} G={G} "
+                      f"causal={causal} d{name}: max |kernel − f64| "
+                      f"{e_k:.3e}, max |plain − f64| {e_p:.3e}")
+                assert e_k <= 2 * e_p + F64_FLOOR, (name, e_k, e_p)
+        again = flash_ops.flash_backward(*args, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dh,S,BH,BHkv", [
+    (64, 1024, 72, 24),     # smollm-135m's training shape
+    (128, 512, 32, 8),      # llama3-8b's f32 prefill
+    (64, 192, 6, 2), (128, 192, 6, 2), (64, 64, 3, 3), (128, 1024, 16, 4),
+])
+def test_flash_f32_plans_match_the_c_library(cuda, dh, S, BH, BHkv):
+    """The f32 kernels' launch plans from the C libraries equal their
+    Python mirrors (threads, rows, shared memory, grid), fit what a block
+    may opt in to, and leave at least one CTA resident a SM."""
+    got = flash_kernel.plan(dh, S, BH, BHkv, cuda)
+    have = flash_kernel._lib().flash_attn_max_smem(cuda.index or 0)
+    for name, mirror in (("fwd", flash_kernel.f32_plan(dh, S, BH)),
+                         ("bwd", flash_kernel.bwd_plan(dh, S, BH, BHkv))):
+        assert got[name][:5] == mirror, (name, got[name], mirror)
+        assert mirror[2] <= have and got[name][5] >= 1, (name, got[name])
 
 
 def test_two_layer_train_step_on_the_card_matches_the_cpu(cuda):

@@ -17,6 +17,8 @@ per operation; over a few hundred rows of shrinks the Grams (entries up
 to ~N = 64) agree to ~1e-5 absolute, so 1e-4 absolute is used.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -33,6 +35,10 @@ from repro_torch.core import dsfd as P
 from repro_torch.core import fd as PF
 from repro_torch.core.errors import cova_error_gram, window_gram_np
 from repro_torch.data.streams import SyntheticSource, get_stream, synthetic
+from repro_torch.launch.mesh import pin_host_threads
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 D_, N_, EPS = 16, 64, 1 / 4
 TOL = 1e-4

@@ -12,16 +12,22 @@ engine is held to Theorem 3.1 instead.  Inside the port, sync and async
 ingest and ``submit_many`` vs ``submit`` must give identical states.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro_torch.core.errors import window_gram_np
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
     SlabTransfer, make_pipeline
 from repro_torch.tree import leaves
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 S, D, N_WIN, BLOCK, EPS = 5, 16, 64, 4, 1 / 4
 TOL = 1e-4   # float32 Grams with entries up to ~N: see test_torch_dsfd.py

@@ -8,6 +8,8 @@ and differ in summation order, so the metrics agree to ~1e-6 relative:
 1e-5 relative is used; the numpy helpers agree exactly.
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -15,6 +17,10 @@ import torch
 
 from repro.core import errors as R
 from repro_torch.core import errors as P
+from repro_torch.launch.mesh import pin_host_threads
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 
 def _sketch_pair(n, d, ell, seed):

@@ -29,6 +29,7 @@ f32 p, where a single bf16 rounding of p would not.
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,10 @@ from repro.kernels.flash_attn.ops import \
     flash_attention_bshd as ref_flash_bshd
 from repro.kernels.flash_attn.ref import flash_ref as jax_flash_ref
 from repro_torch.kernels.flash_attn import kernel, ops, ref
+from repro_torch.launch.mesh import pin_host_threads
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 CASES = [   # (BH, BHkv, S, dh, causal, dtype): the reference test's cases
     (4, 2, 256, 64, True, "float32"),
@@ -203,6 +208,35 @@ def test_argument_checks():
         kernel.flash_fwd(q, k, v)            # checked before any build
     with pytest.raises(ValueError, match="flash_bwd: q must be"):
         kernel.flash_bwd(q, k, v, q, q[:, :, 0], q)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_f32_launch_plans_fit_a_block_and_cover_s(dh):
+    """The Python mirrors of the f32 kernels' launch plans
+    (``flash_attn_f32_plan``, ``flash_attn_bwd_plan``; the card test holds
+    them to the C libraries): shared memory as the sources' notes state,
+    within an H100 block's opt-in; tiles that cover every query row and
+    key at each S that is a multiple of 64, the last at most one tile past
+    S; at the training shape 576 forward CTAs (4.4 waves at one CTA a SM)
+    and 192 dK/dV + 576 dQ CTAs in the backward's one grid (5.8 waves)."""
+    from repro_torch.kernels import dispatch
+    fwd_smem, bwd_smem = {64: (204_800, 203_776), 128: (196_608, 230_400)}[dh]
+    for S in range(64, 2049, 64):
+        fwd = kernel.f32_plan(dh, S, 6)
+        bwd = kernel.bwd_plan(dh, S, 6, 2)
+        assert (fwd[2], bwd[2]) == (fwd_smem, bwd_smem)
+        assert max(fwd_smem, bwd_smem) <= dispatch.H100_SMEM_PER_BLOCK
+        assert fwd[:2] == (256, 128) and fwd[3] == 6
+        assert bwd[:2] == ((256, 128) if dh == 64 else (128, 64))
+        assert fwd[4] * fwd[1] >= S > (fwd[4] - 1) * fwd[1]
+        tiles = bwd[3] // 2
+        assert bwd[4] == 6 * tiles and tiles * bwd[1] >= S > \
+            (tiles - 1) * bwd[1]
+    fwd = kernel.f32_plan(64, 1024, 72)
+    bwd = kernel.bwd_plan(64, 1024, 72, 24)
+    assert fwd[3:] == (72, 8) and bwd[3:] == (192, 576)
+    assert round(kernel.waves(fwd[3] * fwd[4], 1), 2) == 4.36
+    assert round(kernel.waves(bwd[3] + bwd[4], 1), 2) == 5.82
 
 
 KV_TILE = 128       # keys per KV tile of the bf16 kernel

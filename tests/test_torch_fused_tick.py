@@ -15,6 +15,8 @@ to rtol 1e-5 and vectors to atol 1e-5 (the reference's own interpret-vs-
 ref tests use 2e-4).
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -27,6 +29,10 @@ from repro.kernels.fused_tick.ref import fused_krylov_step_ref as jax_step
 from repro.kernels.fused_tick.ref import gram_power_ref as jax_gp
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.fused_tick import kernel, ops
+from repro_torch.launch.mesh import pin_host_threads
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 RTOL, ATOL = 1e-5, 1e-5
 SHAPES = [(3, 8, 32), (2, 1, 1), (3, 7, 130), (2, 13, 37)]   # (S, m, d)

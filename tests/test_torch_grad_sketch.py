@@ -25,6 +25,7 @@ Tolerances, with their reasons:
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,8 +41,12 @@ from repro.sketch import compress as ref_compress
 from repro.sketch import monitor as ref_monitor
 from repro_torch import convert
 from repro_torch.core.dsfd import dsfd_query_rows
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.sketch import compress, monitor
 from repro_torch.sketch.api import fleet_streams
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 GRAM_TOL = 1e-4
 

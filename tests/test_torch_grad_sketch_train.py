@@ -3,6 +3,8 @@ against the reference's, on the CPU at small width.  Helpers and tolerances are 
 docstring gives their reasons).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +22,14 @@ from repro.train import train_step as ref_ts
 from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.sketch import compress, monitor
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import train_step as ts
 from test_torch_grad_sketch import _ccfg, _jnp
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 # -- the train step with the monitor and compression ----------------------------
 

@@ -21,6 +21,7 @@ import torch
 from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro.sketch import history as RH
 from repro_torch.core.fd import fd_compress
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.parallel.topology import FleetTopology, MemTransport
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
@@ -28,6 +29,9 @@ from repro_torch.sketch.history import HistoryPlane, dyadic_cover, \
     install_query_interval, interval_merge_budget
 from repro_torch.sketch.query import Cohort, as_cohort, canonical_cover
 from repro_torch.train.checkpoint import HISTORY_MARKER
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 S, D, ELL, W, BLOCK, N = 8, 12, 4, 16, 4, 48
 EPS = 0.25                       # -> ell = 4 for dsfd

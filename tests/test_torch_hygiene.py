@@ -2,6 +2,7 @@
 of the reference package ``repro``, and its entry points run on the card
 unless the caller names the CPU."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -18,6 +19,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.models import api, transformer
 from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
@@ -33,6 +35,9 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.loop import train
 from repro_torch.train.optimizer import adamw
 from repro_torch.train.train_step import TrainStepConfig, init_sketch_state
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 

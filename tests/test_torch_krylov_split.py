@@ -16,6 +16,8 @@ per-tick parity with the reference uses the tolerances of
 N = 64).
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,11 @@ from repro_torch import convert
 from repro_torch.core import dsfd as P
 from repro_torch.data.streams import SyntheticSource
 from repro_torch.kernels.fused_tick import ops, ref
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.serve.engine import SketchFleetEngine
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 TOL = 1e-4
 

@@ -13,6 +13,8 @@ unit row is a tie float rounding breaks either way
 [1, R] and never exactly a power of two.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -24,7 +26,11 @@ from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro_torch import convert
 from repro_torch.core import dsfd as PD
 from repro_torch.core import seq_dsfd as P
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.serve.engine import SketchFleetEngine
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 TOL = 1e-4
 BETA = 4.0

@@ -13,6 +13,7 @@ reference tests' (``tests/sketch/test_query.py``).
 """
 
 import math
+import os
 import warnings
 
 import numpy as np
@@ -24,10 +25,14 @@ import torch
 from repro.sketch import api as RA
 from repro.sketch import query as RQ
 from repro_torch import convert
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.sketch import api as PA
 from repro_torch.sketch import query as PQ
 from repro_torch.sketch.capability import capabilities
 from repro_torch.tree import leaves, take, tree_map
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 TOL = 1e-4
 

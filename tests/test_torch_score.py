@@ -13,6 +13,8 @@ the reference on the CPU at small size.
   sketches' Grams to float32 tolerance.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,11 +29,15 @@ from repro.sketch import capability as RC
 from repro.sketch import score as RS
 from repro_torch import convert
 from repro_torch.core import dsfd as PD
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
 from repro_torch.sketch import basis as PB
 from repro_torch.sketch import capability as PC
 from repro_torch.sketch import score as PS
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 RTOL = 1e-4
 D = 16

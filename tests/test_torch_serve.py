@@ -20,6 +20,7 @@ different numbers.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -41,11 +42,15 @@ from repro.serve.engine import ServeEngine as RefEngine
 from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.flash_attn import kernel as flash_kernel
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.models import api
 from repro_torch.models.params import count_params, init_params
 from repro_torch.models.layers import attention, common, mlp
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serve.serve_step import build_decode_step
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 ARCHS = ["llama3-8b", "qwen1.5-0.5b"]
 LAYER_TOL, MODEL_TOL = 1e-5, 1e-4

@@ -4,6 +4,8 @@ tolerances are ``test_torch_grad_sketch.py``'s (its docstring gives their
 reasons).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +21,14 @@ from repro.train import train_step as ref_ts
 from repro_torch import convert
 from repro_torch.configs.base import get_config
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.sketch import sketchy
 from repro_torch.train import train_step as ts
 from repro_torch.train.loop import LoopConfig, train
 from test_torch_grad_sketch import _flat, _jnp, _np
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 SKETCHY = dict(lr=2e-2, rank=4, eps=0.5, window=16, summary_rows=2,
                warmup=4)             # test_sketchy_optimizer_trains' settings

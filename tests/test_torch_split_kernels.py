@@ -15,6 +15,8 @@ the window Gram from bf16 inputs rtol 5e-2, atol 5e-1.  Batched against
 per-stream inside the port: 1e-5 (CPU BLAS blocking, a few ulp).
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -39,6 +41,10 @@ from repro_torch.kernels.rank1_downdate import kernel as downdate_kernel
 from repro_torch.kernels.rank1_downdate.ops import rank1_downdate
 from repro_torch.kernels.window_gram import kernel as wgram_kernel
 from repro_torch.kernels.window_gram.ops import window_gram
+from repro_torch.launch.mesh import pin_host_threads
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 SHAPES_MD = [(8, 64), (16, 128), (20, 77)]      # (m, d), the reference's
 DTYPES = ["float32", "bfloat16"]

@@ -32,10 +32,14 @@ from repro.sketch import api as RA
 from repro.sketch import query as RQ
 from repro_torch import convert
 from repro_torch.launch import mesh
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.parallel import topology as PT
 from repro_torch.sketch import api as PA
 from repro_torch.sketch import query as PQ
 from repro_torch.tree import leaves, take
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 TOL = 1e-4
 

@@ -13,6 +13,8 @@ reference topology fleet and engine write shards (each process in turn,
 and under P = 3, and the other way round, leaves bitwise.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -22,11 +24,15 @@ import torch
 from repro.parallel import topology as RT
 from repro.serve.engine import SketchFleetEngine as RefEngine
 from repro.sketch import api as RA
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.parallel import topology as PT
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
 from repro_torch.sketch import query as PQ
 from repro_torch.tree import leaves, take
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 S, D, N, BLOCK = 8, 5, 12, 4
 

@@ -12,6 +12,7 @@ checkpoints its shard and restores under the saving partition only, as
 the reference refuses elastic resharding of retired history.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -19,9 +20,13 @@ import pytest
 import torch
 
 from repro.sketch.history import HistoryPlane as RefPlane
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.parallel.topology import FleetTopology, MemTransport
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch.history import HistoryPlane
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 S, D, ELL, W, BLOCK, N = 8, 12, 4, 16, 4, 48
 TOL = 1e-4

@@ -32,10 +32,14 @@ import jax.numpy as jnp
 
 from repro.sketch import api as RA
 from repro.sketch import query as RQ
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.serve.engine import SketchFleetEngine
 from repro_torch.sketch import api as PA
 from repro_torch.sketch import query as PQ
 from repro_torch.tree import leaves
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 S, D, N_ROWS, WINDOW, BLOCK = 8, 5, 20, 12, 4
 TOL = 1e-4

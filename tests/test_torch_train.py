@@ -23,6 +23,7 @@ the fusion of elementwise chains differ, ~1e-7 relative a product):
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -41,10 +42,14 @@ from repro.train import train_step as ref_ts
 from repro_torch import convert
 from repro_torch.configs.base import ShapeSpec, get_config
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.models import api
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import train_step as ts
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 LOGIT_TOL = 1e-4
 STEP_TOL = 2e-4

@@ -7,6 +7,7 @@ gives their reasons).
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,12 +22,16 @@ from repro_torch.configs.base import get_config
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.kernels.flash_attn import kernel as flash_kernel
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import pin_host_threads
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import train_step as ts
 from repro_torch.train.loop import LoopConfig, StragglerWatchdog, train
 from test_torch_train import STEP_TOL, _assert_trees, _batch, _configs, \
     _in_mesh, _mesh, _params
+
+# torch's intra-op pool at this pytest worker's share of the cores
+pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 # -- the train step over 20 steps ---------------------------------------------
 
