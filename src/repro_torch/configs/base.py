@@ -1,10 +1,10 @@
 """Model configurations: one frozen dataclass per architecture.
 
 Counterpart of ``repro/configs/base.py``, with the same fields, defaults and
-``reduced()``.  The port registers the four dense configurations; the
-other families of the reference (MoE, VLM, SSM, hybrid, encoder-decoder)
-are known by name and raise ``NotImplementedError`` until their slice
-lands (ROADMAP item 15).
+``reduced()``.  The port registers the four dense configurations and the
+two MoE ones (grok-1, kimi-k2); the other families of the reference (VLM,
+SSM, hybrid, encoder-decoder) are known by name and raise
+``NotImplementedError`` until their slice lands (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -117,7 +117,6 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 
 # configurations of the reference whose family the port does not run yet
 NOT_PORTED = {
-    "kimi-k2-1t-a32b": "moe", "grok-1-314b": "moe",
     "qwen2-vl-2b": "vlm", "mamba2-2.7b": "ssm",
     "recurrentgemma-9b": "hybrid", "whisper-large-v3": "encdec",
 }
@@ -126,7 +125,8 @@ NOT_PORTED = {
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet: the port runs the dense "
-        "family only (ROADMAP.md, item 15 of the modules still to port)")
+        "and MoE families only (ROADMAP.md, item 15 of the modules still to "
+        "port)")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -144,4 +144,5 @@ def get_config(name: str) -> ModelConfig:
 
 def load_all() -> None:
     from repro_torch.configs import (smollm_135m, qwen1_5_0_5b,  # noqa
-                                     minitron_4b, llama3_8b)
+                                     minitron_4b, llama3_8b, grok_1_314b,
+                                     kimi_k2_1t_a32b)

@@ -238,8 +238,10 @@ def model_params_from_reference(params_np: Any, cfg: ModelConfig,
                                 device="cuda") -> dict:
     """The port's parameters for ``cfg`` from the reference's parameter
     tree with numpy leaves (``jax.tree.map(np.asarray, init_params(...))``):
-    the same keys (``embed``, ``final_norm``, ``lm_head``, ``layers/...``),
-    shapes and types.  Raises on a missing, extra or misshapen leaf."""
+    the same keys (``embed``, ``final_norm``, ``lm_head``, ``layers/...``,
+    the MoE family's router and expert stacks ``wr``, ``wg``, ``wu``,
+    ``wd`` among them), shapes and types.  Raises on a missing, extra or
+    misshapen leaf."""
     dev = resolve_device(device)
 
     def conv(defs, tree, path):

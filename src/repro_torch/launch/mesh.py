@@ -17,8 +17,8 @@ every core, would oversubscribe the host once for every process.  Nothing
 here runs at import.
 
 The logical-axis rules of ``repro/parallel/sharding.py`` shard model
-parameters; they come with the model zoo's training path (ROADMAP 15.1
-and 15.2).
+parameters over a mesh; they come with the port's mesh tooling (ROADMAP
+item 15.7), together with expert parallelism over processes.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Unified model API: family dispatch.
 
-Counterpart of ``repro/models/api.py``.  The port runs the dense family;
-every other family of the reference raises ``NotImplementedError`` until
-its slice lands (ROADMAP item 15).
+Counterpart of ``repro/models/api.py``.  The port runs the dense and MoE
+families through ``models/transformer.py``; every other family of the
+reference raises ``NotImplementedError`` until its slice lands (ROADMAP
+item 15).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from repro_torch.configs.base import ModelConfig, not_ported
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer}
 
 
 def model_module(cfg: ModelConfig):

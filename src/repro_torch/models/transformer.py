@@ -1,12 +1,14 @@
-"""Decoder-only dense transformer: smollm-135m / qwen1.5-0.5b / minitron-4b
-/ llama3-8b (GQA), training forward, prefill and decode.
+"""Decoder-only transformer: smollm-135m / qwen1.5-0.5b / minitron-4b /
+llama3-8b (dense GQA) and grok-1 / kimi-k2 (MoE), training forward,
+prefill and decode.
 
-Counterpart of ``repro/models/transformer.py`` for the dense family.
-Pre-norm RMSNorm blocks, RoPE, SwiGLU, KV-cache prefill and decode.  The
+Counterpart of ``repro/models/transformer.py`` for the dense and MoE
+families.  Pre-norm RMSNorm blocks, RoPE, SwiGLU or the MoE block
+(``models/layers/moe.py``, one device), KV-cache prefill and decode.  The
 reference's ``lax.scan`` over the stacked ``(L, ...)`` layer weights is a
 Python loop over the layer axis; the weights keep the stacked layout, and
 its ``jax.checkpoint`` policies become ``torch.utils.checkpoint`` per
-layer.  MoE and M-RoPE come in later slices (ROADMAP item 15).
+layer.  M-RoPE comes in a later slice (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -25,19 +27,18 @@ from repro_torch.models.layers.attention import (KVCache, attention_any,
 from repro_torch.models.layers.common import (apply_rope, embed, logits,
                                               matmul, rms_norm)
 from repro_torch.models.layers.mlp import swiglu
+from repro_torch.models.layers.moe import moe_block, virtual_expert_shapes
 from repro_torch.models.params import ParamDef
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    """Refuse what a dense-family config could name but the port lacks."""
-    if cfg.moe:
-        raise not_ported(f"the MoE block of {cfg.name}")
+def _check_ported(cfg: ModelConfig) -> None:
+    """Refuse what a config of this family could name but the port lacks."""
     if cfg.mrope_sections is not None:
         raise not_ported(f"M-RoPE of {cfg.name}")
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
-    _dense_only(cfg)
+    _check_ported(cfg)
     L, D, dh = cfg.n_layers, cfg.d_model, cfg.dh
     H, KV, F, V = cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab
     layers: Dict = {
@@ -47,10 +48,18 @@ def param_defs(cfg: ModelConfig) -> Dict:
         "wv": ParamDef((L, D, KV * dh)),
         "wo": ParamDef((L, H * dh, D)),
         "mlp_norm": ParamDef((L, D), "zeros"),
-        "wg": ParamDef((L, D, F)),
-        "wu": ParamDef((L, D, F)),
-        "wd": ParamDef((L, F, D)),
     }
+    if cfg.moe:
+        # one device: model-axis size 1, so no virtual split
+        E_v, Fv = virtual_expert_shapes(cfg.moe, D, 1)
+        layers["wr"] = ParamDef((L, D, cfg.moe.n_experts))
+        layers["wg"] = ParamDef((L, E_v, D, Fv))
+        layers["wu"] = ParamDef((L, E_v, D, Fv))
+        layers["wd"] = ParamDef((L, E_v, Fv, D))
+    else:
+        layers["wg"] = ParamDef((L, D, F))
+        layers["wu"] = ParamDef((L, D, F))
+        layers["wd"] = ParamDef((L, F, D))
     if cfg.qkv_bias:
         layers["bq"] = ParamDef((L, H * dh), "zeros")
         layers["bk"] = ParamDef((L, KV * dh), "zeros")
@@ -94,13 +103,24 @@ def _qkv(cfg: ModelConfig, lp, h, positions):
     return q, k, v
 
 
+def _mlp(cfg: ModelConfig, lp, h):
+    """The feed-forward block and its balance loss (0 for SwiGLU)."""
+    if cfg.moe:
+        return moe_block(h, lp["wr"], lp["wg"], lp["wu"], lp["wd"],
+                         moe=cfg.moe)
+    return (swiglu(h, lp["wg"], lp["wu"], lp["wd"]),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _attn_out_and_mlp(cfg: ModelConfig, lp, x, attn):
     """The rest of a pre-norm block once attention is done: the output
-    projection and residual, then the MLP and its residual."""
+    projection and residual, then the MLP and its residual.  Returns the
+    block's output and the MLP's balance loss."""
     B, S, _ = x.shape
     x = x + matmul(attn.reshape(B, S, cfg.n_heads * cfg.dh), lp["wo"])
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+    y, aux = _mlp(cfg, lp, h2)
+    return x + y, aux
 
 
 def _layer_train(cfg: ModelConfig, x, lp, positions):
@@ -144,10 +164,9 @@ def _remat(cfg: ModelConfig, body):
 
 def forward_train(cfg: ModelConfig, params, batch
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, V) f32, aux).  aux, the MoE balance
-    loss averaged over layers in the reference, is 0 for the dense
-    family."""
-    _dense_only(cfg)
+    """tokens (B, S) → (logits (B, S, V) f32, aux): aux is the MoE
+    balance loss averaged over the layers, 0 for the dense family."""
+    _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
@@ -156,10 +175,11 @@ def forward_train(cfg: ModelConfig, params, batch
                                  device=tokens.device).expand(B, S)
     x = embed(tokens, params["embed"]).to(_act(cfg))
     layer = _remat(cfg, functools.partial(_layer_train, cfg))
-    for i in range(cfg.n_layers):
-        x = layer(x, _layer(params, i), positions)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return _final_logits(cfg, params, x), aux
+    for i in range(cfg.n_layers):
+        x, a = layer(x, _layer(params, i), positions)
+        aux = aux + a
+    return _final_logits(cfg, params, x), aux / cfg.n_layers
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +225,7 @@ def forward_prefill(cfg: ModelConfig, params, batch):
                              chunk_q=cfg.attn_chunk_q,
                              chunk_kv=cfg.attn_chunk_kv,
                              use_flash=cfg.use_flash)
-        x = _attn_out_and_mlp(cfg, lp, x, attn)
+        x, _ = _attn_out_and_mlp(cfg, lp, x, attn)
         ks.append(k.to(act))
         vs.append(v.to(act))
     caches = KVCache(k=torch.stack(ks), v=torch.stack(vs),
@@ -227,7 +247,7 @@ def forward_decode(cfg: ModelConfig, params, tokens, caches: KVCache):
         q, k, v = _qkv(cfg, lp, h, pos)
         cache = kv_cache_append(
             KVCache(caches.k[i], caches.v[i], caches.length[i]), k, v)
-        x = _attn_out_and_mlp(cfg, lp, x, decode_attention(q, cache))
+        x, _ = _attn_out_and_mlp(cfg, lp, x, decode_attention(q, cache))
         new.append(cache)
     caches = KVCache(*(torch.stack(ts) for ts in zip(*new)))
     return _final_logits(cfg, params, x), caches

@@ -20,7 +20,16 @@ fields are capabilities (``sketch/capability.py``): every variant scores
 rows (``score``), adaptive-rank FD reports its ranks (``ranks``), fleets
 answer cohorts (``query_cohort``), and a fleet with a history plane
 answers intervals of retired window content (``query_interval``,
-``sketch/history.py``).  The host baselines are not ported yet.
+``sketch/history.py``).
+
+The paper's baselines (``"lmfd"``, ``"difd"``, ``"swr"``, ``"swor"``) are
+the port's numpy copies in ``core/baselines/`` behind the reference's
+host adapter: their state is the mutable numpy object of one stream on
+the host (``update`` takes one (d,) row and returns the object), their
+``score`` is ``sketch/score.py::make_host_score``, and they have no fleet.
+``meta["backend"]`` tells the two kinds apart: ``"torch"`` for the
+port's own variants, ``"host"`` for the baselines (the reference's own
+variants carry ``"jax"``).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.mesh import local_device, process_runtime
 from repro_torch.sketch import capability
 from repro_torch.sketch.basis import residual_scores
+from repro_torch.sketch.score import make_host_score
 from repro_torch.sketch.query import ALL, AggTree, Cohort  # noqa: F401
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.tree import tree_map
@@ -61,7 +71,8 @@ class SlidingSketch(NamedTuple):
     (S, 2ℓ, d) compressed sketches, ``space(s)`` the (S,) live-row counts
     and ``merge(s1, s2, t)`` the stream-wise merge.  ``meta`` holds ``d``,
     ``eps``, ``window``, ``ell``, ``device`` and ``spec`` (the constructor
-    arguments).
+    arguments) and ``backend`` (``"torch"``, or ``"host"`` for a numpy
+    baseline, whose state is one stream's object on the host).
 
     Capabilities: ``query_cohort(s, cohort, t)`` (fleets), ``score(s, X,
     t=None)`` — the (S, n) residual anomaly scores of the rows of ``X``
@@ -146,10 +157,14 @@ def make_sketch(name: str, *, d: int, eps: float = 1 / 8,
     sk = _REGISTRY[name](int(d), float(eps), int(window), device=dev,
                          **hyper)
     if sk.score is None:
-        # every variant scores: the residual against its own query rows
+        # every variant scores: the residual against its own query rows,
+        # the host baselines through the numpy SVD adapter
         qr = sk.query_rows
-        sk = sk._replace(score=lambda state, X, t=None: residual_scores(
-            qr(state, t), X))
+        if sk.meta["backend"] == "host":
+            sk = sk._replace(score=make_host_score(qr))
+        else:
+            sk = sk._replace(score=lambda state, X, t=None: residual_scores(
+                qr(state, t), X))
     sk = capability.install_missing(sk)
     sk.meta["spec"] = {"name": name, "d": int(d), "eps": float(eps),
                        "window": int(window), "hyper": dict(hyper)}
@@ -186,7 +201,7 @@ def _make_fd(d: int, eps: float, window: int, *, device,
     ``ell_min``); ``ranks(state)`` reports it."""
     ell = int(min(max(round(1.0 / eps), 1), d))
     meta = {"d": d, "eps": eps, "window": window, "ell": ell,
-            "device": device}
+            "device": device, "backend": "torch"}
     ranks = None
     if adapt_target is None:
         def update(state, rows, t):
@@ -260,7 +275,7 @@ def _make_dsfd(d: int, eps: float, window: int, *, device, mode: str = "fast",
     return SlidingSketch(
         name="dsfd",
         meta={"d": d, "eps": eps, "window": window, "ell": cfg.ell,
-              "device": device, "cfg": cfg},
+              "device": device, "backend": "torch", "cfg": cfg},
         init=lambda t0=1, streams=1: dsfd_init(cfg, t0, streams,
                                                device=device),
         update=lambda state, rows, t: dsfd_update(cfg, state, rows, t),
@@ -287,7 +302,7 @@ def _make_layered(name: str, cfg, d: int, eps: float, window: int,
     return SlidingSketch(
         name=name,
         meta={"d": d, "eps": eps, "window": window, "ell": cfg.base.ell,
-              "device": device, "cfg": cfg},
+              "device": device, "backend": "torch", "cfg": cfg},
         init=lambda t0=1, streams=1: layered_init(cfg, t0, streams,
                                                   device=device),
         update=lambda state, rows, t: layered_update(cfg, state, rows, t),
@@ -319,6 +334,127 @@ def _make_time_dsfd(d: int, eps: float, window: int, *, device,
     return _make_layered("time-dsfd", cfg, d, eps, window, device)
 
 
+# ---------------------------------------------------------------------------
+# Host-side (numpy) baselines behind the same protocol
+# ---------------------------------------------------------------------------
+
+
+def _host_sketch(name: str, ctor: Callable[[], Any],
+                 meta: Dict[str, Any]) -> SlidingSketch:
+    """The reference's adapter: a numpy ``.update()/.query()/
+    .n_rows_stored`` class behind the protocol.  The state *is* the
+    mutable object of one stream; ``update`` returns it so call sites read
+    as they do for the other variants."""
+
+    def init(t0=1):
+        del t0
+        return ctor()
+
+    def update(state, row, t):
+        state.update(np.asarray(row), int(t))
+        return state
+
+    def update_block(state, rows, ts):
+        rows = np.asarray(rows)
+        ts = np.asarray(ts)
+        for i in range(rows.shape[0]):
+            state.update(rows[i], int(ts[i]))
+        return state
+
+    def query_rows(state, t=None):
+        del t                       # host baselines track time internally
+        return state.query()
+
+    def space(state):
+        return state.n_rows_stored
+
+    def merge(s1, s2, t=None):
+        """Native baseline combine (DI-FD / SWR / SWOR); LM-FD raises a
+        documented ``NotImplementedError``.  Mutates and returns ``s1``."""
+        del t                       # host baselines track time internally
+        return s1.combine(s2)
+
+    return SlidingSketch(
+        name=name,
+        meta=dict(meta, backend="host"),
+        init=init,
+        update=update,
+        update_block=update_block,
+        query_rows=query_rows,
+        query=query_rows,           # baseline queries are already compressed
+        space=space,
+        merge=merge,
+    )
+
+
+def _fd_ell(eps: float, d: int) -> int:
+    return int(max(1, min(round(1.0 / eps), d)))
+
+
+@register("lmfd")
+def _make_lmfd(d: int, eps: float, window: int, *, device,
+               blocks_per_level: Optional[int] = None, **_) -> SlidingSketch:
+    """LM-FD — FD in the Exponential Histogram framework (§2.2)."""
+    from repro_torch.core.baselines import LMFD
+
+    return _host_sketch(
+        "lmfd",
+        lambda: LMFD(d, eps, window, blocks_per_level=blocks_per_level),
+        {"d": d, "eps": eps, "window": window, "ell": _fd_ell(eps, d),
+         "device": device})
+
+
+@register("difd")
+def _make_difd(d: int, eps: float, window: int, *, device, R: float = 1.0,
+               **_) -> SlidingSketch:
+    """DI-FD — FD over dyadic intervals (§2.2); sequence-based only."""
+    from repro_torch.core.baselines import DIFD
+
+    return _host_sketch(
+        "difd", lambda: DIFD(d, eps, window, R=R),
+        {"d": d, "eps": eps, "window": window, "ell": _fd_ell(eps, d),
+         "device": device})
+
+
+def _sampler_ell(eps: float, ell: Optional[int]) -> int:
+    return int(ell if ell is not None else min(max(4.0 / eps ** 2, 8), 4096))
+
+
+@register("swr")
+def _make_swr(d: int, eps: float, window: int, *, device,
+              ell: Optional[int] = None, seed: int = 0,
+              **_) -> SlidingSketch:
+    """SWR — sliding-window row sampling with replacement (§7 baselines)."""
+    from repro_torch.core.baselines import SWR
+
+    k = _sampler_ell(eps, ell)
+    return _host_sketch(
+        "swr", lambda: SWR(d, ell=k, window=window, seed=seed),
+        {"d": d, "eps": eps, "window": window, "ell": k, "device": device})
+
+
+@register("swor")
+def _make_swor(d: int, eps: float, window: int, *, device,
+               ell: Optional[int] = None, seed: int = 0,
+               **_) -> SlidingSketch:
+    """SWOR — sampling without replacement (Efraimidis–Spirakis keys)."""
+    from repro_torch.core.baselines import SWOR
+
+    k = _sampler_ell(eps, ell)
+    return _host_sketch(
+        "swor", lambda: SWOR(d, ell=k, window=window, seed=seed),
+        {"d": d, "eps": eps, "window": window, "ell": k, "device": device})
+
+
+def _torch_backed(sk: SlidingSketch, what: str) -> None:
+    """Refuse a host baseline where a fleet of tensors is needed, with the
+    reference's message."""
+    if sk.meta.get("backend") != "torch":
+        raise ValueError(
+            f"{what} requires a torch-backed sketch, got {sk.name!r} "
+            f"(backend={sk.meta.get('backend')!r})")
+
+
 def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
     """Lift a sketch to a fleet of ``streams`` independent streams on its
     device.
@@ -330,6 +466,7 @@ def fleet_streams(sk: SlidingSketch, streams: int) -> SlidingSketch:
     :class:`AggTree` per fleet, created at its first use
     (:func:`agg_tree`).  :func:`shard_streams` is the reference's
     device-sharded fleet."""
+    _torch_backed(sk, "fleet_streams")
     S = int(streams)
     if S < 1:
         raise ValueError(f"fleet size {S} < 1")
@@ -375,6 +512,7 @@ def shard_streams(sk: SlidingSketch, streams: int, *, axis: str = "streams",
     of the fleet nobody split.  Without a topology, a multi-process
     runtime is refused, as in the reference: a global-shape fleet would
     exist on no process."""
+    _torch_backed(sk, "shard_streams")
     S = int(streams)
     if topology is not None:
         return _shard_streams_topology(sk, S, axis, topology)

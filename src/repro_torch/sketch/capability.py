@@ -12,7 +12,9 @@ a fleet through ``fleet_streams`` (the reference names ``vmap_streams`` /
 ``shard_streams``), and a fleet records history through
 ``SketchFleetEngine(..., history=True)`` or
 ``sketch/history.py::install_query_interval``, which attaches a plane
-(``meta["hist_box"]``).
+(``meta["hist_box"]``).  A host baseline (``meta["backend"] == "host"``)
+has no fleet, so its messages send the caller to a torch variant, as the
+reference's send it to a JAX one.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def context(sk) -> Dict[str, Any]:
         "name": sk.name,
         "fleet": meta.get("streams") is not None,
         "adaptive": meta.get("adapt") is not None,
+        "backend": meta.get("backend"),
     }
 
 
@@ -46,7 +49,13 @@ def _missing_message(cap: str, ctx: Dict[str, Any]) -> str:
     """Guidance for a missing capability that names only what the
     caller's object can be fed to."""
     name = ctx["name"]
+    host = ctx["backend"] == "host"
     if cap == "query_cohort":
+        if host:
+            return (f"{name!r} is a host-side baseline — cohort queries "
+                    "are served by the torch fleet path only: lift a torch "
+                    "variant with fleet_streams, then call "
+                    "query_cohort(state, cohort, t)")
         if ctx["fleet"]:
             return (f"fleet {name!r} exposes no cohort query plane — "
                     "rebuild it with fleet_streams so the AggTree is "
@@ -59,6 +68,11 @@ def _missing_message(cap: str, ctx: Dict[str, Any]) -> str:
                   "history_hot_nodes=..., history_dir=...])")
         attach = ("repro_torch.sketch.history."
                   "install_query_interval(fleet, plane)")
+        if host:
+            return (f"{name!r} is a host-side baseline — query_interval "
+                    "(time-travel over retired window content) is served "
+                    "by the torch fleet path only: serve a torch variant "
+                    "through SketchFleetEngine(..., history=True)")
         if ctx["fleet"]:
             return (f"fleet {name!r} has no history plane — time-travel "
                     "interval queries need retired window content to be "
@@ -70,6 +84,12 @@ def _missing_message(cap: str, ctx: Dict[str, Any]) -> str:
                 f"fleet_streams(sk, S) and then attach a plane with "
                 f"{attach}")
     if cap == "score":
+        if host:
+            return (f"{name!r} exposes no residual scorer — host "
+                    "baselines built via make_sketch() carry the numpy "
+                    "adapter; hand-built instances can attach one with "
+                    "repro_torch.sketch.capability.install(sk, 'score', "
+                    "fn)")
         return (f"{name!r} exposes no residual scorer — build it via "
                 "make_sketch() (every registered variant installs score) "
                 "or attach one with "

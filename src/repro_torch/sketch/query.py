@@ -218,6 +218,10 @@ class AggTree:
     ``(time tag, merged S = 1 state, its live rows)``."""
 
     def __init__(self, base, streams: int):
+        if base.meta.get("backend") != "torch":
+            raise ValueError(
+                f"AggTree needs a torch-backed base sketch, got "
+                f"{base.name!r} (backend={base.meta.get('backend')!r})")
         self.base = base
         self.S = int(streams)
         if self.S < 1:

@@ -10,8 +10,10 @@ score the FD guarantee makes principled (``sketch/basis.py``).
   counterpart: there is nothing to jit, and the port's functions carry
   the stream axis already, so a fleet scores a whole (S, B, d) slab in
   one call of its base sketch's ``score``.
-* :func:`host_residual_scores` is the float64 numpy residual (the
-  reference's host-baseline adapter; the port has no host baselines yet).
+* :func:`make_host_score` is the numpy adapter of the host baselines
+  (lmfd / difd / swr / swor): the float64 residual of
+  :func:`host_residual_scores` against the orthonormal row space of
+  whatever their ``query_rows`` returns, as in the reference.
 * :class:`ScorePlane` holds the per-user EWMA thresholds the serving
   engine keeps at ingest (``SketchFleetEngine(score=True)``), float64 on
   the host with the reference's arithmetic, so both flag the same users.
@@ -19,7 +21,7 @@ score the FD guarantee makes principled (``sketch/basis.py``).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 
@@ -37,6 +39,18 @@ def host_residual_scores(rows: np.ndarray, X: np.ndarray) -> np.ndarray:
     coef = X @ V.T
     res = tot - np.sum(coef * coef, axis=-1)
     return np.maximum(res, 0.0).astype(np.float32)
+
+
+def make_host_score(query_rows: Callable) -> Callable:
+    """The host-baseline ``score`` adapter: residual against whatever row
+    stack the baseline's ``query_rows`` returns (its native compressed
+    sketch), via numpy SVD on the host."""
+
+    def score(state, X, t=None):
+        return host_residual_scores(np.asarray(query_rows(state, t)),
+                                    np.asarray(X))
+
+    return score
 
 
 class ScorePlane:

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the krylov engine through them (the fused kernels at ε = 1/4, the split
 route's kernels at ε = 1/128), the dense serving path through the
-flash kernel against the same engine on the CPU, the history plane on
+flash kernel against the same engine on the CPU, the MoE block and a
+reduced MoE serving engine against the CPU, the history plane on
 the card against the CPU, checkpoints that cross between card and CPU,
 the async pipeline's unwind with a copy in flight, and a fleet across two
 processes that share the card.
@@ -747,6 +748,29 @@ def test_flash_tensor_core_kernel_matches_plain_version(cuda, S, dh, G,
     assert float((o != o_p).float().mean()) < FLASH_BF16_MISMATCH
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [6, 8])
+@pytest.mark.parametrize("S", [256, 512])
+def test_flash_tensor_core_kernel_at_moe_groups(cuda, S, G, causal):
+    """The bf16 kernel at grok-1's group size (48 query heads over 8 KV
+    heads: G = 6) and at G = 8, dh 128, at the MoE serve phase's prefill
+    buckets, on ×8 inputs: one launch a call, o within the plain
+    version's bf16 rounding.  G = 6 also at grok's full head count."""
+    g = torch.Generator(device=cuda).manual_seed(S + G)
+    for H, Hkv in ((2 * G, 2), (8 * G, 8)):
+        q, k, v = (8 * torch.randn((h, S, 128), generator=g, device=cuda)
+                   for h in (H, Hkv, Hkv))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        n0 = flash_kernel.flash_fwd.launches
+        o, lse = flash_ops.flash_forward(q, k, v, causal=causal)
+        assert flash_kernel.flash_fwd.launches == n0 + 1
+        o_p, lse_p = flash_ref.flash_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(o.float(), o_p.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(lse, lse_p, rtol=1e-3, atol=1e-3)
+        assert float((o != o_p).float().mean()) < FLASH_BF16_MISMATCH
+
+
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):
     q = torch.zeros((2, 100, 64), device=cuda)
     with pytest.raises(ValueError, match="multiple of 64"):
@@ -786,6 +810,57 @@ def test_serve_engine_on_the_card_goes_through_flash(cuda):
         launched = flash_kernel.flash_fwd.launches - n0
         assert launched == (cfg.n_layers * len(prompts) if dev == "cuda"
                             else 0)
+        out[dev] = ({u: r.out_tokens for u, r in done.items()}, eng.ticks)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("E,k,D,F,T,cf", [
+    (4, 2, 32, 32, 64, 1.25),       # reduced grok and kimi
+    (4, 2, 32, 32, 64, 0.5),        # the capacity drops pairs
+    (384, 8, 16, 8, 128, 1.25),     # kimi's dispatch at small width
+])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, E, k, D, F, T, cf):
+    """The MoE block on the card against the CPU (f32, 1e-5), with the
+    same pairs dropped, and two calls on the card bitwise equal: the
+    combine sums by gathers in slot order, with no atomics."""
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models.layers import moe
+
+    g = torch.Generator().manual_seed(E + k + T)
+    cfg = MoECfg(E, k, F, cf)
+    x = torch.randn((2, T // 2, D), generator=g)
+    ws = [0.5 * torch.randn((D, E), generator=g)] + [
+        0.2 * torch.randn(shape, generator=g)
+        for shape in ((E, D, F), (E, D, F), (E, F, D))]
+    y_cpu, aux_cpu = moe.moe_block(x, *ws, moe=cfg)
+    args = [t.to(cuda) for t in [x] + ws]
+    y1, aux1 = moe.moe_block(*args, moe=cfg)
+    y2, aux2 = moe.moe_block(*args, moe=cfg)
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+    torch.testing.assert_close(y1.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux1.cpu(), aux_cpu, rtol=1e-6, atol=1e-6)
+    slot_cpu = moe.route(cfg, x.reshape(T, D), ws[0])[0]
+    slot = moe.route(cfg, args[0].reshape(T, D), args[1])[0]
+    assert torch.equal(slot.cpu(), slot_cpu)
+
+
+def test_moe_serve_engine_on_the_card_matches_the_cpu(cuda):
+    """Reduced grok-1 through ServeEngine: the greedy tokens on the card
+    equal the CPU run's."""
+    cfg = get_config("grok-1-314b").reduced()
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(10, 33, 3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev),
+                          EngineConfig(slots=2, s_max=64,
+                                       prefill_buckets=(16, 32)), device=dev)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new=4))
+        done = eng.run()
         out[dev] = ({u: r.out_tokens for u, r in done.items()}, eng.ticks)
     assert out["cuda"] == out["cpu"]
 

@@ -31,6 +31,7 @@ from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
 from repro_torch.sketch.compress import CompressConfig, compress_init
 from repro_torch.sketch.history import HistoryPlane
 from repro_torch.sketch.monitor import SketchConfig, sketch_init
+from repro_torch.sketch.runner import run_sketch
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.loop import train
 from repro_torch.train.optimizer import adamw
@@ -69,7 +70,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.train.loop", "repro_torch.train.optimizer",
             "repro_torch.data.tokens", "repro_torch.sketch.monitor",
             "repro_torch.sketch.compress", "repro_torch.sketch.sketchy",
-            "repro_torch.launch.train"} <= names
+            "repro_torch.launch.train", "repro_torch.core.baselines",
+            "repro_torch.core.baselines.npfd",
+            "repro_torch.core.baselines.lmfd",
+            "repro_torch.core.baselines.difd",
+            "repro_torch.core.baselines.sampling",
+            "repro_torch.sketch.runner", "repro_torch.models.layers.moe",
+            "repro_torch.configs.grok_1_314b",
+            "repro_torch.configs.kimi_k2_1t_a32b"} <= names
 
 
 def _topo(S, P=2, pid=0):
@@ -77,8 +85,8 @@ def _topo(S, P=2, pid=0):
                          transport=MemTransport())
 
 
-def _tiny_model():
-    cfg = get_config("smollm-135m").reduced()
+def _tiny_model(arch="smollm-135m"):
+    cfg = get_config(arch).reduced()
     return cfg, init_params(api.param_defs(cfg),
                             torch.Generator().manual_seed(0), device="cpu")
 
@@ -137,6 +145,16 @@ def no_cuda(monkeypatch):
                               _tiny_model()[1], adamw()),
     lambda: sketch_init(SketchConfig(d=8)),
     lambda: compress_init(CompressConfig(min_size=1), _tiny_model()[1]),
+    lambda: make_sketch("lmfd", d=8),
+    lambda: make_sketch("difd", d=8),
+    lambda: make_sketch("swr", d=8),
+    lambda: make_sketch("swor", d=8),
+    lambda: run_sketch("swr", np.ones((4, 8), np.float32), eps=0.25,
+                       window=4, query_every=2),
+    lambda: init_params(api.param_defs(get_config("grok-1-314b").reduced()),
+                        torch.Generator()),
+    lambda: ServeEngine(*_tiny_model("kimi-k2-1t-a32b"),
+                        EngineConfig(slots=1, s_max=32)),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
@@ -146,7 +164,9 @@ def no_cuda(monkeypatch):
         "adaptive_fd_init", "convert-layered", "convert-adaptive",
         "engine-history", "history-plane", "checkpoint-restore",
         "topology-fleet", "topology-engine", "local-device", "train",
-        "launch-train", "init-sketch-state", "sketch-init", "compress-init"])
+        "launch-train", "init-sketch-state", "sketch-init", "compress-init",
+        "make_sketch-lmfd", "make_sketch-difd", "make_sketch-swr",
+        "make_sketch-swor", "run-sketch", "init-params-moe", "serve-moe"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
