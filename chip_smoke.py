@@ -26,11 +26,12 @@ Phases, each printing its seconds on a line of its own:
    as the library yardsticks (window_gram and power_iter also by device
    time under ``torch.profiler``); the flash forward at llama3-8b's
    prefill shapes (buckets 512 and 256, bf16, and the 2-layer f32
-   prefill's), grok-1's (buckets 512 and 256, bf16, G = 6), the train
+   prefill's), grok-1's (buckets 512 and 256, bf16, G = 6), qwen2-vl's
+   ((4, 512) and (1, 256), 12/2 heads, bf16, G = 6), the train
    phase's f32 shape (B=8, S=1024, H=9, Hkv=3, dh=64), smollm's (G=3,
    dh=64, bf16), qwen1.5's (G=1, f32), one non-causal case and a 64-row
    query tail (S=192, bf16), the bucket-512 (llama3-8b and grok-1),
-   f32-prefill and train shapes timed beside
+   qwen2-vl (4, 512), f32-prefill and train shapes timed beside
    ``scaled_dot_product_attention``, with the device times of both; and
    how far the bf16 kernel's o lies from the plain version's on inputs
    scaled ×8, against a single bf16 rounding of p; the flash backward at
@@ -154,7 +155,32 @@ Phases, each printing its seconds on a line of its own:
    multiplies every expert's buffer) over 3.35 TB/s.  Then grok-1 and
    kimi-k2 reduced (2 layers, f32) on the card and on the CPU: prefill
    logits within 1e-4, greedy tokens identical.
-12. train  — the training path at full width: ``train()`` (the
+12. zoo    — the VLM, SSM and hybrid families at full width and depth,
+   seeded bf16 weights, each freed before the next is drawn: qwen2-vl-2b
+   (28 layers, d_model 1536, 12/2 heads, dh 128, M-RoPE sections
+   (16, 24, 24), ``use_flash=True``; 3.09 GB) prefills a batch of 4
+   prompts of 512 tokens (64 text, a stub image of 1×16×24 patches, 64
+   text, with Qwen2-VL's ``get_rope_index`` position ids built here),
+   then one (1, 256) prompt, then decodes 16 greedy steps on the batch of
+   4, around the engine (whose ``_admit`` passes no M-RoPE ids, as in
+   the reference); both prefills go through the bf16 flash kernel at
+   G = 6, 28 × 2 launches.  mamba2-2.7b (64 layers, d_model 2560,
+   d_state 128, 80 heads of 64; 5.40 GB) and recurrentgemma-9b (38
+   mixing layers: 12 × (rec, rec, local attn) + 2 rec, d_model 4096,
+   16/1 heads of 256, window 2048, so a ring of min(2048, 1024) slots;
+   17.16 GB) each through the serve phase's ``ServeEngine`` and traffic,
+   no flash launch (mamba2 has no attention; the gate refuses
+   recurrentgemma's window).  Every request must finish with 17 tokens
+   in [0, vocab) and every logit be finite.  Each prints ms per prefill,
+   ms per decode tick, tokens/s, peak memory, the decode tick beside all
+   its weights' bytes over 3.35 TB/s, a ``torch.profiler`` breakdown of
+   a decode tick and a prefill, and for mamba2 and recurrentgemma the
+   device time of the SSD scan (``ssd_chunked``) and of the RG-LRU scan
+   within a 512-token prefill.  Phase kernels times the flash kernel at
+   qwen2-vl's (4, 512, 12, 2, 128) beside SDPA.  Then the three reduced
+   (f32) on the card and on the CPU: prefill logits within 1e-4, greedy
+   tokens identical (qwen2-vl with image ids).
+13. train  — the training path at full width: ``train()`` (the
    launcher's code path) on smollm-135m (30 layers, d_model 576, 9/3
    heads, dh 64, vocab 49152) with ``use_flash=True``, ``remat="full"``,
    f32 parameters (bf16 activations promote to f32 at the first
@@ -175,7 +201,7 @@ Phases, each printing its seconds on a line of its own:
    train step at full width through the flash kernels against the same
    step through their plain versions: loss and every gradient within
    1e-4 relative.
-13. launch sizes — in a fresh process (``--launch-sizes``), each
+14. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
@@ -638,13 +664,16 @@ def check_split_kernels(rng) -> dict:
 
 # (label, B, S, H, Hkv, dh, dtype, causal); those in FLASH_TIMED are
 # timed: llama3-8b's bucket 512 in the kernels line, the f32 prefill's (the
-# 2-layer f32 prefill's shape), the train phase's f32 shape and grok-1's
-# bucket 512 (the moe phase's, G = 6) beside it
+# 2-layer f32 prefill's shape), the train phase's f32 shape, grok-1's
+# bucket 512 (the moe phase's, G = 6) and qwen2-vl's batch of four
+# 512-token prompts (the zoo phase's, G = 6) beside it
 FLASH_SHAPES = [
     ("llama3-8b bucket 512", 1, 512, 32, 8, 128, "bfloat16", True),
     ("llama3-8b bucket 256", 1, 256, 32, 8, 128, "bfloat16", True),
     ("grok-1 bucket 512", 1, 512, 48, 8, 128, "bfloat16", True),
     ("grok-1 bucket 256", 1, 256, 48, 8, 128, "bfloat16", True),
+    ("qwen2-vl 4x512", 4, 512, 12, 2, 128, "bfloat16", True),
+    ("qwen2-vl 1x256", 1, 256, 12, 2, 128, "bfloat16", True),
     ("llama3-8b f32 prefill", 1, 512, 32, 8, 128, "float32", True),
     ("train f32", 8, 1024, 9, 3, 64, "float32", True),
     ("smollm G=3", 2, 256, 9, 3, 64, "bfloat16", True),
@@ -659,7 +688,8 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-3
 # timed shapes and their keys in the kernels line's flash_fwd entry
 FLASH_TIMED = {"llama3-8b bucket 512": None, "llama3-8b f32 prefill": "f32",
-               "train f32": "f32_train", "grok-1 bucket 512": "grok"}
+               "train f32": "f32_train", "grok-1 bucket 512": "grok",
+               "qwen2-vl 4x512": "qwen2vl"}
 
 
 def flash_bound(B, S, H, Hkv, dh, dtype, causal):
@@ -2527,22 +2557,30 @@ def log_served(label: str, run: dict) -> None:
         f"{run['launches']}; peak memory {run['peak_gib']:.2f} GiB")
 
 
-def serve_breakdown(eng, params) -> None:
+def serve_breakdown(eng, params, prefix: str = "serve breakdown") -> dict:
     """Where a decode tick and a 512-token prefill spend their time, after
     the counted run, on a warm engine whose slots hold the last requests'
-    caches: each is timed once on the host clock, then run once under
-    ``torch.profiler``.  Prints both walls, the device's busy time (the sum
-    of the kernels' own times), its idle share of the unprofiled wall, and
-    the kernels that take most of the busy time."""
+    caches (``profile_calls``)."""
+    import torch
+
+    toks = torch.zeros((1, 512), dtype=torch.int32, device=eng.device)
+    return profile_calls(prefix, {
+        "decode tick": lambda: eng._decode(eng.params, eng.tokens,
+                                           eng.caches),
+        "prefill 512": lambda: eng._prefill_b1(params, {"tokens": toks})})
+
+
+def profile_calls(prefix: str, calls: dict) -> dict:
+    """Each call timed once on the host clock, then run once under
+    ``torch.profiler``.  Prints both walls, the device's busy time (the
+    sum of the kernels' own times), its idle share of the unprofiled wall,
+    and the kernels that take most of the busy time; returns {label:
+    (wall ms, busy ms)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    toks = torch.zeros((1, 512), dtype=torch.int32, device=eng.device)
-    for label, fn in (
-            ("decode tick", lambda: eng._decode(eng.params, eng.tokens,
-                                                eng.caches)),
-            ("prefill 512", lambda: eng._prefill_b1(params,
-                                                    {"tokens": toks}))):
+    out = {}
+    for label, fn in calls.items():
         with torch.no_grad():
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2562,11 +2600,13 @@ def serve_breakdown(eng, params) -> None:
         parts = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
                           f" ms ({e.count}x)" for e in top)
         flash = [e for e in kernels if "flash_fwd" in e.key]
-        log(f"serve breakdown {label}: wall {wall:.3f} ms ({wall_prof:.3f} "
+        log(f"{prefix} {label}: wall {wall:.3f} ms ({wall_prof:.3f} "
             f"ms profiled), device busy {busy:.3f} ms, idle "
             f"{100 * (1 - busy / wall):.1f}%; flash "
             f"{sum(e.self_device_time_total for e in flash) / 1e3:.3f} ms "
             f"({sum(e.count for e in flash)}x); top kernels: {parts}")
+        out[label] = (wall, busy)
+    return out
 
 
 def check_plain_prefill(seed: int, device: str = "cuda") -> None:
@@ -2633,7 +2673,11 @@ def param_bytes(params) -> int:
 def decode_bytes(cfg, params) -> int:
     """The bytes one decode tick must read: every parameter but the
     embedding table (the buffer-centric dispatch multiplies every
-    expert's buffer, so every expert is read), of which one row a slot."""
+    expert's buffer, so every expert is read), of which one row a slot;
+    with tied embeddings the head reads the whole table, so every
+    parameter."""
+    if cfg.tied_embeddings:
+        return param_bytes(params)
     emb = params["embed"]
     return (param_bytes(params) - emb.numel() * emb.element_size()
             + SERVE_ENGINE["slots"] * cfg.d_model * emb.element_size())
@@ -2771,6 +2815,362 @@ def check_moe_reduced(seed: int, device: str = "cuda") -> None:
         log(f"moe reduced {arch} (2 layers, f32): card vs CPU prefill "
             f"logits max err {err:.3e} (tol {MOE_LOGIT_TOL:.0e}); greedy "
             f"tokens of 3 requests identical")
+
+
+# ---------------------------------------------------------------------------
+# phase zoo: the VLM, SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+# qwen2-vl-2b: a batch of 4 prompts of 64 text tokens, a stub image of
+# 1×16×24 patches and 64 text tokens (512), then one (32, 1×8×24, 32)
+# prompt (256); 16 greedy decode steps on the batch of 4
+ZOO_VLM, ZOO_VLM_BATCH, ZOO_VLM_DECODE = "qwen2-vl-2b", 4, 16
+ZOO_VLM_PROMPTS = ((ZOO_VLM_BATCH, (64, (1, 16, 24), 64)),
+                   (1, (32, (1, 8, 24), 32)))
+# the SSM and hybrid through the serve phase's engine and traffic
+ZOO_ENGINE_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
+ZOO_REQUESTS, ZOO_PROMPT = SERVE_REQUESTS, (200, 512)
+ZOO_CHECKED = ("qwen2-vl-2b", "mamba2-2.7b", "recurrentgemma-9b")
+ZOO_LOGIT_TOL = 1e-4    # f32 throughout, TF32 off: only summation order
+
+
+def vlm_positions(B: int, before: int, grid, after: int, device):
+    """(B, S, 3) M-RoPE ids of ``before`` text tokens, a (t, h, w) grid of
+    image patches and ``after`` text tokens, as Qwen2-VL's
+    ``get_rope_index`` lays them out: text at t = h = w, patch (a, b, c)
+    at the image's start plus (a, b, c), text after it from the start
+    plus max(t, h, w)."""
+    import torch
+
+    t, h, w = grid
+    ids = [(i, i, i) for i in range(before)]
+    ids += [(before + a, before + b, before + c)
+            for a in range(t) for b in range(h) for c in range(w)]
+    ids += [(before + max(t, h, w) + i,) * 3 for i in range(after)]
+    return torch.tensor(ids, dtype=torch.int32,
+                        device=device).expand(B, len(ids), 3).contiguous()
+
+
+def _draw(cfg, seed, dev):
+    """Seeded bf16 weights on ``dev`` and the seconds the draw took."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed),
+                         dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t
+
+
+def _decode_bound(label: str, cfg, params, tick: float) -> None:
+    nbytes = decode_bytes(cfg, params)
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    log(f"{label} decode tick: {tick:.3f} ms median against its bytes "
+        f"bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB of weights read a "
+        f"tick at 3.35 TB/s: {100 * bound / tick:.1f}% of it)")
+
+
+def _head_cost(label: str, cfg, params, rows: int) -> None:
+    """The LM head of a decode tick, ``rows`` positions against the tied
+    table, timed in turns by CUDA events (each call is milliseconds of
+    device work, so the host's launch cost does not show): the whole of
+    ``logits`` and the f32 copy of the table it makes (``table.float()``),
+    beside the copy's bytes bound (bf16 read, f32 written).
+    ``torch.profiler`` sessions of these calls came back empty."""
+    import torch
+
+    from repro_torch.models.layers.common import logits
+
+    table = params["embed"]
+    x = torch.zeros((rows, 1, cfg.d_model), dtype=table.dtype,
+                    device=table.device)
+    t = time_in_turns({"head": lambda: logits(x, table),
+                       "copy": lambda: table.float()}, rounds=3, reps=5)
+    bound = 6 * table.numel() / PEAK_BYTES_S * 1e3
+    log(f"{label} LM head ({table.shape[0]} × {table.shape[1]}): logits "
+        f"{t['head']:.4f} ms a tick (CUDA events), of which the table's "
+        f"f32 copy {t['copy']:.4f} ms (its bytes bound {bound:.3f} ms: "
+        f"{6 * table.numel() / 1e9:.2f} GB)")
+
+
+def _sync_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def run_vlm(seed: int, device: str = "cuda") -> dict:
+    """qwen2-vl-2b at full width and depth (28 layers, seeded bf16
+    weights, ``use_flash=True``): the two prefills of ``ZOO_VLM_PROMPTS``
+    with their image blocks' M-RoPE ids, then ``ZOO_VLM_DECODE`` greedy
+    decode steps on the batch of 4.  Around the engine: its ``_admit``
+    passes no M-RoPE ids (note (k)).  Both prefills pass the flash gate
+    (dh 128, G = 6, causal, S a multiple of 256): 28 launches each."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models import api
+
+    dev = torch.device(device)
+    cfg = dataclasses.replace(get_config(ZOO_VLM), use_flash=True)
+    params, init_s = _draw(cfg, seed, dev)
+    rng = np.random.default_rng(seed)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, b + g[0] * g[1] * g[2] + a)).astype(
+            np.int32)).to(dev),
+        "positions": vlm_positions(B, b, g, a, dev)}
+        for B, (b, g, a) in ZOO_VLM_PROMPTS]
+    label = f"zoo {ZOO_VLM} ({cfg.n_layers} layers)"
+    kernel.flash_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prefill_ms, first = {}, None
+        for batch in batches:
+            (lg, pre), ms = _sync_ms(lambda: api.forward_prefill(
+                cfg, params, batch))
+            prefill_ms[tuple(batch["tokens"].shape)] = ms
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{label}: prefill logits not finite")
+            if first is None:
+                first = lg, pre
+        launches = kernel.flash_fwd.launches
+        lg, pre = first
+        B, S = batches[0]["tokens"].shape
+        caches = _with_room(cfg, pre, ZOO_VLM_DECODE, torch.bfloat16)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks, decode_ms = [tok], []
+        for _ in range(ZOO_VLM_DECODE):
+            (lg, caches), ms = _sync_ms(lambda: api.forward_decode(
+                cfg, params, tok, caches))
+            decode_ms.append(ms)
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{label}: decode logits not finite")
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+    wall = time.perf_counter() - t0
+    toks = torch.cat(toks, dim=1).cpu().numpy()
+    want = cfg.n_layers * len(batches)
+    if launches != want or kernel.flash_fwd.launches != want:
+        raise AssertionError(f"{label}: flash_fwd launched {launches} times "
+                             f"in {len(batches)} prefills "
+                             f"({kernel.flash_fwd.launches} after decode); "
+                             f"expected {want}")
+    if toks.shape != (B, ZOO_VLM_DECODE + 1) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{label}: tokens {toks.shape}, range "
+                             f"[{toks.min()}, {toks.max()}]")
+    log(f"{label}: bf16 weights {param_bytes(params) / 1e9:.2f} GB drawn "
+        f"in {init_s:.3f} s; prompts of text, a stub image and text "
+        f"{ZOO_VLM_PROMPTS} with get_rope_index ids; attention through the "
+        f"flash kernel (dh {cfg.dh}, G = {cfg.n_heads // cfg.n_kv}), "
+        f"{launches} launches")
+    for shape, ms in prefill_ms.items():
+        log(f"{label} prefill {shape}: {ms:.3f} ms (the first call at "
+            "this shape; the breakdown below times a warm one)")
+    tick = float(np.median(decode_ms))
+    log(f"{label} decode: {len(decode_ms)} ticks of {B} sequences, "
+        f"{tick:.3f} ms median per tick ({min(decode_ms):.3f}-"
+        f"{max(decode_ms):.3f}); {toks.size} tokens in {wall:.3f} s: "
+        f"{toks.size / wall:.1f} generated tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    _decode_bound(label, cfg, params, tick)
+    _head_cost(label, cfg, params, B)
+    batch = batches[0]
+    profile_calls(f"{label} breakdown", {
+        "decode tick": lambda: api.forward_decode(cfg, params, tok, caches),
+        f"prefill {tuple(batch['tokens'].shape)}":
+            lambda: api.forward_prefill(cfg, params, batch)})
+    del params, caches, pre, first
+    return {"launches": launches}
+
+
+def _scan_share(label: str, module, name: str, prefill, busy: float) -> None:
+    """The device time of ``module.name`` (the SSD or RG-LRU scan) within
+    one prefill: its calls' arguments are caught during ``prefill()``, the
+    first call is timed alone by ``device_ms`` and counted once a call,
+    beside the prefill's device busy time."""
+    import torch
+
+    fn, seen = getattr(module, name), []
+
+    def catch(*args, **kw):
+        seen.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, catch)
+    try:
+        with torch.no_grad():
+            prefill()
+    finally:
+        setattr(module, name, fn)
+    args, kw = seen[0]
+    with torch.no_grad():
+        one = device_ms(lambda: fn(*args, **kw), reps=5)
+    total = None if one is None else one * len(seen)
+    log(f"{label} {name}: {len(seen)} calls a prefill, device "
+        f"{fmt_ms(one)} ms each (torch.profiler), {fmt_ms(total)} ms a "
+        f"prefill" + ("" if total is None else
+                      f" of its {busy:.3f} ms device busy "
+                      f"({100 * total / busy:.1f}%)"))
+
+
+def run_zoo_engines(seed: int, device: str = "cuda") -> None:
+    """mamba2-2.7b (64 layers) and recurrentgemma-9b (38: its fixed
+    layout) at full width, seeded bf16 weights, through the serve phase's
+    ``ServeEngine`` and traffic; neither launches the flash kernel
+    (mamba2 has no attention; recurrentgemma's local window fails the
+    gate, as in the reference).  Each model's weights are freed before
+    the next are drawn."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import recurrentgemma
+    from repro_torch.models.layers import ssm
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    dev = torch.device(device)
+    scans = {"mamba2-2.7b": (ssm, "ssd_chunked"),
+             "recurrentgemma-9b": (recurrentgemma, "rglru_scan")}
+    for arch in ZOO_ENGINE_ARCHS:
+        cfg = get_config(arch)
+        params, init_s = _draw(cfg, seed, dev)
+        eng = ServeEngine(cfg, params, EngineConfig(**SERVE_ENGINE),
+                          device=dev)
+        rng = np.random.default_rng(seed)
+        lo, hi = ZOO_PROMPT
+        for uid, n in enumerate(rng.integers(lo, hi + 1, ZOO_REQUESTS)):
+            eng.submit(Request(uid=uid, prompt=rng.integers(
+                0, cfg.vocab, int(n)).astype(np.int32),
+                max_new=SERVE_MAX_NEW))
+        run = timed_engine_run(eng)
+        check_served(cfg, run, ZOO_REQUESTS, SERVE_MAX_NEW)
+        n_prefills = sum(len(v) for v in run["prefill_ms"].values())
+        if run["launches"] != 0 or n_prefills != ZOO_REQUESTS:
+            raise AssertionError(f"zoo {arch}: flash_fwd launched "
+                                 f"{run['launches']} times in {n_prefills} "
+                                 "prefills; expected none")
+        label = f"zoo {arch} ({cfg.n_layers} layers)"
+        if cfg.rglru:
+            G, T = recurrentgemma.N_GROUPS, recurrentgemma.N_TAIL
+            label = (f"zoo {arch} ({3 * G + T} mixing layers: {G} × (rec, "
+                     f"rec, attn) + {T} rec, ring of "
+                     f"{min(cfg.rglru.local_window, eng.ecfg.s_max)})")
+        log(f"{label}: {eng.ecfg}, {ZOO_REQUESTS} requests of {lo}-{hi} "
+            f"prompt tokens and {SERVE_MAX_NEW} new; bf16 weights "
+            f"{param_bytes(params) / 1e9:.2f} GB drawn in {init_s:.3f} s; "
+            "no flash launch")
+        log_served(label, run)
+        _decode_bound(label, cfg, params, float(np.median(run["decode_ms"])))
+        _head_cost(label, cfg, params, eng.ecfg.slots)
+        walls = serve_breakdown(eng, params, f"{label} breakdown")
+        toks = torch.zeros((1, 512), dtype=torch.int32, device=dev)
+        module, name = scans[arch]
+        _scan_share(label, module, name,
+                    lambda: eng._prefill_b1(params, {"tokens": toks}),
+                    walls["prefill 512"][1])
+        del eng, params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_zoo(seed: int, device: str = "cuda") -> dict:
+    """The zoo phase's full-width runs; returns the flash launches."""
+    out = run_vlm(seed, device)
+    run_zoo_engines(seed, device)
+    return out
+
+
+def _with_room(cfg, pre, steps: int, dtype):
+    """A prefill's KV caches copied into empty ones ``steps`` positions
+    longer, for the decode steps to append to."""
+    from repro_torch.models import api
+
+    _, B, S = pre.k.shape[:3]
+    caches = api.init_cache(cfg, B, S + steps, dtype, pre.k.device)
+    caches.k[:, :, :S] = pre.k
+    caches.v[:, :, :S] = pre.v
+    caches.length[:] = pre.length
+    return caches
+
+
+def _greedy_vlm(cfg, params, batch, steps: int):
+    """Prefill then ``steps`` greedy decode steps from a cache with room:
+    (prefill logits, tokens (B, steps + 1))."""
+    import torch
+
+    from repro_torch.models import api
+
+    with torch.no_grad():
+        lg, pre = api.forward_prefill(cfg, params, batch)
+        caches = _with_room(cfg, pre, steps, torch.float32)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks = [tok]
+        for _ in range(steps):
+            out, caches = api.forward_decode(cfg, params, tok, caches)
+            tok = torch.argmax(out[:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+    return lg, torch.cat(toks, dim=1).cpu().tolist()
+
+
+def check_zoo_reduced(seed: int, device: str = "cuda") -> None:
+    """qwen2-vl, mamba2 and recurrentgemma reduced (f32) on the card and on
+    the CPU from the same weights: a 32-token prefill's logits within
+    1e-4 and greedy tokens identical, mamba2's and recurrentgemma's
+    through a short ServeEngine run whose prompts fall in both buckets,
+    qwen2-vl's through prefill and 4 decode steps with image ids."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models.params import init_params
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.tree import map_dicts
+
+    for arch in ZOO_CHECKED:
+        cfg = get_config(arch).reduced()
+        cpu = init_params(api.param_defs(cfg),
+                          torch.Generator().manual_seed(seed), device="cpu")
+        card = map_dicts(lambda w: w.to(device), cpu)
+        rng = np.random.default_rng(seed)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(
+            np.int32))
+        prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+                   for n in (9, 30, 12)]
+        logits, tokens = {}, {}
+        for dev, params in (("cpu", cpu), (device, card)):
+            batch = {"tokens": toks.to(dev)}
+            if cfg.family == "vlm":
+                batch["positions"] = vlm_positions(2, 4, (1, 4, 6), 4, dev)
+                lg, tokens[dev] = _greedy_vlm(cfg, params, batch, 4)
+            else:
+                with torch.no_grad():
+                    lg, _ = api.forward_prefill(cfg, params, batch)
+                eng = ServeEngine(cfg, params, EngineConfig(
+                    slots=2, s_max=64, prefill_buckets=(16, 32)), device=dev)
+                for uid, p in enumerate(prompts):
+                    eng.submit(Request(uid=uid, prompt=p, max_new=4))
+                tokens[dev] = {u: r.out_tokens for u, r in eng.run().items()}
+            logits[dev] = lg.float().cpu()
+        err = float((logits[device] - logits["cpu"]).abs().max())
+        if not err <= ZOO_LOGIT_TOL or tokens[device] != tokens["cpu"]:
+            raise AssertionError(
+                f"zoo reduced {arch}: card vs CPU logits max err {err:.3e} "
+                f"(tol {ZOO_LOGIT_TOL:.0e}); tokens {tokens[device]} vs "
+                f"{tokens['cpu']}")
+        log(f"zoo reduced {arch} (f32): card vs CPU prefill logits max err "
+            f"{err:.3e} (tol {ZOO_LOGIT_TOL:.0e}); greedy tokens identical")
 
 
 # ---------------------------------------------------------------------------
@@ -3181,6 +3581,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    zoo = run_zoo(args.seed)
+    check_zoo_reduced(args.seed)
+    log(f"phase zoo: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     trn = run_train(args.train_steps, args.train_extra_steps, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3219,6 +3626,7 @@ def main(argv=None) -> int:
              "topology": topo["launches"],
              "serve": {"flash_fwd": srv["launches"]},
              "moe": {"flash_fwd": mix["launches"]},
+             "zoo": {"flash_fwd": zoo["launches"]},
              "train": trn["launches"]}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{src}",

@@ -1,10 +1,11 @@
 """Model configurations: one frozen dataclass per architecture.
 
 Counterpart of ``repro/configs/base.py``, with the same fields, defaults and
-``reduced()``.  The port registers the four dense configurations and the
-two MoE ones (grok-1, kimi-k2); the other families of the reference (VLM,
-SSM, hybrid, encoder-decoder) are known by name and raise
-``NotImplementedError`` until their slice lands (ROADMAP item 15).
+``reduced()``.  The port registers the four dense configurations, the two
+MoE ones (grok-1, kimi-k2), the VLM (qwen2-vl-2b), the SSM (mamba2-2.7b)
+and the hybrid (recurrentgemma-9b); the encoder-decoder family of the
+reference (whisper-large-v3) is known by name and raises
+``NotImplementedError`` until its slice lands (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -116,17 +117,14 @@ class ShapeSpec:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 # configurations of the reference whose family the port does not run yet
-NOT_PORTED = {
-    "qwen2-vl-2b": "vlm", "mamba2-2.7b": "ssm",
-    "recurrentgemma-9b": "hybrid", "whisper-large-v3": "encdec",
-}
+NOT_PORTED = {"whisper-large-v3": "encdec"}
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: the port runs the dense "
-        "and MoE families only (ROADMAP.md, item 15 of the modules still to "
-        "port)")
+        f"{what} is not ported to repro_torch yet: the port runs the dense, "
+        "MoE, VLM, SSM and hybrid families only (ROADMAP.md, item 15 of the "
+        "modules still to port)")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -145,4 +143,5 @@ def get_config(name: str) -> ModelConfig:
 def load_all() -> None:
     from repro_torch.configs import (smollm_135m, qwen1_5_0_5b,  # noqa
                                      minitron_4b, llama3_8b, grok_1_314b,
-                                     kimi_k2_1t_a32b)
+                                     kimi_k2_1t_a32b, qwen2_vl_2b,
+                                     mamba2_2_7b, recurrentgemma_9b)

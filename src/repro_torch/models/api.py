@@ -1,9 +1,10 @@
 """Unified model API: family dispatch.
 
-Counterpart of ``repro/models/api.py``.  The port runs the dense and MoE
-families through ``models/transformer.py``; every other family of the
-reference raises ``NotImplementedError`` until its slice lands (ROADMAP
-item 15).
+Counterpart of ``repro/models/api.py``.  The port runs the dense, MoE and
+VLM families through ``models/transformer.py``, the SSM family through
+``models/mamba2.py`` and the hybrid through ``models/recurrentgemma.py``;
+the encoder-decoder family of the reference raises
+``NotImplementedError`` until its slice lands (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -12,9 +13,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, not_ported
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, recurrentgemma, transformer
 
-_FAMILY = {"dense": transformer, "moe": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": mamba2, "hybrid": recurrentgemma}
 
 
 def model_module(cfg: ModelConfig):

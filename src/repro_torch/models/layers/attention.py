@@ -154,15 +154,15 @@ def kv_cache_init(batch: int, s_max: int, n_kv: int, dh: int,
 
 
 def kv_cache_append(cache: KVCache, k_new: torch.Tensor,
-                    v_new: torch.Tensor) -> KVCache:
-    """Append S_new positions; returns a new cache.  One token (decode) is
-    written per sequence at its own ``length`` through a select, so a slot
-    whose length has reached s_max is left as it is; several tokens
-    (prefill) start at ``length[0]``, a position every sequence shares.
-    (The reference's ``ring`` wrap serves the local-attention caches of
-    RecurrentGemma, a later slice.)"""
+                    v_new: torch.Tensor, *, ring: bool = False) -> KVCache:
+    """Append S_new positions; returns a new cache.  ``ring=True`` wraps
+    the write position to ``length mod s_max`` (the local-attention caches
+    of RecurrentGemma).  One token (decode) is written per sequence at its
+    own position through a select, so without ``ring`` a slot whose length
+    has reached s_max is left as it is; several tokens (prefill) start at
+    the position of sequence 0, which every sequence shares."""
     s_max = cache.k.shape[1]
-    start = cache.length
+    start = torch.remainder(cache.length, s_max) if ring else cache.length
     if k_new.shape[1] == 1:
         pos = torch.arange(s_max, dtype=torch.int32, device=start.device)
         sel = pos[None, :, None, None] == start[:, None, None, None]
@@ -178,11 +178,15 @@ def kv_cache_append(cache: KVCache, k_new: torch.Tensor,
     return KVCache(k, v, cache.length + k_new.shape[1])
 
 
-def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
-    """One-token decode: q (B, 1, H, dh) against the cache, slots
-    ``kpos < length`` of each sequence; GQA is contracted group-wise so the
-    KV tensors are never repeated to full head count.  (The reference's
-    ``window`` serves RecurrentGemma, a later slice.)"""
+def decode_attention(q: torch.Tensor, cache: KVCache, *,
+                     window: int = 0) -> torch.Tensor:
+    """One-token decode: q (B, 1, H, dh) against the cache; GQA is
+    contracted group-wise so the KV tensors are never repeated to full
+    head count.  Without ``window`` a sequence sees its slots
+    ``kpos < length``.  With ``window`` and a ring cache no longer than
+    it (``s_max <= window``), every live slot is in the window: the mask
+    is ``kpos < min(length, s_max)``.  With a longer cache the window
+    mask ``kpos > length - 1 - window`` is added."""
     B, _, H, dh = q.shape
     s_max = cache.k.shape[1]
     Hkv = cache.k.shape[2]
@@ -191,7 +195,13 @@ def decode_attention(q: torch.Tensor, cache: KVCache) -> torch.Tensor:
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(),
                      cache.k.float())                       # (B, Hkv, G, S)
     kpos = torch.arange(s_max, device=q.device)
-    mask = kpos[None, :] < cache.length.expand(B)[:, None]
+    length = cache.length.expand(B)
+    if window and s_max <= window:
+        mask = kpos[None, :] < torch.clamp(length, max=s_max)[:, None]
+    else:
+        mask = kpos[None, :] < length[:, None]
+        if window:
+            mask = mask & (kpos[None, :] > (length - 1 - window)[:, None])
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)

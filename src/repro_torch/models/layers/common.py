@@ -1,9 +1,12 @@
-"""Shared layers: RMSNorm, RoPE, embedding and logits.
+"""Shared layers: RMSNorm, RoPE and M-RoPE, embedding and logits.
 
-Counterpart of ``repro/models/layers/common.py`` (the dense family's part).
+Counterpart of ``repro/models/layers/common.py`` (all but the LayerNorm of
+the encoder-decoder family).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -17,27 +20,53 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
+def _rope_freqs(dh: int, theta: float, device) -> torch.Tensor:
+    """The dh/2 rotary frequencies θ^(−i/half), f32."""
+    half = dh // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+
+
 def _rope_angles(positions: torch.Tensor, dh: int,
                  theta: float) -> torch.Tensor:
     """positions (..., S) → angles (..., S, dh//2), f32."""
-    half = dh // 2
-    exps = torch.arange(0, half, dtype=torch.float32,
-                        device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
-    return positions.float()[..., None] * freqs
+    return positions.float()[..., None] * _rope_freqs(dh, theta,
+                                                      positions.device)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the split halves (x1, x2) of each head of x (B, S, H, dh) by
+    the angles (B, S, dh/2), in f32, cast back to x's type."""
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, dh); positions: (B, S) int.  Rotates the split halves
     (x1, x2) of each head, not interleaved pairs."""
+    return _rotate(x, _rope_angles(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, S, H, dh); positions: (B, S, 3),
+    the (t, h, w) ids of each token (text tokens carry t = h = w).  The
+    dh/2 rotary frequencies are split into the three sections in order,
+    and each section turns by its own id."""
     dh = x.shape[-1]
-    ang = _rope_angles(positions, dh, theta)          # (B, S, half)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    half = dh // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"dh/2 = {half}")
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))              # (half,)
+    pos = positions[..., sec_id].float()                      # (B, S, half)
+    return _rotate(x, pos * _rope_freqs(dh, theta, x.device))
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

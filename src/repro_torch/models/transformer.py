@@ -1,14 +1,18 @@
 """Decoder-only transformer: smollm-135m / qwen1.5-0.5b / minitron-4b /
-llama3-8b (dense GQA) and grok-1 / kimi-k2 (MoE), training forward,
-prefill and decode.
+llama3-8b (dense GQA), grok-1 / kimi-k2 (MoE) and qwen2-vl-2b (M-RoPE
+VLM), training forward, prefill and decode.
 
-Counterpart of ``repro/models/transformer.py`` for the dense and MoE
-families.  Pre-norm RMSNorm blocks, RoPE, SwiGLU or the MoE block
-(``models/layers/moe.py``, one device), KV-cache prefill and decode.  The
-reference's ``lax.scan`` over the stacked ``(L, ...)`` layer weights is a
-Python loop over the layer axis; the weights keep the stacked layout, and
-its ``jax.checkpoint`` policies become ``torch.utils.checkpoint`` per
-layer.  M-RoPE comes in a later slice (ROADMAP item 15).
+Counterpart of ``repro/models/transformer.py``.  Pre-norm RMSNorm blocks,
+RoPE or M-RoPE, SwiGLU or the MoE block (``models/layers/moe.py``, one
+device), KV-cache prefill and decode.  The reference's ``lax.scan`` over
+the stacked ``(L, ...)`` layer weights is a Python loop over the layer
+axis; the weights keep the stacked layout, and its ``jax.checkpoint``
+policies become ``torch.utils.checkpoint`` per layer.
+
+The VLM's vision frontend is a stub in both packages: its prefill and
+training forward take the (B, S, 3) M-RoPE position ids from the caller
+and raise without them (the reference has no default ids either; its
+``ServeEngine`` passes none and fails in ``apply_mrope``).
 """
 
 from __future__ import annotations
@@ -19,26 +23,20 @@ from typing import Dict, Tuple
 import torch
 from torch.utils import checkpoint as tcp
 
-from repro_torch.configs.base import ModelConfig, not_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.attention import (KVCache, attention_any,
                                                  decode_attention,
                                                  kv_cache_append,
                                                  kv_cache_init)
-from repro_torch.models.layers.common import (apply_rope, embed, logits,
-                                              matmul, rms_norm)
+from repro_torch.models.layers.common import (apply_mrope, apply_rope,
+                                              embed, logits, matmul,
+                                              rms_norm)
 from repro_torch.models.layers.mlp import swiglu
 from repro_torch.models.layers.moe import moe_block, virtual_expert_shapes
 from repro_torch.models.params import ParamDef
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse what a config of this family could name but the port lacks."""
-    if cfg.mrope_sections is not None:
-        raise not_ported(f"M-RoPE of {cfg.name}")
-
-
 def param_defs(cfg: ModelConfig) -> Dict:
-    _check_ported(cfg)
     L, D, dh = cfg.n_layers, cfg.d_model, cfg.dh
     H, KV, F, V = cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab
     layers: Dict = {
@@ -83,7 +81,29 @@ def _layer(params, i: int) -> Dict[str, torch.Tensor]:
 
 
 def _rope(cfg: ModelConfig, x, positions):
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _positions(cfg: ModelConfig, batch, tokens):
+    """The batch's position ids: (B, S, 3) M-RoPE ids, which a VLM batch
+    must carry, or (B, S) ids, 0..S-1 by default."""
+    positions = batch.get("positions")
+    B, S = tokens.shape
+    if cfg.mrope_sections is not None:
+        if positions is None or tuple(positions.shape) != (B, S, 3):
+            raise ValueError(
+                f"{cfg.name} needs the (B, S, 3) = ({B}, {S}, 3) M-RoPE "
+                "position ids of its tokens as batch['positions'] (its "
+                "vision frontend is a stub); got "
+                + ("none" if positions is None
+                   else f"shape {tuple(positions.shape)}"))
+        return positions
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+    return positions
 
 
 def _qkv(cfg: ModelConfig, lp, h, positions):
@@ -166,13 +186,8 @@ def forward_train(cfg: ModelConfig, params, batch
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, V) f32, aux): aux is the MoE
     balance loss averaged over the layers, 0 for the dense family."""
-    _check_ported(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
+    positions = _positions(cfg, batch, tokens)
     x = embed(tokens, params["embed"]).to(_act(cfg))
     layer = _remat(cfg, functools.partial(_layer_train, cfg))
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -208,10 +223,7 @@ def forward_prefill(cfg: ModelConfig, params, batch):
     whose ``length`` is S for every layer and sequence)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
+    positions = _positions(cfg, batch, tokens)
     act = _act(cfg)
     x = embed(tokens, params["embed"]).to(act)
 
@@ -239,6 +251,8 @@ def forward_decode(cfg: ModelConfig, params, tokens, caches: KVCache):
     """One-token decode.  tokens (B, 1); caches = stacked KVCache.  Returns
     (logits (B, 1, V) f32, the new caches)."""
     pos = caches.length[0][:, None].to(torch.int32)           # (B, 1)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(pos.shape[0], 1, 3)        # t = h = w
     x = embed(tokens, params["embed"]).to(_act(cfg))
     new = []
     for i in range(cfg.n_layers):

@@ -29,7 +29,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.mesh import local_device
 from repro_torch.models import api
-from repro_torch.models.layers.attention import KVCache
 from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
     SlabTransfer, make_pipeline
 from repro_torch.serve.serve_step import build_decode_step, \
@@ -40,7 +39,7 @@ from repro_torch.sketch.api import agg_tree, make_sketch, restore_fleet, \
 from repro_torch.sketch.history import HistoryPlane, install_query_interval
 from repro_torch.sketch.query import as_cohort
 from repro_torch.sketch.score import ScorePlane
-from repro_torch.tree import take
+from repro_torch.tree import leaves, take
 
 
 @dataclasses.dataclass
@@ -228,19 +227,26 @@ def _fleet_rows(fc, espec: Dict[str, Any]) -> int:
         int(e["rows_ingested"]) - int(e["rows_base"]) for e in engines)
 
 
-def _splice_caches(big: KVCache, one: KVCache, slot: int) -> None:
+def _splice_caches(big, one, slot: int) -> None:
     """Write a batch-1 prefill cache into batch slot ``slot`` of the
-    engine's stacked caches, left-aligned: entries [0, b) hold the prefill,
-    zeros follow up to s_max, and ``length`` becomes b, so the next decode
-    token lands at position b (``kv_cache_append`` writes at ``length``,
-    ``decode_attention`` masks ``kpos < length``).  The reference returns a
-    new cache; here the engine's own tensors are written in place, which
-    saves a copy of the whole cache per admission."""
-    b = one.k.shape[2]
-    for dst, src in ((big.k, one.k), (big.v, one.v)):
-        dst[:, slot, :b] = src[:, 0].to(dst.dtype)
-        dst[:, slot, b:] = 0
-    big.length[:, slot] = one.length[:, 0]
+    engine's stacked caches, leaf by leaf with the reference's rule, for
+    any cache NamedTuple (``KVCache``, ``SSMCache``, ``RGCache``): each
+    layer-stacked leaf (L, 1, ...) goes into ``[:, slot]``, the per-layer
+    lengths (L, 1) among them; where its sequence axis (dim 2) is shorter
+    than the engine's, it is left-aligned with zeros after it, so entries
+    [0, b) hold the prefill and the next decode token lands at position b
+    (``kv_cache_append`` writes at ``length``, ``decode_attention`` masks
+    ``kpos < length``).  The reference returns a new cache; here the
+    engine's own tensors are written in place, which saves a copy of the
+    whole cache per admission."""
+    for dst, src in zip(leaves(big), leaves(one)):
+        src = src[:, 0].to(dst.dtype)
+        if dst.shape[2:] != src.shape[1:]:
+            n = src.shape[1]
+            dst[:, slot, :n] = src
+            dst[:, slot, n:] = 0
+        else:
+            dst[:, slot] = src
 
 
 class SketchFleetEngine:

@@ -2,7 +2,9 @@
 the krylov engine through them (the fused kernels at ε = 1/4, the split
 route's kernels at ε = 1/128), the dense serving path through the
 flash kernel against the same engine on the CPU, the MoE block and a
-reduced MoE serving engine against the CPU, the history plane on
+reduced MoE serving engine against the CPU, the reduced VLM, SSM and
+hybrid models against the CPU (the VLM's prefill also through the flash
+kernel at head_dim 128), the history plane on
 the card against the CPU, checkpoints that cross between card and CPU,
 the async pipeline's unwind with a copy in flight, and a fleet across two
 processes that share the card.
@@ -863,6 +865,109 @@ def test_moe_serve_engine_on_the_card_matches_the_cpu(cuda):
         done = eng.run()
         out[dev] = ({u: r.out_tokens for u, r in done.items()}, eng.ticks)
     assert out["cuda"] == out["cpu"]
+
+
+def _vlm_positions(B, before, grid, after):
+    """(B, S, 3) M-RoPE ids of text, a (t, h, w) image grid, text, laid
+    out as Qwen2-VL's ``get_rope_index``."""
+    t, h, w = grid
+    ids = [(i, i, i) for i in range(before)]
+    ids += [(before + a, before + b, before + c)
+            for a in range(t) for b in range(h) for c in range(w)]
+    ids += [(before + max(t, h, w) + i,) * 3 for i in range(after)]
+    return torch.tensor(ids, dtype=torch.int32).expand(B, len(ids), 3)
+
+
+def _greedy_from_prefill(cfg, params, batch, steps, dev):
+    """Prefill then ``steps`` greedy decode steps on a cache with room:
+    (prefill logits, tokens (B, steps + 1))."""
+    B, S = batch["tokens"].shape
+    with torch.no_grad():
+        lg, pre = api.forward_prefill(cfg, params, batch)
+        caches = api.init_cache(cfg, B, S + steps, torch.float32, dev)
+        caches.k[:, :, :S] = pre.k
+        caches.v[:, :, :S] = pre.v
+        caches.length[:] = pre.length
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks = [tok]
+        for _ in range(steps):
+            out, caches = api.forward_decode(cfg, params, tok, caches)
+            tok = torch.argmax(out[:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+    return lg, torch.cat(toks, dim=1)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
+def test_new_families_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced VLM, SSM and hybrid models (f32) on the card against the
+    CPU: a 32-token prefill's logits within 1e-4, and greedy tokens
+    identical: mamba2 and recurrentgemma through ServeEngine (prompts in
+    both buckets), qwen2-vl through prefill and 4 decode steps with an
+    image block's ids (its engine passes no M-RoPE ids)."""
+    cfg = get_config(arch).reduced()
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(
+        np.int32))
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in (9, 30, 12)]
+    logits, out = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        batch = {"tokens": toks.to(dev)}
+        if cfg.family == "vlm":
+            batch["positions"] = _vlm_positions(2, 4, (1, 4, 6), 4).to(dev)
+            logits[dev], out[dev] = _greedy_from_prefill(cfg, p, batch, 4,
+                                                         dev)
+            out[dev] = out[dev].cpu()
+            continue
+        with torch.no_grad():
+            logits[dev], _ = api.forward_prefill(cfg, p, batch)
+        eng = ServeEngine(cfg, p, EngineConfig(
+            slots=2, s_max=64, prefill_buckets=(16, 32)), device=dev)
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=pr, max_new=4))
+        done = eng.run()
+        out[dev] = ({u: r.out_tokens for u, r in done.items()}, eng.ticks)
+    torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                               rtol=1e-4, atol=1e-4)
+    if cfg.family == "vlm":
+        assert torch.equal(out["cuda"], out["cpu"])
+    else:
+        assert out["cuda"] == out["cpu"]
+
+
+def test_vlm_prefill_on_the_card_goes_through_flash(cuda):
+    """qwen2-vl reduced to 2 layers at its full head_dim 128 (4 heads over
+    2 KV heads) and M-RoPE sections (16, 24, 24), bf16, ``use_flash``: a
+    256-token prefill with an image block launches the bf16 flash kernel
+    once a layer, and its logits lie within the file's bf16 bound (2e-2
+    relative) of the CPU's plain version."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b").reduced(),
+                              head_dim=128, mrope_sections=(16, 24, 24),
+                              use_flash=True, param_dtype="bfloat16",
+                              act_dtype="bfloat16")
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(1),
+                         dtype=torch.bfloat16, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, 256)).astype(np.int32))
+    pos = _vlm_positions(1, 64, (1, 8, 16), 64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        n0 = flash_kernel.flash_fwd.launches
+        with torch.no_grad():
+            lg, caches = api.forward_prefill(cfg, _to(params, dev), {
+                "tokens": toks.to(dev), "positions": pos.to(dev)})
+        assert flash_kernel.flash_fwd.launches - n0 == (
+            cfg.n_layers if dev == "cuda" else 0)
+        out[dev] = lg.float().cpu()
+    assert torch.isfinite(out["cuda"]).all()
+    rel = float(torch.linalg.norm(out["cuda"] - out["cpu"])
+                / torch.linalg.norm(out["cpu"]))
+    assert rel <= 2e-2, rel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

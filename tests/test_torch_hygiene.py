@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core import dsfd, fd, seq_dsfd
-from repro_torch import convert
+from repro_torch import convert, tree
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import dispatch
 from repro_torch.launch import mesh
@@ -77,7 +77,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.core.baselines.sampling",
             "repro_torch.sketch.runner", "repro_torch.models.layers.moe",
             "repro_torch.configs.grok_1_314b",
-            "repro_torch.configs.kimi_k2_1t_a32b"} <= names
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.qwen2_vl_2b",
+            "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.models.layers.ssm", "repro_torch.models.mamba2",
+            "repro_torch.models.layers.rglru",
+            "repro_torch.models.recurrentgemma"} <= names
 
 
 def _topo(S, P=2, pid=0):
@@ -155,6 +161,19 @@ def no_cuda(monkeypatch):
                         torch.Generator()),
     lambda: ServeEngine(*_tiny_model("kimi-k2-1t-a32b"),
                         EngineConfig(slots=1, s_max=32)),
+    lambda: api.init_cache(get_config("qwen2-vl-2b").reduced(), 1, 8),
+    lambda: api.init_cache(get_config("mamba2-2.7b").reduced(), 1, 8),
+    lambda: api.init_cache(get_config("recurrentgemma-9b").reduced(), 1, 8),
+    lambda: init_params(api.param_defs(get_config("qwen2-vl-2b").reduced()),
+                        torch.Generator()),
+    lambda: init_params(api.param_defs(get_config("mamba2-2.7b").reduced()),
+                        torch.Generator()),
+    lambda: init_params(api.param_defs(
+        get_config("recurrentgemma-9b").reduced()), torch.Generator()),
+    lambda: ServeEngine(*_tiny_model("mamba2-2.7b"),
+                        EngineConfig(slots=1, s_max=32)),
+    lambda: ServeEngine(*_tiny_model("recurrentgemma-9b"),
+                        EngineConfig(slots=1, s_max=32)),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
@@ -166,7 +185,10 @@ def no_cuda(monkeypatch):
         "topology-fleet", "topology-engine", "local-device", "train",
         "launch-train", "init-sketch-state", "sketch-init", "compress-init",
         "make_sketch-lmfd", "make_sketch-difd", "make_sketch-swr",
-        "make_sketch-swor", "run-sketch", "init-params-moe", "serve-moe"])
+        "make_sketch-swor", "run-sketch", "init-params-moe", "serve-moe",
+        "init-cache-vlm", "init-cache-ssm", "init-cache-hybrid",
+        "init-params-vlm", "init-params-ssm", "init-params-hybrid",
+        "serve-ssm", "serve-hybrid"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -228,6 +250,19 @@ def test_init_cache_runs_on_the_cpu_when_named(no_cuda):
     assert caches.k.shape == (cfg.n_layers, 2, 8, cfg.n_kv, cfg.dh)
     assert caches.k.device.type == "cpu" and not caches.length.any()
     assert kv_cache_init(1, 8, 2, 4, device="cpu").k.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
+def test_new_families_run_on_the_cpu_when_named(no_cuda, arch):
+    cfg, params = _tiny_model(arch)
+    caches = api.init_cache(cfg, 2, 8, torch.float32, "cpu")
+    assert all(t.device.type == "cpu" for t in tree.leaves(caches))
+    assert all(t.device.type == "cpu" for t in tree.leaves(params))
+    if cfg.family != "vlm":          # the VLM's engine lacks M-RoPE ids
+        eng = ServeEngine(cfg, params, EngineConfig(slots=1, s_max=32),
+                          device="cpu")
+        assert all(t.device.type == "cpu" for t in tree.leaves(eng.caches))
 
 
 def test_launch_serve_runs_on_the_cpu_when_named(no_cuda, capsys):

@@ -95,19 +95,19 @@ def _tokens(cfg, B, S, seed):
 
 
 def test_configs_match_the_reference():
-    for arch in ("smollm-135m", "qwen1.5-0.5b", "minitron-4b", "llama3-8b"):
+    for arch in ("smollm-135m", "qwen1.5-0.5b", "minitron-4b", "llama3-8b",
+                 "qwen2-vl-2b", "mamba2-2.7b", "recurrentgemma-9b"):
         ref, port = ref_get_config(arch), get_config(arch)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert dataclasses.asdict(port.reduced()) == \
             dataclasses.asdict(ref.reduced())
         assert count_params(api.param_defs(port)) == \
             ref_count_params(ref_api.param_defs(ref))
-    for arch in ("qwen2-vl-2b", "mamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            get_config(arch)
-    ssm = dataclasses.replace(get_config("llama3-8b"), family="ssm")
     with pytest.raises(NotImplementedError, match="item 15"):
-        api.param_defs(ssm)
+        get_config("whisper-large-v3")
+    encdec = dataclasses.replace(get_config("llama3-8b"), family="encdec")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        api.param_defs(encdec)
 
 
 def test_convert_checks_the_tree(model):
