@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--ticks 160] [--fast-ticks 12]
-                          [--fine-ticks 160] [--layered-ticks 160]
-                          [--time-ticks 160] [--score-ticks 64]
+    python3 chip_smoke.py [--seed 0] [--ticks 144] [--fast-ticks 12]
+                          [--fine-ticks 144] [--layered-ticks 144]
+                          [--time-ticks 144] [--score-ticks 64]
                           [--history-ticks 192] [--topology-ticks 128]
                           [--train-steps 30] [--train-extra-steps 2]
 
@@ -43,8 +43,9 @@ Phases, each printing its seconds on a line of its own:
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
-   ``submit_many`` with 8 unit-norm rows per user per tick for 1.25·N
-   rows per user.  Both fused kernels' launch counts must be > 0 and the split
+   ``submit_many`` with 8 unit-norm rows per user per tick for 1.125·N
+   rows per user (cut from 1.25·N for the script's time limit; the last
+   N/8 rows still slide the window).  Both fused kernels' launch counts must be > 0 and the split
    kernels' 0; every one of the 1024 users is held to Theorem 3.1
    (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) against the exact window Gram from
    ``window_gram`` on the card (the script keeps every user's last N rows
@@ -72,9 +73,9 @@ Phases, each printing its seconds on a line of its own:
 6. layered — Seq-DS-FD at full width:
    ``SketchFleetEngine("seq-dsfd", d=300, streams=128, eps=1/32,
    window=1024, block=8, mode="krylov", R=64)`` (7 levels, θⱼ = 32·2ʲ)
-   for 160 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
+   for 144 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
    with 2 % at 0.99·R; then Time-DS-FD, ``("time-dsfd", streams=32,
-   R=16)`` (10 levels, θⱼ = 2ʲ) for 160 ticks, half its users idle every
+   R=16)`` (10 levels, θⱼ = 2ʲ) for 144 ticks, half its users idle every
    other 4 ticks.  Every user of both is held to βε‖A_W‖_F² (β = 4,
    Theorem 4.1 / Corollary 5.1) through ``window_gram`` on the card; the
    fused kernels must launch and the split ones not; the heavy-row bypass
@@ -155,7 +156,8 @@ Phases, each printing its seconds on a line of its own:
    multiplies every expert's buffer) over 3.35 TB/s.  Then grok-1 and
    kimi-k2 reduced (2 layers, f32) on the card and on the CPU: prefill
    logits within 1e-4, greedy tokens identical.
-12. zoo    — the VLM, SSM and hybrid families at full width and depth,
+12. zoo    — the VLM, SSM, hybrid and encoder-decoder families at full
+   width and depth,
    seeded bf16 weights, each freed before the next is drawn: qwen2-vl-2b
    (28 layers, d_model 1536, 12/2 heads, dh 128, M-RoPE sections
    (16, 24, 24), ``use_flash=True``; 3.09 GB) prefills a batch of 4
@@ -177,9 +179,22 @@ Phases, each printing its seconds on a line of its own:
    a decode tick and a prefill, and for mamba2 and recurrentgemma the
    device time of the SSD scan (``ssd_chunked``) and of the RG-LRU scan
    within a 512-token prefill.  Phase kernels times the flash kernel at
-   qwen2-vl's (4, 512, 12, 2, 128) beside SDPA.  Then the three reduced
-   (f32) on the card and on the CPU: prefill logits within 1e-4, greedy
-   tokens identical (qwen2-vl with image ids).
+   qwen2-vl's (4, 512, 12, 2, 128) beside SDPA.  Then whisper-large-v3
+   (32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64,
+   vocab 51,866; 3.16 GB), around the engine (whose ``_admit`` passes no
+   frames, as in the reference): a prefill of 4 stub frame windows
+   (4, 1500, 1280), each 30 s of audio after the conv frontend, under
+   4-token prompts (start of transcript, language, task, no timestamps),
+   its self cache spliced slot by slot through ``ServeEngine``'s
+   ``_splice_caches`` into a cache of 448 slots (Whisper's decoder
+   context), 32 greedy decode ticks, then one (1, 228) prefill (224
+   previous-text tokens and the 4); no flash launch.  It prints the
+   prefill's first and warm ms and the encoder's share, ms per tick,
+   tokens/s, peak memory, a ``torch.profiler`` breakdown, the tick beside
+   the bytes it must read and the prefill beside its operations counted
+   from the model's shapes.  Then the four reduced (f32) on the card and
+   on the CPU: prefill logits within 1e-4, greedy tokens identical
+   (qwen2-vl with image ids, Whisper with frames).
 13. train  — the training path at full width: ``train()`` (the
    launcher's code path) on smollm-135m (30 layers, d_model 576, 9/3
    heads, dh 64, vocab 49152) with ``use_flash=True``, ``remat="full"``,
@@ -2818,7 +2833,7 @@ def check_moe_reduced(seed: int, device: str = "cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase zoo: the VLM, SSM and hybrid families at full width
+# phase zoo: the VLM, SSM, hybrid and encoder-decoder families at full width
 # ---------------------------------------------------------------------------
 
 # qwen2-vl-2b: a batch of 4 prompts of 64 text tokens, a stub image of
@@ -2830,7 +2845,16 @@ ZOO_VLM_PROMPTS = ((ZOO_VLM_BATCH, (64, (1, 16, 24), 64)),
 # the SSM and hybrid through the serve phase's engine and traffic
 ZOO_ENGINE_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
 ZOO_REQUESTS, ZOO_PROMPT = SERVE_REQUESTS, (200, 512)
-ZOO_CHECKED = ("qwen2-vl-2b", "mamba2-2.7b", "recurrentgemma-9b")
+ZOO_CHECKED = ("qwen2-vl-2b", "mamba2-2.7b", "recurrentgemma-9b",
+               "whisper-large-v3")
+# whisper-large-v3: 4 stub frame windows under Whisper's 4-token prompt
+# (<|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> in
+# large-v3's vocabulary), a cache of its 448-token decoder context, 32
+# greedy ticks (cut from 64 for the script's time limit); then one window
+# under 224 previous-text tokens (its prompt limit) and the 4
+ZOO_WHISPER, ZOO_WHISPER_BATCH, ZOO_WHISPER_TICKS = "whisper-large-v3", 4, 32
+WHISPER_SOT = (50258, 50259, 50360, 50364)
+WHISPER_CONTEXT, WHISPER_PREV = 448, 224
 ZOO_LOGIT_TOL = 1e-4    # f32 throughout, TF32 off: only summation order
 
 
@@ -2996,11 +3020,15 @@ def run_vlm(seed: int, device: str = "cuda") -> dict:
     return {"launches": launches}
 
 
-def _scan_share(label: str, module, name: str, prefill, busy: float) -> None:
-    """The device time of ``module.name`` (the SSD or RG-LRU scan) within
-    one prefill: its calls' arguments are caught during ``prefill()``, the
-    first call is timed alone by ``device_ms`` and counted once a call,
-    beside the prefill's device busy time."""
+def _scan_share(label: str, module, name: str, prefill, busy: float,
+                events: bool = False) -> None:
+    """The device time of ``module.name`` (the SSD or RG-LRU scan, or
+    Whisper's encoder self-attention) within one prefill: its calls'
+    arguments are caught during ``prefill()``, the first call is timed
+    alone by ``device_ms``, or with ``events`` by CUDA events (a call of
+    milliseconds of device work, where ``torch.profiler`` sessions lost
+    records), and counted once a call, beside the prefill's device busy
+    time."""
     import torch
 
     fn, seen = getattr(module, name), []
@@ -3017,10 +3045,15 @@ def _scan_share(label: str, module, name: str, prefill, busy: float) -> None:
         setattr(module, name, fn)
     args, kw = seen[0]
     with torch.no_grad():
-        one = device_ms(lambda: fn(*args, **kw), reps=5)
+        if events:
+            one = time_in_turns({name: lambda: fn(*args, **kw)}, rounds=3,
+                                reps=5)[name]
+        else:
+            one = device_ms(lambda: fn(*args, **kw), reps=5)
     total = None if one is None else one * len(seen)
+    how = "CUDA events" if events else "torch.profiler"
     log(f"{label} {name}: {len(seen)} calls a prefill, device "
-        f"{fmt_ms(one)} ms each (torch.profiler), {fmt_ms(total)} ms a "
+        f"{fmt_ms(one)} ms each ({how}), {fmt_ms(total)} ms a "
         f"prefill" + ("" if total is None else
                       f" of its {busy:.3f} ms device busy "
                       f"({100 * total / busy:.1f}%)"))
@@ -3085,27 +3118,205 @@ def run_zoo_engines(seed: int, device: str = "cuda") -> None:
     torch.cuda.empty_cache()
 
 
+def whisper_prefill_gflop(cfg, B: int, S: int) -> dict:
+    """The operations of one Whisper prefill, counted from the model's
+    shapes (not ``launch/flops.py``, which counts the encoder once a
+    decoder token: ROADMAP §3 note (r)), in GFLOP: the weight products
+    over the frames and the prompt ("products") and the attention's
+    (q·kᵀ and p·v: "attention", which the port runs in f32)."""
+    D, F, V, Fr = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.enc_frames
+    enc = 2.0 * B * Fr * (4 * D * D + 2 * D * F) * cfg.enc_layers
+    dec = 2.0 * cfg.n_layers * (B * S * (6 * D * D + 2 * D * F)
+                                + B * Fr * 2 * D * D)
+    head = 2.0 * B * V * D                      # the last position only
+    attn = 4.0 * D * (B * Fr * Fr * cfg.enc_layers
+                      + cfg.n_layers * (B * S * S + B * S * Fr))
+    return {"products": (enc + dec + head) / 1e9, "attention": attn / 1e9,
+            "encoder": (enc + 4.0 * D * B * Fr * Fr * cfg.enc_layers) / 1e9}
+
+
+def whisper_tick_bytes(cfg, params, B: int, length: float) -> dict:
+    """The bytes one Whisper decode tick must read: the decoder's weights
+    (one row of each position table), the tied table and its f32 copy in
+    ``logits`` (6 bytes an entry), the cross K/V over the frames and the
+    self cache's ``length`` live slots."""
+    from repro_torch.tree import leaves
+
+    dec = sum(x.numel() * x.element_size()
+              for x in leaves(params["dec_layers"]))
+    dec += sum(params[k].numel() * params[k].element_size()
+               for k in ("dec_final_s", "dec_final_b"))
+    table = 6 * params["embed"].numel()
+    size = params["embed"].element_size()
+    cross = 2 * cfg.n_layers * B * cfg.enc_frames * cfg.d_model * size
+    self_kv = 2 * cfg.n_layers * B * length * cfg.d_model * size
+    return {"decoder weights": dec, "table and f32 copy": table,
+            "cross K/V": cross, "self cache": self_kv}
+
+
+def run_whisper(seed: int, device: str = "cuda") -> None:
+    """whisper-large-v3 at full width and depth (32 + 32 layers, seeded
+    bf16 weights), around the engine (note (q)): a prefill of
+    ``ZOO_WHISPER_BATCH`` stub frame windows under Whisper's 4-token
+    prompt, its self cache spliced slot by slot through ``ServeEngine``'s
+    ``_splice_caches`` into a ``WHISPER_CONTEXT``-slot cache,
+    ``ZOO_WHISPER_TICKS`` greedy decode ticks, then one window under
+    ``WHISPER_PREV`` previous-text tokens and the 4.  Every attention takes
+    the one-shot path, as in the reference: no flash launch."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models import api, whisper
+    from repro_torch.serve.engine import _splice_caches
+    from repro_torch.tree import tree_map
+
+    dev = torch.device(device)
+    cfg = get_config(ZOO_WHISPER)
+    params, init_s = _draw(cfg, seed, dev)
+    B, P = ZOO_WHISPER_BATCH, len(WHISPER_SOT)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def frames(n):
+        return torch.randn((n, cfg.enc_frames, cfg.d_model), generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    sot = torch.tensor(WHISPER_SOT, dtype=torch.int32, device=dev)
+    batch = {"tokens": sot.expand(B, P).contiguous(), "frames": frames(B)}
+    prev = np.random.default_rng(seed).integers(
+        0, WHISPER_SOT[0], WHISPER_PREV).astype(np.int32)
+    long = {"tokens": torch.cat([torch.from_numpy(prev).to(dev), sot])[None],
+            "frames": frames(1)}
+    label = (f"zoo {ZOO_WHISPER} ({cfg.enc_layers} encoder + "
+             f"{cfg.n_layers} decoder layers)")
+    kernel.flash_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        (lg, pre), first_ms = _sync_ms(lambda: api.forward_prefill(
+            cfg, params, batch))
+        _, warm_ms = _sync_ms(lambda: api.forward_prefill(cfg, params,
+                                                          batch))
+        _, enc_ms = _sync_ms(lambda: whisper.encode(cfg, params,
+                                                    batch["frames"]))
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{label}: prefill logits not finite")
+        caches = api.init_cache(cfg, B, WHISPER_CONTEXT, torch.bfloat16, dev)
+        for b in range(B):
+            _splice_caches(caches, tree_map(lambda x: x[:, b:b + 1], pre), b)
+        if not (torch.equal(caches.self_kv.k[:, :, :P], pre.self_kv.k)
+                and torch.equal(caches.cross_v, pre.cross_v)
+                and not caches.self_kv.k[:, :, P:].any()):
+            raise AssertionError(f"{label}: the spliced cache is not the "
+                                 "prefill's, left-aligned")
+        del pre
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks, decode_ms = [tok], []
+        for _ in range(ZOO_WHISPER_TICKS):
+            (lg, caches), ms = _sync_ms(lambda: api.forward_decode(
+                cfg, params, tok, caches))
+            decode_ms.append(ms)
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{label}: decode logits not finite")
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+        wall = time.perf_counter() - t0
+        (lg_long, _), long_ms = _sync_ms(lambda: api.forward_prefill(
+            cfg, params, long))
+        if not bool(torch.isfinite(lg_long).all()):
+            raise AssertionError(f"{label}: (1, {P + WHISPER_PREV}) prefill "
+                                 "logits not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = torch.cat(toks, dim=1).cpu().numpy()
+    want = [[P + ZOO_WHISPER_TICKS] * B] * cfg.n_layers
+    if caches.self_kv.length.tolist() != want:
+        raise AssertionError(f"{label}: cache lengths "
+                             f"{caches.self_kv.length[:, 0].tolist()}")
+    if toks.shape != (B, ZOO_WHISPER_TICKS + 1) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{label}: tokens {toks.shape}, range "
+                             f"[{toks.min()}, {toks.max()}]")
+    if kernel.flash_fwd.launches:
+        raise AssertionError(f"{label}: flash_fwd launched "
+                             f"{kernel.flash_fwd.launches} times; expected "
+                             "none")
+    log(f"{label}: bf16 weights {param_bytes(params) / 1e9:.2f} GB drawn in "
+        f"{init_s:.3f} s; {B} stub frame windows "
+        f"{tuple(batch['frames'].shape)} under the prompt {WHISPER_SOT}, "
+        f"the self cache spliced into {WHISPER_CONTEXT} slots; one-shot "
+        "attention, no flash launch")
+    log(f"{label} prefill {tuple(batch['tokens'].shape)}: {first_ms:.3f} ms "
+        f"first call, {warm_ms:.3f} ms warm, of which the encoder "
+        f"{enc_ms:.3f} ms ({100 * enc_ms / warm_ms:.1f}%, host clock); "
+        f"(1, {P + WHISPER_PREV}) prefill {long_ms:.3f} ms first call")
+    tick = float(np.median(decode_ms))
+    log(f"{label} decode: {len(decode_ms)} ticks of {B} sequences, "
+        f"{tick:.3f} ms median per tick ({min(decode_ms):.3f}-"
+        f"{max(decode_ms):.3f}); {toks.size} tokens in {wall:.3f} s: "
+        f"{toks.size / wall:.1f} generated tokens/s; peak memory "
+        f"{peak:.2f} GiB")
+    parts = whisper_tick_bytes(cfg, params, B,
+                               P + (ZOO_WHISPER_TICKS + 1) / 2)
+    nbytes = sum(parts.values())
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    log(f"{label} decode tick: {tick:.3f} ms median against its bytes bound "
+        f"{bound:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s: "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
+        + f"; {100 * bound / tick:.1f}% of it)")
+    ops = whisper_prefill_gflop(cfg, B, P)
+    bf16 = (ops["products"] + ops["attention"]) / PEAK_BF16_FLOPS * 1e12
+    mixed = (ops["products"] / PEAK_BF16_FLOPS
+             + ops["attention"] / PEAK_F32_FLOPS) * 1e12
+    share = 100 * bf16 / warm_ms
+    log(f"{label} prefill {tuple(batch['tokens'].shape)}: {warm_ms:.3f} ms "
+        f"warm against its operations bound {bf16:.3f} ms "
+        f"({ops['products'] + ops['attention']:.1f} GFLOP counted from the "
+        f"shapes, all at the bf16 peak of 989 TFLOP/s: {share:.1f}% of it); "
+        f"the attention's {ops['attention']:.1f} GFLOP run as f32 products, "
+        f"at 67 TFLOP/s the bound is {mixed:.3f} ms; the encoder "
+        f"{ops['encoder']:.1f} GFLOP")
+    _head_cost(label, cfg, params, B)
+    name = f"prefill {tuple(batch['tokens'].shape)}"
+    walls = profile_calls(f"{label} breakdown", {
+        "decode tick": lambda: api.forward_decode(cfg, params, tok, caches),
+        name: lambda: api.forward_prefill(cfg, params, batch),
+        "encoder": lambda: whisper.encode(cfg, params, batch["frames"])})
+    # the encoder's self-attention: the only full_attention of a prefill
+    _scan_share(label, whisper, "full_attention",
+                lambda: api.forward_prefill(cfg, params, batch),
+                walls[name][1], events=True)
+    del params, caches, batch, long
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_zoo(seed: int, device: str = "cuda") -> dict:
     """The zoo phase's full-width runs; returns the flash launches."""
     out = run_vlm(seed, device)
     run_zoo_engines(seed, device)
+    run_whisper(seed, device)
     return out
 
 
 def _with_room(cfg, pre, steps: int, dtype):
-    """A prefill's KV caches copied into empty ones ``steps`` positions
-    longer, for the decode steps to append to."""
+    """A prefill's caches copied into empty ones ``steps`` positions
+    longer, for the decode steps to append to: the KV caches, or a
+    ``WhisperCache``'s self cache (its cross K/V carried as they are)."""
     from repro_torch.models import api
 
-    _, B, S = pre.k.shape[:3]
-    caches = api.init_cache(cfg, B, S + steps, dtype, pre.k.device)
-    caches.k[:, :, :S] = pre.k
-    caches.v[:, :, :S] = pre.v
-    caches.length[:] = pre.length
+    kv = getattr(pre, "self_kv", pre)
+    _, B, S = kv.k.shape[:3]
+    caches = api.init_cache(cfg, B, S + steps, dtype, kv.k.device)
+    room = getattr(caches, "self_kv", caches)
+    room.k[:, :, :S] = kv.k
+    room.v[:, :, :S] = kv.v
+    room.length[:] = kv.length
+    if room is not caches:
+        caches = caches._replace(cross_k=pre.cross_k, cross_v=pre.cross_v)
     return caches
 
 
-def _greedy_vlm(cfg, params, batch, steps: int):
+def _greedy(cfg, params, batch, steps: int):
     """Prefill then ``steps`` greedy decode steps from a cache with room:
     (prefill logits, tokens (B, steps + 1))."""
     import torch
@@ -3125,11 +3336,12 @@ def _greedy_vlm(cfg, params, batch, steps: int):
 
 
 def check_zoo_reduced(seed: int, device: str = "cuda") -> None:
-    """qwen2-vl, mamba2 and recurrentgemma reduced (f32) on the card and on
-    the CPU from the same weights: a 32-token prefill's logits within
-    1e-4 and greedy tokens identical, mamba2's and recurrentgemma's
-    through a short ServeEngine run whose prompts fall in both buckets,
-    qwen2-vl's through prefill and 4 decode steps with image ids."""
+    """qwen2-vl, mamba2, recurrentgemma and Whisper reduced (f32) on the
+    card and on the CPU from the same weights: a 32-token prefill's
+    logits within 1e-4 and greedy tokens identical, mamba2's and
+    recurrentgemma's through a short ServeEngine run whose prompts fall
+    in both buckets, qwen2-vl's (with image ids) and Whisper's (with
+    frames) through prefill and 4 decode steps."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -3148,12 +3360,18 @@ def check_zoo_reduced(seed: int, device: str = "cuda") -> None:
             np.int32))
         prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                    for n in (9, 30, 12)]
+        frames = torch.from_numpy((0.1 * rng.standard_normal(
+            (2, cfg.enc_frames, cfg.d_model))).astype(np.float32))
         logits, tokens = {}, {}
         for dev, params in (("cpu", cpu), (device, card)):
             batch = {"tokens": toks.to(dev)}
-            if cfg.family == "vlm":
-                batch["positions"] = vlm_positions(2, 4, (1, 4, 6), 4, dev)
-                lg, tokens[dev] = _greedy_vlm(cfg, params, batch, 4)
+            if cfg.family in ("vlm", "encdec"):
+                if cfg.family == "vlm":
+                    batch["positions"] = vlm_positions(2, 4, (1, 4, 6), 4,
+                                                       dev)
+                else:
+                    batch["frames"] = frames.to(dev)
+                lg, tokens[dev] = _greedy(cfg, params, batch, 4)
             else:
                 with torch.no_grad():
                     lg, _ = api.forward_prefill(cfg, params, batch)
@@ -3444,13 +3662,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int,
-                    default=5 * WINDOW // (4 * BLOCK))
+                    default=9 * WINDOW // (8 * BLOCK))
     ap.add_argument("--fast-ticks", type=int, default=12)
     ap.add_argument("--fine-ticks", type=int,
-                    default=math.ceil(1.25 * WINDOW / BLOCK))
+                    default=math.ceil(1.125 * WINDOW / BLOCK))
     ap.add_argument("--layered-ticks", type=int,
-                    default=math.ceil(1.25 * WINDOW / BLOCK))
-    ap.add_argument("--time-ticks", type=int, default=160)
+                    default=math.ceil(1.125 * WINDOW / BLOCK))
+    ap.add_argument("--time-ticks", type=int, default=144)
     ap.add_argument("--score-ticks", type=int, default=64)
     ap.add_argument("--history-ticks", type=int,
                     default=WINDOW // BLOCK + 512 // BLOCK)

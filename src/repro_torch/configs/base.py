@@ -114,17 +114,15 @@ class ShapeSpec:
     kind: str                        # 'train' | 'prefill' | 'decode'
 
 
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: Dict[str, ModelConfig] = {}
-
-# configurations of the reference whose family the port does not run yet
-NOT_PORTED = {"whisper-large-v3": "encdec"}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: the port runs the dense, "
-        "MoE, VLM, SSM and hybrid families only (ROADMAP.md, item 15 of the "
-        "modules still to port)")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -135,13 +133,18 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         load_all()
-    if name in NOT_PORTED:
-        raise not_ported(f"{name} ({NOT_PORTED[name]} family)")
     return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    if not _REGISTRY:
+        load_all()
+    return dict(_REGISTRY)
 
 
 def load_all() -> None:
     from repro_torch.configs import (smollm_135m, qwen1_5_0_5b,  # noqa
                                      minitron_4b, llama3_8b, grok_1_314b,
                                      kimi_k2_1t_a32b, qwen2_vl_2b,
-                                     mamba2_2_7b, recurrentgemma_9b)
+                                     mamba2_2_7b, recurrentgemma_9b,
+                                     whisper_large_v3)

@@ -10,14 +10,14 @@ nothing here imports the reference.  The field names and order of the
 states are the reference's, and ``fleet_state_to_numpy`` /
 ``fleet_state_from_numpy`` carry any registered variant's fleet state in
 the reference's tree and dtypes (the leaves of a fleet checkpoint).  Model
-weights
-cross the same way: the reference's parameter tree with numpy leaves
-becomes the port's nested dict of tensors, with the same keys and the
-stacked ``(L, ...)`` layout.  Training state crosses too: optimizer
-states (``AdamState``, ``FactoredState``, ``SketchyState`` with its
-per-leaf DS-FD states), the gradient monitor's and the compression's
-states; the reference's single-stream DS-FD states become the port's
-S = 1 states.
+weights cross the same way: the reference's parameter tree with numpy
+leaves becomes the port's nested dict of tensors, with the same keys and
+the stacked ``(L, ...)`` layout (Whisper's nested encoder and decoder
+stacks among them), and so does a Whisper decode cache.  Training state
+crosses too: optimizer states (``AdamState``, ``FactoredState``,
+``SketchyState`` with its per-leaf DS-FD states), the gradient monitor's
+and the compression's states; the reference's single-stream DS-FD states
+become the port's S = 1 states.
 """
 
 from __future__ import annotations
@@ -258,6 +258,37 @@ def model_params_from_reference(params_np: Any, cfg: ModelConfig,
         return {k: conv(defs[k], tree[k], f"{path}/{k}") for k in defs}
 
     return conv(api.param_defs(cfg), params_np, "")
+
+
+def whisper_cache_from_reference(cache_np: Any, cfg: ModelConfig,
+                                 device="cuda"):
+    """The port's ``WhisperCache`` for ``cfg`` from the reference's, with
+    numpy leaves (``jax.tree.map(np.asarray, cache)``): the stacked self
+    cache (Ld, B, s_max, H, dh) and its lengths (Ld, B), and the cross K/V
+    (Ld, B, enc_frames, H, dh), in their own types.  Raises on a
+    misshapen leaf."""
+    from repro_torch.models.layers.attention import KVCache
+    from repro_torch.models.whisper import WhisperCache
+
+    dev = resolve_device(device)
+    kv = cache_np.self_kv
+    Ld, H, dh = cfg.n_layers, cfg.n_heads, cfg.dh
+    B, s_max = np.asarray(kv.k).shape[1:3]
+    cross = (Ld, B, cfg.enc_frames, H, dh)
+    want = {"k": (Ld, B, s_max, H, dh), "v": (Ld, B, s_max, H, dh),
+            "length": (Ld, B), "cross_k": cross, "cross_v": cross}
+    got = {"k": kv.k, "v": kv.v, "length": kv.length,
+           "cross_k": cache_np.cross_k, "cross_v": cache_np.cross_v}
+    out = {}
+    for name, leaf in got.items():
+        arr = np.asarray(leaf)
+        if arr.shape != want[name]:
+            raise ValueError(f"cache leaf {name} has shape {arr.shape}, "
+                             f"expected {want[name]} for {cfg.name}")
+        out[name] = _tensor(arr, dev)
+    return WhisperCache(
+        self_kv=KVCache(out["k"], out["v"], out["length"]),
+        cross_k=out["cross_k"], cross_v=out["cross_v"])
 
 
 # ---------------------------------------------------------------------------

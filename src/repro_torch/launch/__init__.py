@@ -1,1 +1,1 @@
-"""Command-line launchers."""
+"""Command-line launchers, and the analytic FLOP count (``flops.py``)."""

@@ -6,6 +6,9 @@ Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (``cuda`` by default; ``cpu`` runs the plain versions of the
 kernels).  Without ``--full`` the model is the config's ``reduced()``
 form; weights are random, from seed 0, under the reference's init law.
+Like the reference's, it sends only tokens, so ``--arch qwen2-vl-2b`` and
+``--arch whisper-large-v3`` raise the ``ValueError`` of their missing
+M-RoPE ids or frames.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""The model zoo's dense family (``repro/models`` in the reference)."""
+"""The model zoo (``repro/models`` in the reference): the dense, MoE, VLM,
+encoder-decoder, SSM and hybrid families."""

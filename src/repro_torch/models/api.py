@@ -1,29 +1,25 @@
 """Unified model API: family dispatch.
 
 Counterpart of ``repro/models/api.py``.  The port runs the dense, MoE and
-VLM families through ``models/transformer.py``, the SSM family through
-``models/mamba2.py`` and the hybrid through ``models/recurrentgemma.py``;
-the encoder-decoder family of the reference raises
-``NotImplementedError`` until its slice lands (ROADMAP item 15).
+VLM families through ``models/transformer.py``, the encoder-decoder
+through ``models/whisper.py``, the SSM family through ``models/mamba2.py``
+and the hybrid through ``models/recurrentgemma.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, not_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models import mamba2, recurrentgemma, transformer
+from repro_torch.models import mamba2, recurrentgemma, transformer, whisper
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "ssm": mamba2, "hybrid": recurrentgemma}
+           "encdec": whisper, "ssm": mamba2, "hybrid": recurrentgemma}
 
 
 def model_module(cfg: ModelConfig):
-    mod = _FAMILY.get(cfg.family)
-    if mod is None:
-        raise not_ported(f"the {cfg.family} family ({cfg.name})")
-    return mod
+    return _FAMILY[cfg.family]
 
 
 def param_defs(cfg: ModelConfig):

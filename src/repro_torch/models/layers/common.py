@@ -1,7 +1,7 @@
-"""Shared layers: RMSNorm, RoPE and M-RoPE, embedding and logits.
+"""Shared layers: RMSNorm and LayerNorm, RoPE and M-RoPE, embedding and
+logits.
 
-Counterpart of ``repro/models/layers/common.py`` (all but the LayerNorm of
-the encoder-decoder family).
+Counterpart of ``repro/models/layers/common.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (the encoder-decoder family's): mean and variance in f32,
+    then the gain and bias in f32, cast back to x's type."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
 
 
 def _rope_freqs(dh: int, theta: float, device) -> torch.Tensor:

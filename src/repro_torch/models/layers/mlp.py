@@ -1,6 +1,6 @@
-"""Feed-forward block of the dense family: SwiGLU.
+"""Feed-forward blocks: SwiGLU (the dense family) and GELU (Whisper).
 
-Counterpart of ``repro/models/layers/mlp.py::swiglu``.
+Counterpart of ``repro/models/layers/mlp.py``.
 """
 
 from __future__ import annotations
@@ -19,3 +19,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = matmul(x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return matmul(h, w_down)
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) → (B, S, D) with biases; the GELU is the tanh
+    approximation (``jax.nn.gelu``'s default, ``approximate=True``), in
+    f32, cast back to x's type before the second product."""
+    h = matmul(x, w_in) + b_in
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return matmul(h, w_out) + b_out

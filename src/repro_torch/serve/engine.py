@@ -72,7 +72,10 @@ class ServeEngine:
     empty ones included.  The caches are held in ``dtype`` (f32 by default,
     as in the reference).  As in the reference, the engine passes the
     decode step no generator, so it decodes greedily whatever
-    ``temperature`` says.  Runs on the card unless ``device="cpu"``.
+    ``temperature`` says.  Admission passes the prefill only tokens, as
+    the reference's does, so a model whose prefill needs more (the VLM's
+    M-RoPE ids, Whisper's frames) raises the prefill's ``ValueError`` at
+    the first admission.  Runs on the card unless ``device="cpu"``.
     """
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
@@ -230,7 +233,8 @@ def _fleet_rows(fc, espec: Dict[str, Any]) -> int:
 def _splice_caches(big, one, slot: int) -> None:
     """Write a batch-1 prefill cache into batch slot ``slot`` of the
     engine's stacked caches, leaf by leaf with the reference's rule, for
-    any cache NamedTuple (``KVCache``, ``SSMCache``, ``RGCache``): each
+    any cache NamedTuple (``KVCache``, ``SSMCache``, ``RGCache``,
+    ``WhisperCache``, whose cross K/V over the frames match whole): each
     layer-stacked leaf (L, 1, ...) goes into ``[:, slot]``, the per-layer
     lengths (L, 1) among them; where its sequence axis (dim 2) is shorter
     than the engine's, it is left-aligned with zeros after it, so entries

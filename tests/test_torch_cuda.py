@@ -939,6 +939,48 @@ def test_new_families_on_the_card_match_the_cpu(cuda, arch):
         assert out["cuda"] == out["cpu"]
 
 
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """Reduced Whisper (f32) on the card against the CPU from the same
+    weights and frames: a 32-token prefill's logits and its cross K/V
+    within 1e-4, and greedy tokens identical through 4 decode steps on
+    a cache with room for them; no flash launch (the reference's Whisper
+    reaches no kernel)."""
+    from repro_torch.models import whisper
+
+    cfg = get_config("whisper-large-v3").reduced()
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(
+        np.int32))
+    frames = torch.from_numpy((0.1 * rng.standard_normal(
+        (2, cfg.enc_frames, cfg.d_model))).astype(np.float32))
+    out = {}
+    n0 = flash_kernel.flash_fwd.launches
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        with torch.no_grad():
+            lg, pre = api.forward_prefill(cfg, p, {"tokens": toks.to(dev),
+                                                   "frames": frames.to(dev)})
+            cache = whisper.init_cache(cfg, 2, 36, torch.float32, dev)
+            cache.self_kv.k[:, :, :32] = pre.self_kv.k
+            cache.self_kv.v[:, :, :32] = pre.self_kv.v
+            cache.self_kv.length[:] = pre.self_kv.length
+            cache = cache._replace(cross_k=pre.cross_k, cross_v=pre.cross_v)
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            seq = [tok]
+            for _ in range(4):
+                dec, cache = api.forward_decode(cfg, p, tok, cache)
+                tok = torch.argmax(dec[:, -1], dim=-1).to(torch.int32)[
+                    :, None]
+                seq.append(tok)
+        out[dev] = (lg.cpu(), pre.cross_k.cpu(), torch.cat(seq, 1).cpu())
+    assert flash_kernel.flash_fwd.launches == n0
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+
+
 def test_vlm_prefill_on_the_card_goes_through_flash(cuda):
     """qwen2-vl reduced to 2 layers at its full head_dim 128 (4 heads over
     2 KV heads) and M-RoPE sections (16, 24, 24), bf16, ``use_flash``: a

@@ -20,7 +20,7 @@ from repro_torch.launch import mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import pin_host_threads
-from repro_torch.models import api, transformer
+from repro_torch.models import api, transformer, whisper
 from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
 from repro_torch.parallel.topology import FleetTopology, MemTransport
@@ -83,7 +83,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.models.layers.ssm", "repro_torch.models.mamba2",
             "repro_torch.models.layers.rglru",
-            "repro_torch.models.recurrentgemma"} <= names
+            "repro_torch.models.recurrentgemma",
+            "repro_torch.configs.whisper_large_v3",
+            "repro_torch.models.whisper", "repro_torch.launch.flops"} <= names
 
 
 def _topo(S, P=2, pid=0):
@@ -95,6 +97,11 @@ def _tiny_model(arch="smollm-135m"):
     cfg = get_config(arch).reduced()
     return cfg, init_params(api.param_defs(cfg),
                             torch.Generator().manual_seed(0), device="cpu")
+
+
+def _numpy_cache(cache):
+    """A ``WhisperCache`` with numpy leaves, as the reference's converts."""
+    return tree.tree_map(lambda t: t.numpy(), cache)
 
 
 @pytest.fixture
@@ -174,6 +181,19 @@ def no_cuda(monkeypatch):
                         EngineConfig(slots=1, s_max=32)),
     lambda: ServeEngine(*_tiny_model("recurrentgemma-9b"),
                         EngineConfig(slots=1, s_max=32)),
+    lambda: init_params(api.param_defs(
+        get_config("whisper-large-v3").reduced()), torch.Generator()),
+    lambda: api.init_cache(get_config("whisper-large-v3").reduced(), 1, 8),
+    lambda: whisper.init_cache(get_config("whisper-large-v3").reduced(), 1,
+                               8),
+    lambda: ServeEngine(*_tiny_model("whisper-large-v3"),
+                        EngineConfig(slots=1, s_max=32)),
+    lambda: launch_serve.main(["--arch", "whisper-large-v3"]),
+    lambda: convert.whisper_cache_from_reference(
+        _numpy_cache(whisper.init_cache(
+            get_config("whisper-large-v3").reduced(), 1, 8, torch.float32,
+            "cpu")),
+        get_config("whisper-large-v3").reduced()),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
@@ -188,7 +208,9 @@ def no_cuda(monkeypatch):
         "make_sketch-swor", "run-sketch", "init-params-moe", "serve-moe",
         "init-cache-vlm", "init-cache-ssm", "init-cache-hybrid",
         "init-params-vlm", "init-params-ssm", "init-params-hybrid",
-        "serve-ssm", "serve-hybrid"])
+        "serve-ssm", "serve-hybrid", "init-params-encdec",
+        "init-cache-encdec", "whisper-init-cache", "serve-encdec",
+        "launch-serve-encdec", "convert-whisper-cache"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -253,7 +275,7 @@ def test_init_cache_runs_on_the_cpu_when_named(no_cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "mamba2-2.7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "whisper-large-v3"])
 def test_new_families_run_on_the_cpu_when_named(no_cuda, arch):
     cfg, params = _tiny_model(arch)
     caches = api.init_cache(cfg, 2, 8, torch.float32, "cpu")

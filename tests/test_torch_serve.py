@@ -96,18 +96,20 @@ def _tokens(cfg, B, S, seed):
 
 def test_configs_match_the_reference():
     for arch in ("smollm-135m", "qwen1.5-0.5b", "minitron-4b", "llama3-8b",
-                 "qwen2-vl-2b", "mamba2-2.7b", "recurrentgemma-9b"):
+                 "qwen2-vl-2b", "mamba2-2.7b", "recurrentgemma-9b",
+                 "whisper-large-v3"):
         ref, port = ref_get_config(arch), get_config(arch)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert dataclasses.asdict(port.reduced()) == \
             dataclasses.asdict(ref.reduced())
         assert count_params(api.param_defs(port)) == \
             ref_count_params(ref_api.param_defs(ref))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_config("whisper-large-v3")
-    encdec = dataclasses.replace(get_config("llama3-8b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        api.param_defs(encdec)
+    # every family of the reference has a module; an unknown one raises
+    unknown = dataclasses.replace(get_config("llama3-8b"), family="audio")
+    with pytest.raises(KeyError, match="audio"):
+        api.model_module(unknown)
+    with pytest.raises(KeyError, match="audio"):
+        ref_api.model_module(unknown)
 
 
 def test_convert_checks_the_tree(model):
