@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--ticks 144] [--fast-ticks 12]
-                          [--fine-ticks 144] [--layered-ticks 144]
-                          [--time-ticks 144] [--score-ticks 64]
+    python3 chip_smoke.py [--seed 0] [--ticks 136] [--fast-ticks 12]
+                          [--fine-ticks 136] [--layered-ticks 136]
+                          [--time-ticks 136] [--score-ticks 64]
                           [--history-ticks 192] [--topology-ticks 128]
-                          [--train-steps 30] [--train-extra-steps 2]
+                          [--train-steps 30] [--train-extra-steps 1]
 
 Phases, each printing its seconds on a line of its own:
 
@@ -43,9 +43,9 @@ Phases, each printing its seconds on a line of its own:
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
-   ``submit_many`` with 8 unit-norm rows per user per tick for 1.125·N
-   rows per user (cut from 1.25·N for the script's time limit; the last
-   N/8 rows still slide the window).  Both fused kernels' launch counts must be > 0 and the split
+   ``submit_many`` with 8 unit-norm rows per user per tick for 1.0625·N
+   rows per user (cut from 1.25·N, then 1.125·N, for the script's time
+   limit; the last N/16 rows still slide the window).  Both fused kernels' launch counts must be > 0 and the split
    kernels' 0; every one of the 1024 users is held to Theorem 3.1
    (‖A_WᵀA_W − BᵀB‖₂ ≤ 4εN) against the exact window Gram from
    ``window_gram`` on the card (the script keeps every user's last N rows
@@ -73,9 +73,9 @@ Phases, each printing its seconds on a line of its own:
 6. layered — Seq-DS-FD at full width:
    ``SketchFleetEngine("seq-dsfd", d=300, streams=128, eps=1/32,
    window=1024, block=8, mode="krylov", R=64)`` (7 levels, θⱼ = 32·2ʲ)
-   for 144 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
+   for 136 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
    with 2 % at 0.99·R; then Time-DS-FD, ``("time-dsfd", streams=32,
-   R=16)`` (10 levels, θⱼ = 2ʲ) for 144 ticks, half its users idle every
+   R=16)`` (10 levels, θⱼ = 2ʲ) for 136 ticks, half its users idle every
    other 4 ticks.  Every user of both is held to βε‖A_W‖_F² (β = 4,
    Theorem 4.1 / Corollary 5.1) through ``window_gram`` on the card; the
    fused kernels must launch and the split ones not; the heavy-row bypass
@@ -156,7 +156,30 @@ Phases, each printing its seconds on a line of its own:
    multiplies every expert's buffer) over 3.35 TB/s.  Then grok-1 and
    kimi-k2 reduced (2 layers, f32) on the card and on the CPU: prefill
    logits within 1e-4, greedy tokens identical.
-12. zoo    — the VLM, SSM, hybrid and encoder-decoder families at full
+12. mesh   — expert parallelism across processes, the program analyzer
+   and the dry-run, with the earlier phases' weights freed: grok-1 as in
+   the moe phase (2 of 64 layers, seeded bf16 weights) through the moe
+   phase's engine, once in this process, then with
+   ``ServeEngine(mesh=, rules=)`` in two children (``chip_smoke.py
+   --mesh-child grok PID 2 PORT DIR``) that meet through
+   ``launch/mesh.py::init_distributed`` (gloo) on ``cuda:0``, each
+   drawing the same weights and keeping its 4 experts a layer: 4 requests
+   of 512 tokens, each prefilled at bucket 512 through the bf16 flash
+   kernel (G = 6, 4 × 2 launches a process), then 8 greedy decode ticks,
+   the children's ticks fed the one-process run's tokens.  The children's
+   logits must lie within 2e-2 of the one-process run's and their greedy
+   tokens be the same (a flip is reported with the one-process top-2
+   margin there and passes only as a tie within 2e-2).  Each prints ms
+   per prefill and per tick beside the one-process run's, the
+   all-reduce's ms by the host clock, peak memory beside the analyzer's
+   peak live bytes of one tick, the analyzer's FLOPs, bytes and link
+   bytes of that tick on the card and on ``meta`` (they must be equal)
+   and its roofline terms beside the measured tick.  Then an E = 2 MoE
+   block over 4 children (virtual experts, split 2, f32) against one
+   process: y within 1e-5, aux within 1e-6, the same dropped pairs; and
+   ``python -m repro_torch.launch.dryrun --shape decode_32k --no-save``
+   for llama3-8b and grok-1 at the 16 × 16 mesh, their lines printed.
+13. zoo    — the VLM, SSM, hybrid and encoder-decoder families at full
    width and depth,
    seeded bf16 weights, each freed before the next is drawn: qwen2-vl-2b
    (28 layers, d_model 1536, 12/2 heads, dh 128, M-RoPE sections
@@ -195,28 +218,32 @@ Phases, each printing its seconds on a line of its own:
    from the model's shapes.  Then the four reduced (f32) on the card and
    on the CPU: prefill logits within 1e-4, greedy tokens identical
    (qwen2-vl with image ids, Whisper with frames).
-13. train  — the training path at full width: ``train()`` (the
+14. train  — the training path at full width: ``train()`` (the
    launcher's code path) on smollm-135m (30 layers, d_model 576, 9/3
    heads, dh 64, vocab 49152) with ``use_flash=True``, ``remat="full"``,
    f32 parameters (bf16 activations promote to f32 at the first
    projection, so the flash runs in f32), seq 1024, batch 8, seeded
    weights: AdamW with the DS-FD gradient monitor for 30 steps (finite
-   losses, the last 5's mean below the first 5's by 0.1), then two steps
-   with ``--compress``'s FD gradient compression (cut from three: a step
-   is ~1 minute of ``fd_compress``) and one with Sketchy (cut from three
+   losses, the last 5's mean below the first 5's by 0.1), then one step
+   with ``--compress``'s FD gradient compression (cut from three to two,
+   then to one when the mesh phase came: a step is ~1 minute of
+   ``fd_compress``) and one with Sketchy (cut from three
    to two, then to one: a step is ~1.5 minutes).  Every run must end with
    finite losses and parameters and, where it has two steps or more, its
    last loss (computed after the first update) apart from its first; the
-   compression's last step must project every compressed leaf onto a
-   nonzero basis learned from the first step, with a finite
-   error-feedback accumulator; Sketchy's momenta and window sketches must
+   compression's first step must project every compressed leaf onto the
+   empty sketch's zero basis, and its error-feedback accumulator must
+   project onto the basis its sketch learned (the next step's projection,
+   by ``sketch/compress.py``'s own basis and projection) with a finite
+   nonzero norm, as must every later step's ``low`` (``--train-extra-steps
+   2`` runs the next step whole); Sketchy's momenta and window sketches must
    be finite and its momenta nonzero.  Each run counts the flash
    launches from 0: forward
    2 × 30 layers a step (full remat), backward 30.  Then a 2-layer f32
    train step at full width through the flash kernels against the same
    step through their plain versions: loss and every gradient within
    1e-4 relative.
-14. launch sizes — in a fresh process (``--launch-sizes``), each
+15. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
@@ -253,9 +280,6 @@ ITERS = 24
 # threads); at these unit-scale inputs that moves results by ~1e-6, and 24
 # power steps on a gapped spectrum do not amplify it past 1e-4.
 RTOL_LAM, ATOL = 1e-4, 1e-4
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 non-tensor rate,
-# dense bf16 tensor-core rate
-PEAK_BYTES_S, PEAK_F32_FLOPS, PEAK_BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def log(msg: str) -> None:
@@ -378,27 +402,35 @@ def unit_rows(rng, shape, dtype: str = "float32"):
     return torch.from_numpy(x).to("cuda", getattr(torch, dtype))
 
 
-def roofline(nbytes: float, flops: float):
-    """(bound_ms, bound_by) of work that moves ``nbytes`` and does ``flops``
-    f32 operations."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return max(tb, tf), "bytes" if tb >= tf else "operations"
+def _hlo():
+    """The program analyzer's module: the card's peak rates and
+    ``least_time``, the one place every bound's rates live."""
+    from repro_torch.launch import hlo
+
+    return hlo
+
+
+def roofline(work, dtype: str = "float32"):
+    """(bound_ms, bound_by) of ``work`` = (operations, bytes), the
+    operations in ``dtype``: ``launch/hlo.py::least_time``."""
+    import torch
+
+    t, by = _hlo().least_time(*work, getattr(torch, dtype))
+    return t * 1e3, by
 
 
 def kernel_bounds(S: int, m: int, d: int, iters: int) -> dict:
     """Least time (ms) for each kernel's work at (S, m, d): every input
     read once, every output written once, over HBM bandwidth; the f32
     operations the function needs over the f32 peak (K = DDᵀ is
-    symmetric, so its Gram needs m(m+1)/2 dot products of length d).
-    Returns {name: (bound_ms, bound_by)}."""
-    power = (iters + 1) * 2 * m * m + iters * 3 * m + 2 * m
-    gram = m * (m + 1) * d
-    bytes_gp = 4 * S * (m * d + 1 + m)
-    flops_gp = S * (gram + power)
-    bytes_st = 4 * S * ((m * d + 1 + m) + (d + m * d + 1 + m))
-    flops_st = S * (2 * m * d + 3 * d + 2 * m * d + 2 * m * d + gram + power)
-    return {"gram_power": roofline(bytes_gp, flops_gp),
-            "fused_krylov_step": roofline(bytes_st, flops_st)}
+    symmetric, so its Gram needs m(m+1)/2 dot products of length d), by
+    the formula the kernel reports to the analyzer
+    (``kernels/fused_tick/ops.py::work``).  Returns {name: (bound_ms,
+    bound_by)}."""
+    from repro_torch.kernels.fused_tick.ops import work
+
+    return {n: roofline(work(n, S, m, d, iters))
+            for n in ("gram_power", "fused_krylov_step")}
 
 
 def check_kernels(rng) -> dict:
@@ -505,15 +537,17 @@ BF16_TOL = {"gram": (2e-2, 2e-2), "rank1_downdate": (2e-2, 2e-2),
 def split_bounds(S: int, m: int, d: int, n: int, iters: int) -> dict:
     """Least time (ms) of each unfused kernel's work in f32: gram and
     window_gram count the m(m+1)/2 (d(d+1)/2) dot products a symmetric
-    result needs; power_iter reads K once."""
-    return {
-        "gram": roofline(4 * S * (m * d + m * m), S * m * (m + 1) * d),
-        "power_iter": roofline(
-            4 * S * (m * m + 1 + m),
-            S * ((iters + 1) * 2 * m * m + iters * 3 * m + 2 * m)),
-        "rank1_downdate": roofline(4 * S * (2 * m * d + d), S * 4 * m * d),
-        "window_gram": roofline(4 * S * (n * d + d * d), S * d * (d + 1) * n),
-    }
+    result needs; power_iter reads K once (each kernel's ``ops.py::work``,
+    the formula it reports to the analyzer)."""
+    from repro_torch.kernels.gram import ops as g
+    from repro_torch.kernels.power_iter import ops as p
+    from repro_torch.kernels.rank1_downdate import ops as r
+    from repro_torch.kernels.window_gram import ops as w
+
+    return {"gram": roofline(g.work(S, m, d)),
+            "power_iter": roofline(p.work(S, m, iters)),
+            "rank1_downdate": roofline(r.work(S, m, d)),
+            "window_gram": roofline(w.work(S, n, d))}
 
 
 def _held(name: str, label: str, got, want, rtol: float, atol: float) -> float:
@@ -710,14 +744,12 @@ FLASH_TIMED = {"llama3-8b bucket 512": None, "llama3-8b f32 prefill": "f32",
 def flash_bound(B, S, H, Hkv, dh, dtype, causal):
     """Least time (ms) of the flash forward: q, k, v read once and o, lse
     written once over HBM bandwidth; 4·dh FLOPs per (query, key) pair that
-    the mask keeps over the peak rate of the inputs' type."""
+    the mask keeps over the peak rate of the inputs' type
+    (``kernels/flash_attn/ops.py::forward_work``)."""
+    from repro_torch.kernels.flash_attn.ops import forward_work
+
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = elt * (2 * B * H * S * dh + 2 * B * Hkv * S * dh) + 4 * B * H * S
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * dh * H * pairs * B
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
-    return max(tb, tf), "bytes" if tb >= tf else "operations"
+    return roofline(forward_work(B * H, B * Hkv, S, dh, elt, causal), dtype)
 
 
 def _ratio(kernel_ms, library_ms) -> str:
@@ -880,14 +912,11 @@ def flash_bwd_bound(B, S, H, Hkv, dh, dtype, causal):
     (B·H rows), k, v read and dk, dv written (B·Hkv rows), lse read, once
     each, over HBM bandwidth; five products (S, dP, dV, dQ, dK) of 2·dh
     operations per (query, key) pair the mask keeps, over the peak rate of
-    the inputs' type."""
+    the inputs' type (``kernels/flash_attn/ops.py::backward_work``)."""
+    from repro_torch.kernels.flash_attn.ops import backward_work
+
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = elt * 4 * B * S * dh * (H + Hkv) + 4 * B * H * S
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 10 * dh * pairs * B * H
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
-    return max(tb, tf), "bytes" if tb >= tf else "operations"
+    return roofline(backward_work(B * H, B * Hkv, S, dh, elt, causal), dtype)
 
 
 def check_flash_bwd(rng) -> dict:
@@ -2737,8 +2766,8 @@ def run_moe(seed: int, device: str = "cuda") -> dict:
                 0, cfg.vocab, int(n)).astype(np.int32), max_new=max_new))
         drops = {}                   # tokens → [(dropped, pairs, C)]
 
-        def route_seen(moe_cfg, xf, wr):
-            slot, w, aux, C = saved_route(moe_cfg, xf, wr)
+        def route_seen(moe_cfg, xf, wr, **kw):
+            slot, w, aux, C = saved_route(moe_cfg, xf, wr, **kw)
             drops.setdefault(xf.shape[0], []).append(
                 ((slot == moe_cfg.n_experts * C).sum(), slot.numel(), C))
             return slot, w, aux, C
@@ -2775,7 +2804,7 @@ def run_moe(seed: int, device: str = "cuda") -> dict:
                 f"{dropped} of {pairs} (token, choice) pairs dropped "
                 f"({100 * dropped / pairs:.2f}%) over {len(rows)} calls")
         nbytes = decode_bytes(cfg, params)
-        bound = nbytes / PEAK_BYTES_S * 1e3
+        bound = nbytes / _hlo().HBM_BW * 1e3
         tick = float(np.median(run["decode_ms"]))
         log(f"{label} decode tick: {tick:.3f} ms median against its bytes "
             f"bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB of weights read "
@@ -2830,6 +2859,526 @@ def check_moe_reduced(seed: int, device: str = "cuda") -> None:
         log(f"moe reduced {arch} (2 layers, f32): card vs CPU prefill "
             f"logits max err {err:.3e} (tol {MOE_LOGIT_TOL:.0e}); greedy "
             f"tokens of 3 requests identical")
+
+
+# ---------------------------------------------------------------------------
+# phase mesh: expert parallelism across processes, the analyzer, the dry-run
+# ---------------------------------------------------------------------------
+
+# grok-1 at full width, 2 of 64 layers, expert-parallel over 2 processes
+# on the one card, through the moe phase's engine (4 slots, f32 caches of
+# 1024): 4 requests of 512 tokens, each prefilled at bucket 512, then 8
+# greedy decode ticks
+MESH_ARCH, MESH_LAYERS, MESH_PROCS = "grok-1-314b", 2, 2
+MESH_BATCH, MESH_BUCKET, MESH_TICKS = 4, 512, 8
+MESH_LOGIT_TOL = 2e-2   # bf16: the processes' partial sums, then their sum
+MESH_CHILD_S = 600      # each child's limit; a child that passes it fails
+# the virtual-expert block: E = 2 over 4 processes (split 2), f32
+VIRTUAL = dict(E=2, k=2, D=64, F=128, B=2, S=64, procs=4)
+VIRTUAL_Y_TOL, VIRTUAL_AUX_TOL = 1e-5, 1e-6
+MESH_DRYRUN = ("llama3-8b", "grok-1-314b")   # at decode_32k, 16 × 16
+
+
+def _mesh_cfg():
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS,
+                               use_flash=True)
+
+
+def _ep_rules(pm, cfg):
+    """The card's expert-parallel rules: the experts over 'model', every
+    other leaf replicated (each process holds the dense part whole)."""
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import axis_rules, make_rules
+
+    with axis_rules(pm, {}):
+        rules = make_rules(pm, api.sharding_dims(cfg))
+    return {k: (v if k == "experts" else None) for k, v in rules.items()}
+
+
+def _meta_like(tree):
+    import torch
+
+    from repro_torch.tree import map_dicts, tree_map
+
+    if isinstance(tree, dict):
+        return map_dicts(lambda t: torch.empty_like(t, device="meta"), tree)
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def tick_counts(cfg, params, tok, caches, mesh=None, rules=None) -> dict:
+    """One tick of the decode step (``serve/serve_step.py::
+    build_decode_step``, under ``axis_rules(mesh, rules)`` when a mesh is
+    given) under the program analyzer on the card (with its peak memory)
+    and the same tick on ``meta``: the counts must be equal."""
+    import torch
+
+    from repro_torch.launch import hlo
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.serve.serve_step import build_decode_step
+
+    def rules_ctx():
+        return (contextlib.nullcontext() if mesh is None
+                else axis_rules(mesh, rules))
+
+    decode = build_decode_step(cfg)
+    out = {}
+    cuda = tok.is_cuda
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    with torch.no_grad(), rules_ctx(), hlo.analyze() as a:
+        decode(params, tok, caches)
+    if cuda:
+        torch.cuda.synchronize()
+    out["card"] = a.stats.as_dict()
+    out["cuda_peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["cuda_base"] = base
+    mparams, mcaches = _meta_like(params), _meta_like(caches)
+    with torch.no_grad(), rules_ctx(), hlo.analyze() as m:
+        decode(mparams, torch.empty_like(tok, device="meta"), mcaches)
+    out["meta"] = m.stats.as_dict()
+    for key in ("matmul_flops", "hbm_bytes", "collective_bytes"):
+        if out["card"][key] != out["meta"][key]:
+            raise AssertionError(f"mesh analyzer: {key} of a tick "
+                                 f"{out['card'][key]} on the card, "
+                                 f"{out['meta'][key]} on meta")
+    out["terms"] = hlo.roofline_terms(a.stats, 1)
+    return out
+
+
+def mesh_serve(cfg, params, prompts, forced=None, device="cuda",
+               mesh=None, rules=None) -> dict:
+    """The moe phase's engine (``SERVE_ENGINE``, ``ServeEngine(mesh=,
+    rules=)``: expert-parallel when a mesh is given) serving one request of
+    ``MESH_BUCKET`` tokens a slot: each admitted through the prefill step
+    at bucket 512, then ``MESH_TICKS`` greedy ticks of the decode step.
+    Returns the prefills' and every tick's last-position logits and the
+    greedy tokens on the host, ms per prefill and per tick, and one more
+    tick's analyzer counts.  With ``forced`` (B, ticks + 1) each tick's
+    decode is fed those tokens (teacher-forced) and the engine's greedy
+    tokens are only recorded."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    dev = torch.device(device)
+    eng = ServeEngine(cfg, params, EngineConfig(**SERVE_ENGINE), device=dev,
+                      mesh=mesh, rules=rules)
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new=MESH_TICKS))
+    saved = api.forward_prefill, api.forward_decode
+    prefill_ms, tick_ms, logits = [], [], []
+
+    def prefill(cfg_, params_, batch):
+        (lg, caches), ms = _sync_ms(lambda: saved[0](cfg_, params_, batch))
+        prefill_ms.append(ms)
+        logits.append(lg[:, -1].float().cpu())
+        return lg, caches
+
+    def decode(cfg_, params_, tok, caches):
+        if forced is not None:
+            tok = torch.from_numpy(forced[:, len(tick_ms)]).to(tok)[:, None]
+        (lg, caches), ms = _sync_ms(
+            lambda: saved[1](cfg_, params_, tok, caches))
+        tick_ms.append(ms)
+        logits.append(lg[:, -1].float().cpu())
+        return lg, caches
+
+    api.forward_prefill, api.forward_decode = prefill, decode
+    try:
+        done = eng.run()
+    finally:
+        api.forward_prefill, api.forward_decode = saved
+    B = len(prompts)
+    if len(prefill_ms) != B or len(tick_ms) != MESH_TICKS:
+        raise AssertionError(f"mesh: {len(prefill_ms)} prefills and "
+                             f"{len(tick_ms)} ticks for {B} requests of "
+                             f"{MESH_TICKS} new tokens")
+    counts = tick_counts(cfg, params, eng.tokens, eng.caches, mesh, rules)
+    return {"first_prefill_ms": prefill_ms[0],
+            "prefill_ms": float(np.median(prefill_ms[1:])),
+            "tick_ms": tick_ms,
+            "logits": np.stack([torch.cat(logits[:B]).numpy()]
+                               + [lg.numpy() for lg in logits[B:]]),
+            "tokens": np.array([done[u].out_tokens for u in range(B)]),
+            "counts": counts}
+
+
+def _log_counts(label: str, run: dict) -> None:
+    c = run["counts"]
+    card, meta, terms = c["card"], c["meta"], c["terms"]
+    tick = float(np.median(run["tick_ms"]))
+    log(f"{label} analyzer, one tick: {card['matmul_flops'] / 1e9:.3f} "
+        f"GFLOP, {card['hbm_bytes'] / 1e9:.3f} GB, "
+        f"{card['collective_bytes'] / 1e3:.3f} kB of links "
+        f"({card['collective_counts']}) on the card; on meta "
+        f"{meta['matmul_flops'] / 1e9:.3f} GFLOP, "
+        f"{meta['hbm_bytes'] / 1e9:.3f} GB, "
+        f"{meta['collective_bytes'] / 1e3:.3f} kB (equal)")
+    log(f"{label} roofline terms of a tick: compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms, links "
+        f"{terms['collective_s'] * 1e3:.4f} ms ({terms['dominant']}) "
+        f"against {tick:.3f} ms measured")
+    log(f"{label} peak memory of the tick {c['cuda_peak'] / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated; {c['cuda_base'] / 2**30:.2f} "
+        f"before it) beside the analyzer's peak live bytes "
+        f"{card['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def _prompts(cfg, seed: int):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab, (MESH_BATCH, MESH_BUCKET)) \
+        .astype(np.int32)
+
+
+def _spawn_mesh_children(mode: str, n: int, root: str) -> list:
+    """Start ``n`` children of ``mode`` on one free port, wait for all;
+    any nonzero exit or a child past its limit fails the phase (and all
+    are stopped).  Returns each child's JSON."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child", mode,
+         str(pid), str(n), str(port), root], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(n)]
+    outs = []
+    try:
+        deadline = time.monotonic() + MESH_CHILD_S
+        for p in procs:
+            text, _ = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+            outs.append(text)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("mesh child") or "Error" in line:
+                log(f"  [{pid}] {line[:2000]}")
+        if p.returncode != 0:
+            raise AssertionError(f"mesh child {mode} {pid} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    return [json.loads((Path(root) / f"{mode}_{pid}.json").read_text())
+            for pid in range(n)]
+
+
+def _virtual_inputs(seed: int) -> dict:
+    v = VIRTUAL
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return {"x": rng.standard_normal((v["B"], v["S"], v["D"])).astype(f32),
+            "wr": rng.standard_normal((v["D"], v["E"])).astype(f32),
+            "wg": (0.1 * rng.standard_normal((v["E"], v["D"], v["F"])))
+            .astype(f32),
+            "wu": (0.1 * rng.standard_normal((v["E"], v["D"], v["F"])))
+            .astype(f32),
+            "wd": (0.1 * rng.standard_normal((v["E"], v["F"], v["D"])))
+            .astype(f32)}
+
+
+def _dropped(moe_mod, run):
+    """Run ``run()`` with ``route`` wrapped: (its result, the last
+    route's slot and C)."""
+    seen = {}
+    orig = moe_mod.route
+
+    def route(cfg_, xf, wr, **kw):
+        out = orig(cfg_, xf, wr, **kw)
+        seen["slot"], seen["C"] = out[0], out[3]
+        return out
+
+    moe_mod.route = route
+    try:
+        out = run()
+    finally:
+        moe_mod.route = orig
+    return out, seen["slot"], seen["C"]
+
+
+def mesh_child(mode: str, pid: int, n: int, port: int, root: str) -> int:
+    """One process of the mesh phase (``chip_smoke.py --mesh-child MODE
+    PID N PORT DIR``): meet the others through ``launch/mesh.py::
+    init_distributed`` (gloo) on ``cuda:0`` as an (1, N) mesh.  ``grok``:
+    draw the same seeded bf16 weights as the parent's one-process run and
+    keep this process's experts, serve the parent's prompts teacher-forced
+    on its tokens, time the all-reduce; ``virtual``: the E = 2 block over
+    N = 4 processes.  Writes ``DIR/MODE_PID.json`` (and the logits)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.launch import mesh
+    from repro_torch.models import api
+    from repro_torch.models.layers import moe
+    from repro_torch.models.params import ParamDef, init_params
+    from repro_torch.parallel.sharding import axis_rules, make_rules
+
+    spec = json.loads((Path(root) / "seed.json").read_text())
+    seed, dev = int(spec["seed"]), torch.device(spec["device"])
+    mesh.init_distributed(pid, n, port=port, timeout_s=MESH_CHILD_S)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    pm = mesh.make_process_mesh(n, device=dev.type)
+    coords = convert.mesh_coords(pm)
+    out = {"pid": pid}
+    if mode == "virtual":
+        v = VIRTUAL
+        z = np.load(f"{root}/virtual.npz")
+        cfg = MoECfg(n_experts=v["E"], top_k=v["k"], d_expert=v["F"])
+        holder = type("Cfg", (), {"moe": cfg})()
+        w = {k: torch.from_numpy(z[k]).to(dev) for k in
+             ("x", "wr", "wg", "wu", "wd")}
+        split = moe.virtual_split(cfg, n)
+        lay = convert.split_experts({"layers": {k: w[k][None] for k in
+                                                ("wg", "wu", "wd")}},
+                                    holder, n)["layers"]
+        rules = make_rules(pm, {"experts": v["E"] * split})
+        defs = {k: ParamDef(tuple(lay[k].shape),
+                            (None, "experts", None, None))
+                for k in ("wg", "wu", "wd")}
+        local = convert.local_params(lay, defs, rules, pm, coords)
+        with axis_rules(pm, rules), torch.no_grad():
+            (y, aux), slot, C = _dropped(moe, lambda: moe.moe_block(
+                w["x"], w["wr"], *(local[k][0] for k in ("wg", "wu", "wd")),
+                moe=cfg))
+        T = v["B"] * v["S"]
+        topi = torch.topk(torch.softmax(w["x"].reshape(T, -1) @ w["wr"], -1),
+                          v["k"], dim=-1).indices
+        vid = (topi[:, :, None] * split
+               + torch.arange(split, device=topi.device)).reshape(T, -1)
+        E_l = v["E"] * split // n
+        gone = ((vid // E_l) == coords["model"]) & (slot == E_l * C)
+        t, jj = torch.nonzero(gone, as_tuple=True)
+        out.update(y=y.cpu().numpy().tolist(), aux=float(aux),
+                   dropped=sorted(zip(t.tolist(), (jj // split).tolist())))
+    else:
+        cfg = _mesh_cfg()
+        rules = _ep_rules(pm, cfg)
+        forced = np.load(f"{root}/tokens.npy")
+        t0 = time.perf_counter()
+        with axis_rules(pm, rules):     # the experts' shapes at the mesh's
+            defs = api.param_defs(cfg)  # model size, and this block of them
+            params = init_params(
+                defs, torch.Generator(device=dev).manual_seed(seed),
+                dtype=torch.bfloat16, device=dev,
+                local=lambda d: convert.local_block(d, rules, pm, coords))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reduce_ms = []
+        orig = moe.all_reduce
+
+        def timed(t, group, op="sum"):
+            if not t.is_cuda or op != "sum":
+                return orig(t, group, op)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = orig(t, group, op)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t1) * 1e3)
+            return r
+
+        moe.all_reduce = timed
+        fk.flash_fwd.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            run = mesh_serve(cfg, params, _prompts(cfg, seed), forced, dev,
+                             mesh=pm, rules=rules)
+        finally:
+            moe.all_reduce = orig
+        launches = fk.flash_fwd.launches
+        np.save(f"{root}/logits_{pid}.npy", run.pop("logits"))
+        held = param_bytes(params)
+        out.update(run, tokens=run["tokens"].tolist(), init_s=init_s,
+                   reduce_ms=reduce_ms, launches=launches,
+                   held_bytes=held, wg=list(params["layers"]["wg"].shape),
+                   peak=(torch.cuda.max_memory_allocated()
+                         if dev.type == "cuda" else 0))
+        log(f"mesh child {pid}: {held / 1e9:.2f} GB of weights held "
+            f"(wg {tuple(params['layers']['wg'].shape)}), drawn in "
+            f"{init_s:.3f} s")
+    (Path(root) / f"{mode}_{pid}.json").write_text(json.dumps(out))
+    mesh.shutdown()
+    return 0
+
+
+def _start_dryruns() -> dict:
+    """The dry-run of ``MESH_DRYRUN`` at decode_32k on the 16 × 16 mesh,
+    one process each (CPU, ``meta``), started now and read by
+    :func:`_finish_dryruns`."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    return {arch: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "decode_32k", "--no-save"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=str(ROOT)))
+        for arch in MESH_DRYRUN}
+
+
+def _finish_dryruns(procs: dict) -> None:
+    for arch, (t0, p) in procs.items():
+        try:
+            text, _ = p.communicate(timeout=MESH_CHILD_S)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        lines = [ln for ln in text.splitlines() if "×" in ln or "FAIL" in ln
+                 or "passed" in ln]
+        for ln in lines:
+            log(f"mesh dry-run: {ln.strip()}")
+        if p.returncode != 0:
+            raise AssertionError(f"dry-run {arch} exited {p.returncode}:\n"
+                                 f"{text[-4000:]}")
+        log(f"mesh dry-run {arch} decode_32k: {time.perf_counter() - t0:.3f}"
+            " s in its process")
+
+
+def run_mesh(seed: int, device: str = "cuda") -> dict:
+    """The mesh phase (see the module's docstring, item 12).  Returns the
+    flash launches of the phase: the one-process run's and each child's,
+    each counted from 0 just before it serves."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.models import api
+    from repro_torch.models.layers import moe
+    from repro_torch.models.params import init_params
+
+    cfg = _mesh_cfg()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    prompts = _prompts(cfg, seed)
+    t = time.perf_counter()
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(seed),
+                         dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    fk.flash_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    one = mesh_serve(cfg, params, prompts, device=dev)
+    one_launches = fk.flash_fwd.launches
+    one_peak = torch.cuda.max_memory_allocated()
+    if one_launches != MESH_BATCH * cfg.n_layers:
+        raise AssertionError(f"mesh: flash_fwd launched {one_launches} "
+                             f"times in {MESH_BATCH} (1, {MESH_BUCKET}) "
+                             f"prefills of {cfg.n_layers} layers")
+    label = f"mesh {MESH_ARCH} one process"
+    log(f"{label}: {param_bytes(params) / 1e9:.2f} GB bf16 drawn in "
+        f"{init_s:.3f} s; {MESH_BATCH} requests through ServeEngine, "
+        f"prefill (1, {MESH_BUCKET}) {one['first_prefill_ms']:.3f} ms "
+        f"first, {one['prefill_ms']:.3f} warm (median of the other "
+        f"{MESH_BATCH - 1}); tick "
+        f"{float(np.median(one['tick_ms'])):.3f} ms median of "
+        f"{MESH_TICKS}; peak {one_peak / 2**30:.2f} GiB; flash launches "
+        f"{one_launches}")
+    _log_counts(label, one)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {"launches": one_launches}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as root:
+        (Path(root) / "seed.json").write_text(json.dumps(
+            {"seed": seed, "device": dev.type}))
+        np.save(f"{root}/tokens.npy", one["tokens"].astype(np.int32))
+        kids = _spawn_mesh_children("grok", MESH_PROCS, root)
+        errs, flips = [], []
+        for k in kids:
+            lg = np.load(f"{root}/logits_{k['pid']}.npy")
+            errs.append(float(np.abs(lg - one["logits"]).max()))
+            got = np.asarray(k["tokens"])
+            for b, i in zip(*np.nonzero(got != one["tokens"])):
+                top2 = np.sort(one["logits"][i, b])[-2:]
+                flips.append((k["pid"], int(b), int(i),
+                              float(top2[1] - top2[0])))
+        for pid, b, i, margin in flips:
+            log(f"mesh tie: child {pid} row {b} step {i}: greedy token "
+                f"differs; the one-process top-2 margin there is "
+                f"{margin:.3e} (≤ {MESH_LOGIT_TOL}: a tie); its "
+                "teacher-forced logits are compared from there on")
+        if max(errs) > MESH_LOGIT_TOL or any(
+                m > MESH_LOGIT_TOL for *_, m in flips):
+            raise AssertionError(
+                f"mesh: expert-parallel logits max err {errs} (tol "
+                f"{MESH_LOGIT_TOL}), token flips {flips}")
+        log(f"mesh {MESH_ARCH} expert-parallel over {MESH_PROCS} processes "
+            f"on cuda:0: logits of the prefill and {MESH_TICKS} ticks within"
+            f" {max(errs):.3e} of one process (tol {MESH_LOGIT_TOL}); "
+            f"greedy tokens {'identical' if not flips else 'identical but ties'}")
+        for k in kids:
+            lbl = f"mesh {MESH_ARCH} process {k['pid']} of {MESH_PROCS}"
+            log(f"{lbl}: holds {k['held_bytes'] / 1e9:.2f} GB (wg "
+                f"{tuple(k['wg'])}); prefill {k['first_prefill_ms']:.3f} ms "
+                f"first, {k['prefill_ms']:.3f} warm (one process "
+                f"{one['prefill_ms']:.3f}), tick "
+                f"{float(np.median(k['tick_ms'])):.3f} ms (one process "
+                f"{float(np.median(one['tick_ms'])):.3f}); y all-reduce "
+                f"{float(np.median(k['reduce_ms'] or [np.nan])):.3f} ms "
+                f"median by the host clock ({len(k['reduce_ms'])} calls); "
+                "peak "
+                f"{k['peak'] / 2**30:.2f} GiB; flash launches "
+                f"{k['launches']}")
+            _log_counts(lbl, k)
+            if k["launches"] != MESH_BATCH * cfg.n_layers:
+                raise AssertionError(f"mesh: flash_fwd launched "
+                                     f"{k['launches']} times in process "
+                                     f"{k['pid']}'s {MESH_BATCH} prefills")
+            out["launches"] += k["launches"]
+
+        # the virtual-expert block: E = 2 over 4 processes against one;
+        # the dry-runs (CPU only) start with it, after the timed runs
+        dry = _start_dryruns()
+        z = _virtual_inputs(seed)
+        np.savez(f"{root}/virtual.npz", **z)
+        vk = _spawn_mesh_children("virtual", VIRTUAL["procs"], root)
+        from repro_torch.configs.base import MoECfg
+
+        w = {k: torch.from_numpy(a).to(dev) for k, a in z.items()}
+        mcfg = MoECfg(n_experts=VIRTUAL["E"], top_k=VIRTUAL["k"],
+                      d_expert=VIRTUAL["F"])
+        with torch.no_grad():
+            (y1, aux1), slot, C = _dropped(moe, lambda: moe.moe_block(
+                w["x"], w["wr"], w["wg"], w["wu"], w["wd"], moe=mcfg))
+        t_, j_ = torch.nonzero(slot == VIRTUAL["E"] * C, as_tuple=True)
+        drop1 = set(zip(t_.tolist(), j_.tolist()))
+        y1 = y1.cpu().numpy()
+        dropped = set()
+        yerr = aerr = 0.0
+        for k in vk:
+            yerr = max(yerr, float(np.abs(np.asarray(k["y"]) - y1).max()))
+            aerr = max(aerr, abs(k["aux"] - float(aux1)))
+            dropped |= {tuple(p) for p in k["dropped"]}
+        if yerr > VIRTUAL_Y_TOL or aerr > VIRTUAL_AUX_TOL \
+                or dropped != drop1:
+            raise AssertionError(
+                f"mesh virtual experts: y err {yerr:.3e} (tol "
+                f"{VIRTUAL_Y_TOL}), aux err {aerr:.3e} (tol "
+                f"{VIRTUAL_AUX_TOL}), dropped {len(dropped)} vs "
+                f"{len(drop1)} pairs")
+        log(f"mesh virtual experts (E = {VIRTUAL['E']} over "
+            f"{VIRTUAL['procs']} processes, split 2, f32): y within "
+            f"{yerr:.3e}, aux within {aerr:.3e} of one process; "
+            f"{len(drop1)} dropped pairs, the same set")
+    _finish_dryruns(dry)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2894,7 +3443,7 @@ def _draw(cfg, seed, dev):
 
 def _decode_bound(label: str, cfg, params, tick: float) -> None:
     nbytes = decode_bytes(cfg, params)
-    bound = nbytes / PEAK_BYTES_S * 1e3
+    bound = nbytes / _hlo().HBM_BW * 1e3
     log(f"{label} decode tick: {tick:.3f} ms median against its bytes "
         f"bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB of weights read a "
         f"tick at 3.35 TB/s: {100 * bound / tick:.1f}% of it)")
@@ -2916,7 +3465,7 @@ def _head_cost(label: str, cfg, params, rows: int) -> None:
                     device=table.device)
     t = time_in_turns({"head": lambda: logits(x, table),
                        "copy": lambda: table.float()}, rounds=3, reps=5)
-    bound = 6 * table.numel() / PEAK_BYTES_S * 1e3
+    bound = 6 * table.numel() / _hlo().HBM_BW * 1e3
     log(f"{label} LM head ({table.shape[0]} × {table.shape[1]}): logits "
         f"{t['head']:.4f} ms a tick (CUDA events), of which the table's "
         f"f32 copy {t['copy']:.4f} ms (its bytes bound {bound:.3f} ms: "
@@ -3258,15 +3807,15 @@ def run_whisper(seed: int, device: str = "cuda") -> None:
     parts = whisper_tick_bytes(cfg, params, B,
                                P + (ZOO_WHISPER_TICKS + 1) / 2)
     nbytes = sum(parts.values())
-    bound = nbytes / PEAK_BYTES_S * 1e3
+    bound = nbytes / _hlo().HBM_BW * 1e3
     log(f"{label} decode tick: {tick:.3f} ms median against its bytes bound "
         f"{bound:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s: "
         + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in parts.items())
         + f"; {100 * bound / tick:.1f}% of it)")
     ops = whisper_prefill_gflop(cfg, B, P)
-    bf16 = (ops["products"] + ops["attention"]) / PEAK_BF16_FLOPS * 1e12
-    mixed = (ops["products"] / PEAK_BF16_FLOPS
-             + ops["attention"] / PEAK_F32_FLOPS) * 1e12
+    bf16 = (ops["products"] + ops["attention"]) / _hlo().PEAK_FLOPS * 1e12
+    mixed = (ops["products"] / _hlo().PEAK_FLOPS
+             + ops["attention"] / _hlo().PEAK_F32_FLOPS) * 1e12
     share = 100 * bf16 / warm_ms
     log(f"{label} prefill {tuple(batch['tokens'].shape)}: {warm_ms:.3f} ms "
         f"warm against its operations bound {bf16:.3f} ms "
@@ -3425,11 +3974,43 @@ def _finite(tensors) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in tensors)
 
 
+def _next_step_lows(state) -> list:
+    """‖low‖ of every compressed leaf's error-feedback accumulator
+    projected onto the top-r basis its sketch has learned: the projection
+    the next compression step makes (``sketch/compress.py::
+    _compress_leaf``'s own query, basis and projection), without that
+    step's ``fd_compress``."""
+    import torch
+
+    from repro_torch.core.dsfd import dsfd_query_rows
+    from repro_torch.sketch import CompressConfig
+    from repro_torch.sketch.basis import project_rank_r, topr_basis
+
+    cfg = CompressConfig(**TRAIN_COMPRESS)
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict) and "err" in t and "dsfd" in t:
+            rows = dsfd_query_rows(cfg.dsfd(t["err"].shape[-1]), t["dsfd"])
+            _, V = topr_basis(rows, cfg.rank)
+            _, low = project_rank_r(t["err"][None], V)
+            out.append(float(torch.linalg.vector_norm(low)))
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+
+    with torch.no_grad():
+        walk(state)
+    return out
+
+
 def _check_train_state(label: str, res: dict, n: int, lows: list) -> None:
     """The state a train run ends in: finite parameters; for the
     compression, the first step's projections zero (the empty sketch's
-    basis) and the last step's nonzero (a learned basis) for every
-    compressed leaf, finite error-feedback accumulators and sketches; for
+    basis), every later step's and the next step's (the error feedback
+    onto the learned basis, :func:`_next_step_lows`) finite and nonzero
+    for every compressed leaf, finite error-feedback accumulators and
+    sketches; for
     Sketchy, finite sketches, finite nonzero momenta and a nonzero
     window in every sketched leaf."""
     from repro_torch.tree import leaves, map_dicts
@@ -3445,18 +4026,23 @@ def _check_train_state(label: str, res: dict, n: int, lows: list) -> None:
             raise AssertionError(f"train {label}: {len(lows)} projections "
                                  f"in {n} steps")
         first = [float(x) for x in lows[:per]]
-        last = [float(x) for x in lows[-per:]]
-        if any(x != 0.0 for x in first) or not all(
-                np.isfinite(x) and x > 0.0 for x in last):
+        later = [float(x) for x in lows[per:]]
+        nxt = _next_step_lows(res["sketch_state"]["compress"])
+        if len(nxt) != per or any(x != 0.0 for x in first) or not all(
+                np.isfinite(x) and x > 0.0 for x in later + nxt):
             raise AssertionError(
                 f"train {label}: ‖low‖ per compressed leaf {first} at the "
-                f"first step (want 0: empty sketch), {last} at the last "
-                "(want finite and > 0: a learned basis)")
+                f"first step (want 0: empty sketch), {later} at the later "
+                f"steps and {nxt} projected onto the learned basis (want "
+                "finite and > 0)")
         if not _finite(tensors(res["sketch_state"]["compress"])):
             raise AssertionError(f"train {label}: non-finite compression "
                                  "state")
-        log(f"train {label}: {per} compressed leaves; ‖low‖ at the last "
-            f"step {min(last):.4e} to {max(last):.4e} (0 at the first)")
+        log(f"train {label}: {per} compressed leaves; ‖low‖ 0 at the first "
+            f"step" + (f", {min(later):.4e} to {max(later):.4e} at the "
+                       "later ones" if later else "") + "; the error "
+            "feedback projected onto the basis the sketch learned "
+            f"{min(nxt):.4e} to {max(nxt):.4e}")
     elif label == "sketchy":
         import torch
 
@@ -3490,8 +4076,9 @@ def run_train(steps: int, extra: int, seed: int,
     must end with finite losses and parameters and, with two steps or
     more, a last loss apart from its first (each step's loss precedes its
     update); the compression's first step
-    must project onto the empty sketch's zero basis and its last onto a
-    learned one (nonzero ``low`` for every compressed leaf), with finite
+    must project onto the empty sketch's zero basis and every later one,
+    and the next step's projection of the error feedback, onto a learned
+    one (nonzero ``low`` for every compressed leaf), with finite
     error-feedback accumulators and sketches; Sketchy's momenta and
     sketches must be finite and its momenta nonzero.  Each run counts the flash launches from 0 (fwd = 2·layers·steps under full
     remat, bwd = layers·steps), records the dtype the flash ran in, the
@@ -3662,19 +4249,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int,
-                    default=9 * WINDOW // (8 * BLOCK))
+                    default=17 * WINDOW // (16 * BLOCK))
     ap.add_argument("--fast-ticks", type=int, default=12)
     ap.add_argument("--fine-ticks", type=int,
-                    default=math.ceil(1.125 * WINDOW / BLOCK))
+                    default=17 * WINDOW // (16 * BLOCK))
     ap.add_argument("--layered-ticks", type=int,
-                    default=math.ceil(1.125 * WINDOW / BLOCK))
-    ap.add_argument("--time-ticks", type=int, default=144)
+                    default=17 * WINDOW // (16 * BLOCK))
+    ap.add_argument("--time-ticks", type=int, default=136)
     ap.add_argument("--score-ticks", type=int, default=64)
     ap.add_argument("--history-ticks", type=int,
                     default=WINDOW // BLOCK + 512 // BLOCK)
     ap.add_argument("--topology-ticks", type=int, default=128)
     ap.add_argument("--train-steps", type=int, default=30)
-    ap.add_argument("--train-extra-steps", type=int, default=2)
+    ap.add_argument("--train-extra-steps", type=int, default=1)
     ap.add_argument("--launch-sizes", action="store_true",
                     help="internal: time the dump-step kernels at the "
                     "launch sizes given on standard input")
@@ -3682,13 +4269,15 @@ def main(argv=None) -> int:
                                                           "DIR"),
                     help="internal: one process of the topology phase's "
                     "pair")
+    ap.add_argument("--mesh-child", nargs=5,
+                    metavar=("MODE", "PID", "N", "PORT", "DIR"),
+                    help="internal: one process of the mesh phase")
     args = ap.parse_args(argv)
     if args.train_steps < 10:
         ap.error("--train-steps must give 10 losses: the first and the "
                  "last 5 are compared")
-    if args.train_extra_steps < 2:
-        ap.error("--train-extra-steps must be 2 or more: the compression's "
-                 "first step projects onto an empty sketch")
+    if args.train_extra_steps < 1:
+        ap.error("--train-extra-steps must be 1 or more")
     if args.score_ticks <= SCORE_SWITCH:
         ap.error(f"--score-ticks must pass the switch at tick {SCORE_SWITCH}")
     if args.history_ticks <= max(WINDOW // BLOCK, HISTORY_RESUMED):
@@ -3715,6 +4304,9 @@ def main(argv=None) -> int:
     if args.topology_child:
         pid, port, root = args.topology_child
         return topology_child(int(pid), int(port), root)
+    if args.mesh_child:
+        mode, pid, n, port, root = args.mesh_child
+        return mesh_child(mode, int(pid), int(n), int(port), root)
     from repro_torch.kernels import dispatch
 
     rng = np.random.default_rng(args.seed)
@@ -3799,6 +4391,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    msh = run_mesh(args.seed)
+    log(f"phase mesh: {time.perf_counter() - t:.3f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     zoo = run_zoo(args.seed)
     check_zoo_reduced(args.seed)
     log(f"phase zoo: {time.perf_counter() - t:.3f} s")
@@ -3844,6 +4442,7 @@ def main(argv=None) -> int:
              "topology": topo["launches"],
              "serve": {"flash_fwd": srv["launches"]},
              "moe": {"flash_fwd": mix["launches"]},
+             "mesh": {"flash_fwd": msh["launches"]},
              "zoo": {"flash_fwd": zoo["launches"]},
              "train": trn["launches"]}
     rows = [dict(name=name, route="cuda",

@@ -1,11 +1,11 @@
 """Model configurations: one frozen dataclass per architecture.
 
 Counterpart of ``repro/configs/base.py``, with the same fields, defaults and
-``reduced()``.  The port registers the four dense configurations, the two
-MoE ones (grok-1, kimi-k2), the VLM (qwen2-vl-2b), the SSM (mamba2-2.7b)
-and the hybrid (recurrentgemma-9b); the encoder-decoder family of the
-reference (whisper-large-v3) is known by name and raises
-``NotImplementedError`` until its slice lands (ROADMAP item 15).
+``reduced()``.  The port registers every configuration of the reference:
+the four dense ones, the two MoE ones (grok-1, kimi-k2), the VLM
+(qwen2-vl-2b), the SSM (mamba2-2.7b), the hybrid (recurrentgemma-9b) and
+the encoder-decoder (whisper-large-v3), with the same ``SHAPES`` and
+``shape_cells``.
 """
 
 from __future__ import annotations
@@ -140,6 +140,16 @@ def all_configs() -> Dict[str, ModelConfig]:
     if not _REGISTRY:
         load_all()
     return dict(_REGISTRY)
+
+
+def shape_cells(name: str):
+    """The (arch × shape) cells of this arch: train, prefill and decode,
+    and the 500k-token decode for the sub-quadratic families."""
+    cfg = get_config(name)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        cells.append("long_500k")
+    return [SHAPES[c] for c in cells]
 
 
 def load_all() -> None:

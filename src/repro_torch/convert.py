@@ -18,6 +18,12 @@ crosses too: optimizer states (``AdamState``, ``FactoredState``,
 ``SketchyState`` with its per-leaf DS-FD states), the gradient monitor's
 and the compression's states; the reference's single-stream DS-FD states
 become the port's S = 1 states.
+
+Under a mesh, ``split_experts`` cuts a one-device MoE tree's experts into
+the virtual experts of a model axis (``models/layers/moe.py``), and
+``local_params`` gives one process its block of every leaf under
+``param_pspecs``, so that the port's expert-parallel processes and the
+reference's ``moe_block`` under a mesh hold the same weights.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ from repro_torch.core.fd import AdaptiveFDState, FDState
 from repro_torch.core.seq_dsfd import LayeredConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
-from repro_torch.models.params import ParamDef
+from repro_torch.models.layers.moe import virtual_split
+from repro_torch.models.params import ParamDef, _leaves
+from repro_torch.parallel.sharding import mesh_shape
 from repro_torch.tree import map_dicts
 
 _DTYPES = {"buf": torch.float32, "sig1": torch.float32,
@@ -377,3 +385,75 @@ def compress_state_from_reference(cfg: Any, state: Any,
         return leaf(tree)          # a leaf's state is itself a dict
 
     return walk(state)
+
+
+# ---------------------------------------------------------------------------
+# weights under a mesh: virtual experts and one process's block
+# ---------------------------------------------------------------------------
+
+
+def split_experts(params: dict, cfg: ModelConfig, msize: int) -> dict:
+    """``params`` with each MoE layer's experts cut into the virtual
+    experts of a model axis of ``msize``: expert e's FFN columns
+    ``[s·Fv, (s+1)·Fv)`` become virtual expert ``e·split + s`` (``wg``,
+    ``wu`` along F, ``wd`` along its rows), as the reference's virtual
+    shapes lay them out.  Without a split (E ≥ msize) the tree is returned
+    as it is.  Works on torch tensors and on numpy arrays."""
+    split = virtual_split(cfg.moe, msize) if cfg.moe else 1
+    if split == 1:
+        return params
+    lay = dict(params["layers"])
+    for name in ("wg", "wu"):
+        w = lay[name]                                   # (L, E, D, F)
+        L, E, D, F = w.shape
+        w = w.reshape(L, E, D, split, F // split)
+        w = (w.permute(0, 1, 3, 2, 4) if isinstance(w, torch.Tensor)
+             else w.transpose(0, 1, 3, 2, 4))
+        lay[name] = w.reshape(L, E * split, D, F // split)
+    w = lay["wd"]                                       # (L, E, F, D)
+    L, E, F, D = w.shape
+    lay["wd"] = w.reshape(L, E * split, F // split, D)
+    return {**params, "layers": lay}
+
+
+def mesh_coords(mesh) -> dict:
+    """``{axis: this process's coordinate}`` on a ``DeviceMesh``."""
+    return {a: int(mesh.get_local_rank(a)) for a in mesh.mesh_dim_names}
+
+
+def local_block(d: ParamDef, rules, mesh, coords: dict) -> tuple:
+    """The block (a slice a dimension) of leaf ``d`` that the process at
+    ``coords`` holds under ``rules``: a dimension split over mesh axes
+    (major to minor) is cut into equal blocks."""
+    from repro_torch.parallel.sharding import to_pspec
+
+    shape = mesh_shape(mesh)
+    out = []
+    for n, p in zip(d.shape, to_pspec(d.axes, rules)):
+        if p is None:
+            out.append(slice(0, n))
+            continue
+        idx, ways = 0, 1
+        for a in (tuple(p) if isinstance(p, (tuple, list)) else (p,)):
+            idx, ways = idx * shape[a] + coords[a], ways * shape[a]
+        if n % ways:
+            raise ValueError(f"dimension {n} of {d} does not split {ways} "
+                             "ways")
+        out.append(slice(idx * (n // ways), (idx + 1) * (n // ways)))
+    return tuple(out)
+
+
+def local_params(params: dict, defs, rules, mesh, coords: dict) -> dict:
+    """This process's block of every leaf of ``params`` (shaped as
+    ``defs`` declares) under ``rules`` (``param_pspecs``): the weights an
+    expert-parallel process holds."""
+    out: dict = {}
+    for path, d in _leaves(defs):
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf[local_block(d, rules, mesh, coords)]
+    return out

@@ -19,6 +19,13 @@ CUDA tensor (or an explicit :func:`build`), never at import, so the package
 imports on machines without ``nvcc``.  Library names carry a digest of the
 source, the headers under ``csrc/`` (``*.cuh``) and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.
+
+Each kernel's ``ops.py`` entry also tells the program analyzer
+(``launch/hlo.py``), when one is active, the work of one launch by the
+formula its bound uses (:func:`kernel_work`): a launch through ``ctypes``
+is invisible to a dispatch mode, and the plain version's own ops are not
+the kernel's work, so a step counts the same on the card, the CPU and
+``meta``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ H100_SMEM_PER_BLOCK, H100_SMS = 232_448, 132
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# the program analyzer in force (launch/hlo.py::analyze sets it), or None
+WORK_HOOK = None
+
 
 class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused a source; the message holds its output."""
@@ -58,6 +68,29 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain path for device {t.device}")
+
+
+def kernel_work(name: str, flops: float, nbytes: float,
+                dtype: torch.dtype = torch.float32):
+    """A context around one launch of kernel ``name`` (or its plain
+    version) doing ``flops`` operations in ``dtype`` (the type its
+    arithmetic runs in) and moving ``nbytes``: the active analyzer counts
+    that work once and none of the ops inside."""
+    hook = WORK_HOOK
+    if hook is None:
+        return _CURRENT
+    return hook.kernel(name, float(flops), float(nbytes), dtype)
+
+
+def collective(op: str, nbytes: float, group_size: int):
+    """A context around one collective ``op`` ("all-reduce", ...) of
+    ``nbytes`` over ``group_size`` processes that the port issues itself
+    (``parallel/sharding.py::all_reduce``): the active analyzer counts it
+    by the ring model and none of the ops inside (the host staging)."""
+    hook = WORK_HOOK
+    if hook is None:
+        return _CURRENT
+    return hook.collective(op, float(nbytes), int(group_size))
 
 
 def resolve_device(device="cuda") -> torch.device:

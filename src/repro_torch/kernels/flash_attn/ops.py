@@ -20,27 +20,58 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import kernel_work, use_kernel
 from repro_torch.kernels.flash_attn import kernel, ref
+
+
+def _pairs(S: int, causal: bool) -> int:
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def forward_work(BH: int, BHkv: int, S: int, dh: int, elt: int,
+                 causal: bool):
+    """(FLOPs, bytes) of one forward over BH query and BHkv key heads of
+    ``elt``-byte elements, as its bound counts them: q, k, v read and o,
+    lse written once; 4·dh FLOPs a (query, key) pair the mask keeps."""
+    nbytes = elt * (2 * BH * S * dh + 2 * BHkv * S * dh) + 4 * BH * S
+    return 4 * dh * BH * _pairs(S, causal), nbytes
+
+
+def backward_work(BH: int, BHkv: int, S: int, dh: int, elt: int,
+                  causal: bool):
+    """(FLOPs, bytes) of one backward, as its bound counts them: q, o, dO
+    read and dq written, k, v read and dk, dv written, lse read; five
+    products of 2·dh FLOPs a kept (query, key) pair."""
+    nbytes = elt * 4 * S * dh * (BH + BHkv) + 4 * BH * S
+    return 10 * dh * BH * _pairs(S, causal), nbytes
+
+
+def _shape(q: torch.Tensor, k: torch.Tensor):
+    BH, S, dh = q.shape
+    return BH, k.shape[0], S, dh, q.element_size()
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True):
     """(o, lse) of q (BH, S, dh) against k, v (BHkv, S, dh)."""
-    if use_kernel(q):
-        return kernel.flash_fwd(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal)
-    return ref.flash_ref(q, k, v, causal=causal)
+    with kernel_work("flash_fwd", *forward_work(*_shape(q, k), causal),
+                     q.dtype):
+        if use_kernel(q):
+            return kernel.flash_fwd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal)
+        return ref.flash_ref(q, k, v, causal=causal)
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                    causal: bool = True):
     """(dq, dk, dv) from the forward's residuals and dO."""
-    if use_kernel(q):
-        return kernel.flash_bwd(*(t.contiguous()
-                                  for t in (q, k, v, o, lse, do)), causal)
-    return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    with kernel_work("flash_bwd", *backward_work(*_shape(q, k), causal),
+                     q.dtype):
+        if use_kernel(q):
+            return kernel.flash_bwd(*(t.contiguous()
+                                      for t in (q, k, v, o, lse, do)), causal)
+        return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 # H100_SMEM_PER_BLOCK: the limit the route compares against for a CPU tensor
-from repro_torch.kernels.dispatch import H100_SMEM_PER_BLOCK, use_kernel
+from repro_torch.kernels.dispatch import (H100_SMEM_PER_BLOCK, kernel_work,
+                                          use_kernel)
 from repro_torch.kernels.fused_tick import kernel, ref
 from repro_torch.kernels.gram.ops import gram
 from repro_torch.kernels.power_iter.ops import power_iter
@@ -68,14 +69,27 @@ def _slab(D: torch.Tensor) -> torch.Tensor:
     return D.to(torch.float32).contiguous()
 
 
+def work(name: str, S: int, m: int, d: int, iters: int):
+    """(f32 operations, bytes) of one launch of ``name`` at (S, m, d), as
+    its bound counts them: every input read and output written once; a
+    symmetric K's m(m+1)/2 dot products of length d."""
+    power = (iters + 1) * 2 * m * m + iters * 3 * m + 2 * m
+    gram_ops = m * (m + 1) * d
+    if name == "gram_power":
+        return S * (gram_ops + power), 4 * S * (m * d + 1 + m)
+    return (S * (6 * m * d + 3 * d + gram_ops + power),
+            4 * S * ((m * d + 1 + m) + (d + m * d + 1 + m)))
+
+
 def gram_power(D: torch.Tensor, *, iters: int = 24, floor_norm: bool = False):
     """(λ̂ (S,), û (S, m)) of K = DDᵀ for every stream."""
     D = _slab(D)
     if route(D.shape[1], D.shape[2], D.device) == "split":
         return power_iter(gram(D), iters=iters, floor_norm=floor_norm)
-    if use_kernel(D):
-        return kernel.gram_power_cuda(D, iters, floor_norm)
-    return ref.gram_power_ref(D, iters, floor_norm)
+    with kernel_work("gram_power", *work("gram_power", *D.shape, iters)):
+        if use_kernel(D):
+            return kernel.gram_power_cuda(D, iters, floor_norm)
+        return ref.gram_power_ref(D, iters, floor_norm)
 
 
 def fused_krylov_step(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
@@ -88,9 +102,12 @@ def fused_krylov_step(D: torch.Tensor, lam: torch.Tensor, u: torch.Tensor,
     u = u.to(torch.float32).contiguous()
     if route(D.shape[1], D.shape[2], D.device) == "split":
         return _split_step(D, lam, u, iters, floor_norm)
-    if use_kernel(D):
-        return kernel.fused_krylov_step_cuda(D, lam, u, iters, floor_norm)
-    return ref.fused_krylov_step_ref(D, lam, u, iters, floor_norm)
+    with kernel_work("fused_krylov_step",
+                     *work("fused_krylov_step", *D.shape, iters)):
+        if use_kernel(D):
+            return kernel.fused_krylov_step_cuda(D, lam, u, iters,
+                                                 floor_norm)
+        return ref.fused_krylov_step_ref(D, lam, u, iters, floor_norm)
 
 
 def _split_step(D, lam, u, iters, floor_norm):

@@ -13,8 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import kernel_work, use_kernel
 from repro_torch.kernels.gram import kernel, ref
+
+
+def work(S: int, m: int, d: int, elt: int = 4):
+    """(f32 operations, bytes) of one launch at (S, m, d), as its bound
+    counts them: X read, K written once; a symmetric K's m(m+1)/2 dot
+    products of length d."""
+    return S * m * (m + 1) * d, S * (elt * m * d + 4 * m * m)
 
 
 def gram(X: torch.Tensor) -> torch.Tensor:
@@ -22,6 +29,7 @@ def gram(X: torch.Tensor) -> torch.Tensor:
     if X.dim() != 3:
         raise ValueError(f"gram: expected an (S, m, d) slab, got shape "
                          f"{tuple(X.shape)}")
-    if use_kernel(X):
-        return kernel.gram_cuda(X.contiguous())
-    return ref.gram_ref(X)
+    with kernel_work("gram", *work(*X.shape, X.element_size())):
+        if use_kernel(X):
+            return kernel.gram_cuda(X.contiguous())
+        return ref.gram_ref(X)

@@ -16,8 +16,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import kernel_work, use_kernel
 from repro_torch.kernels.power_iter import kernel, ref
+
+
+def work(S: int, m: int, iters: int):
+    """(f32 operations, bytes) of one launch at (S, m, m), as its bound
+    counts them: K read once, (λ̂, û) written; 2m² a step and the
+    Rayleigh quotient."""
+    return (S * ((iters + 1) * 2 * m * m + iters * 3 * m + 2 * m),
+            4 * S * (m * m + 1 + m))
 
 
 def power_iter(K: torch.Tensor, *, iters: int = 24, floor_norm: bool = False):
@@ -26,7 +34,8 @@ def power_iter(K: torch.Tensor, *, iters: int = 24, floor_norm: bool = False):
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
         raise ValueError(f"power_iter: expected an (S, m, m) slab, got shape "
                          f"{tuple(K.shape)}")
-    if use_kernel(K):
-        return kernel.power_iter_cuda(K.to(torch.float32).contiguous(), iters,
-                                      floor_norm)
-    return ref.power_iter_ref(K, iters, floor_norm)
+    with kernel_work("power_iter", *work(K.shape[0], K.shape[1], iters)):
+        if use_kernel(K):
+            return kernel.power_iter_cuda(K.to(torch.float32).contiguous(),
+                                          iters, floor_norm)
+        return ref.power_iter_ref(K, iters, floor_norm)

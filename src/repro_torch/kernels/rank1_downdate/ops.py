@@ -13,8 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import kernel_work, use_kernel
 from repro_torch.kernels.rank1_downdate import kernel, ref
+
+
+def work(S: int, m: int, d: int):
+    """(f32 operations, bytes) of one launch at (S, m, d), as its bound
+    counts them: D and v read, D′ written once; Dv and the outer product,
+    4md a stream."""
+    return S * 4 * m * d, 4 * S * (2 * m * d + d)
 
 
 def rank1_downdate(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -22,7 +29,8 @@ def rank1_downdate(D: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if D.dim() != 3 or v.dim() != 2:
         raise ValueError(f"rank1_downdate: expected D (S, m, d) and v (S, d),"
                          f" got {tuple(D.shape)} and {tuple(v.shape)}")
-    if use_kernel(D):
-        return kernel.rank1_downdate_cuda(
-            D.contiguous(), v.to(torch.float32).contiguous())
-    return ref.rank1_downdate_ref(D, v)
+    with kernel_work("rank1_downdate", *work(*D.shape)):
+        if use_kernel(D):
+            return kernel.rank1_downdate_cuda(
+                D.contiguous(), v.to(torch.float32).contiguous())
+        return ref.rank1_downdate_ref(D, v)

@@ -11,8 +11,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dispatch import use_kernel
+from repro_torch.kernels.dispatch import kernel_work, use_kernel
 from repro_torch.kernels.window_gram import kernel, ref
+
+
+def work(S: int, n: int, d: int, elt: int = 4):
+    """(f32 operations, bytes) of one launch at (S, n, d), as its bound
+    counts them: A read, G written once; a symmetric G's d(d+1)/2 dot
+    products of length n."""
+    return S * d * (d + 1) * n, S * (elt * n * d + 4 * d * d)
 
 
 def window_gram(A: torch.Tensor) -> torch.Tensor:
@@ -20,6 +27,7 @@ def window_gram(A: torch.Tensor) -> torch.Tensor:
     if A.dim() != 3:
         raise ValueError(f"window_gram: expected an (S, n, d) slab, got "
                          f"shape {tuple(A.shape)}")
-    if use_kernel(A):
-        return kernel.window_gram_cuda(A.contiguous())
-    return ref.window_gram_ref(A)
+    with kernel_work("window_gram", *work(*A.shape, A.element_size())):
+        if use_kernel(A):
+            return kernel.window_gram_cuda(A.contiguous())
+        return ref.window_gram_ref(A)

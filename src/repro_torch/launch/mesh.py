@@ -16,9 +16,18 @@ default for processes on one host): each process's default intra-op pool,
 every core, would oversubscribe the host once for every process.  Nothing
 here runs at import.
 
-The logical-axis rules of ``repro/parallel/sharding.py`` shard model
-parameters over a mesh; they come with the port's mesh tooling (ROADMAP
-item 15.7), together with expert parallelism over processes.
+The meshes of the logical-axis rules (``parallel/sharding.py``) are
+``torch.distributed.DeviceMesh``es over ("data", "model") or ("pod",
+"data", "model"):
+
+* :func:`make_production_mesh` and :func:`make_debug_mesh` for the
+  abstract dry-run (``launch/dryrun.py``): meshes over a *fake* default
+  group (:func:`init_fake_world`), the counterpart of the reference's 512
+  placeholder host devices.  Its ranks exist only as numbers: this
+  process plays rank 0, and its collectives move nothing.
+* :func:`make_process_mesh` and :func:`make_host_mesh` over the processes
+  of :func:`init_distributed`'s gloo group: the expert-parallel MoE
+  across processes (two of them may share one card).
 """
 
 from __future__ import annotations
@@ -104,6 +113,86 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _STORE = None
+
+
+def init_fake_world(world_size: int) -> None:
+    """Initialize a default process group of ``world_size`` placeholder
+    ranks, this process rank 0, whose collectives move nothing (torch's
+    fake backend, used for abstract programs on ``meta`` tensors).  Its
+    store comes from torch's testing package, the one place the port
+    imports it; a torch without it raises."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:                      # pragma: no cover
+        raise RuntimeError(
+            "this torch has no fake process group (torch.testing._internal."
+            "distributed.fake_pg); the dry-run needs it") from e
+    if dist.is_initialized():
+        raise RuntimeError("torch.distributed is already initialized in "
+                           "this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+
+
+def _mesh_over_world(shape: Tuple[int, ...], names: Tuple[str, ...],
+                     fake_world: int):
+    """A ``DeviceMesh`` of ``shape`` over ranks 0..n-1 of the default group,
+    which is made a fake world of ``fake_world`` ranks when there is none;
+    the group must hold the mesh's ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if not dist.is_initialized():
+        init_fake_world(max(n, fake_world))
+    if dist.get_world_size() < n:
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks; the "
+                         f"default group has {dist.get_world_size()}")
+    return DeviceMesh("cpu", torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The dry-run's mesh: (16, 16) over ("data", "model"), or (2, 16, 16)
+    over ("pod", "data", "model") with ``multi_pod``, on a fake world of
+    512 ranks (both meshes fit it)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh_over_world(shape, axes, 512)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2):
+    """A small ("data", "model") mesh over the first ranks of the default
+    group (a fake world of that size when there is none)."""
+    return _mesh_over_world((int(n_data), int(n_model)), ("data", "model"),
+                            int(n_data) * int(n_model))
+
+
+def make_process_mesh(n_model: int, device="cuda"):
+    """The processes of :func:`init_distributed`'s group as a ("data",
+    "model") mesh with ``n_model`` on the model axis: expert parallelism
+    across processes.  Its group reduces on the host (gloo), so processes
+    that share one card may form it; they compute on the card unless
+    ``device`` names the CPU."""
+    resolve_device(device)
+    world, _ = process_runtime()
+    if not dist.is_initialized() or world % int(n_model):
+        raise ValueError(f"a model axis of {n_model} needs an initialized "
+                         f"group whose size it divides (size {world})")
+    return _mesh_over_world((world // int(n_model), int(n_model)),
+                            ("data", "model"), world)
+
+
+def make_host_mesh(device="cuda"):
+    """This process's group on "data", no model parallelism (the
+    reference's all local devices on 'data'): a mesh over
+    :func:`init_distributed`'s group, or the plain shape ``{"data": 1,
+    "model": 1}`` in a process without one."""
+    resolve_device(device)
+    if not dist.is_initialized():
+        return {"data": 1, "model": 1}
+    return make_process_mesh(1, device)
 
 
 def local_device(topology, device="cuda") -> torch.device:

@@ -10,6 +10,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import constrain
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -75,18 +77,20 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                          f"dh/2 = {half}")
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))              # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                     # (half,)
     pos = positions[..., sec_id].float()                      # (B, S, half)
     return _rotate(x, pos * _rope_freqs(dh, theta, x.device))
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return constrain(table[tokens], "batch", "seq", "embed")
 
 
 def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) @ tableᵀ (D, V) → (B, S, V) in f32."""
-    return torch.matmul(x.float(), table.float().t())
+    out = torch.matmul(x.float(), table.float().t())
+    return constrain(out, "batch", "seq", "vocab")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

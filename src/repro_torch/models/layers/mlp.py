@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.common import matmul
+from repro_torch.parallel.sharding import constrain
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -17,8 +18,8 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     x's type before the gating product."""
     g = matmul(x, w_gate)
     u = matmul(x, w_up)
-    h = F.silu(g.float()).to(x.dtype) * u
-    return matmul(h, w_down)
+    h = constrain(F.silu(g.float()).to(x.dtype) * u, "batch", "seq", "ff")
+    return constrain(matmul(h, w_down), "batch", "seq", "embed")
 
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
@@ -28,4 +29,5 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
     f32, cast back to x's type before the second product."""
     h = matmul(x, w_in) + b_in
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return matmul(h, w_out) + b_out
+    h = constrain(h, "batch", "seq", "ff")
+    return constrain(matmul(h, w_out) + b_out, "batch", "seq", "embed")

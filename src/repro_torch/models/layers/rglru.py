@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.common import matmul
+from repro_torch.parallel.sharding import constrain
 
 _C = 8.0
 _N_BLOCKS = 16  # block-diagonal gate heads, as RecurrentGemma's
@@ -100,7 +101,9 @@ def recurrent_block(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     del cfg
     y1 = gelu(matmul(x, p["w_branch1"]))
     x2 = causal_conv1d(matmul(x, p["w_branch2"]), p["conv_w"], p["conv_b"])
-    return matmul(y1 * rglru_scan(p, x2), p["w_out"])
+    x2 = constrain(x2, "batch", "seq", "lru")
+    out = matmul(y1 * rglru_scan(p, x2), p["w_out"])
+    return constrain(out, "batch", "seq", "embed")
 
 
 def recurrent_block_decode(cfg: ModelConfig, p, x: torch.Tensor,

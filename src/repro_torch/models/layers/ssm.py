@@ -18,6 +18,7 @@ recurrence do.  The port computes the same function (ROADMAP §3 note
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -26,6 +27,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.layers.common import matmul, rms_norm
+from repro_torch.parallel.sharding import (constrain, fit_spec, is_dtensor,
+                                           spec_placements, to_pspec)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -44,6 +47,8 @@ def ssd_chunked(xh, Bc, Cc, dt, A, D_skip, chunk: int):
     dt: (B, S, H) after the softplus; A: (H,) negative.  Returns y
     (B, S, H, P) in xh's type and the final state (B, H, N, P) in f32.
     """
+    if is_dtensor(xh) and Bc.shape[2] == 1:
+        return _ssd_on_blocks(xh, Bc, Cc, dt, A, D_skip, chunk)
     Bsz, S, H, P = xh.shape
     G, N = Bc.shape[2], Bc.shape[3]
     L = min(chunk, S)
@@ -96,6 +101,27 @@ def ssd_chunked(xh, Bc, Cc, dt, A, D_skip, chunk: int):
     return y.reshape(Bsz, nc * L, H, P)[:, :S], h
 
 
+def _ssd_on_blocks(xh, Bc, Cc, dt, A, D_skip, chunk: int):
+    """:func:`ssd_chunked` of DTensors on each device's local block
+    (``local_map``): the scan is independent over the batch and the heads
+    (one group, shared by every head), so no collective is needed."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+    b, q, h, _ = fit_spec(to_pspec(("batch", "seq", "heads", None)),
+                          xh.shape, mesh)
+    x_pl = spec_placements((b, q, h, None), mesh)
+    h_pl = spec_placements((b, h, None, None), mesh)
+    bc_pl = spec_placements((b, q, None, None), mesh)
+    dt_pl = spec_placements((b, q, h), mesh)
+    a_pl = spec_placements((h,), mesh)
+    fn = local_map(functools.partial(ssd_chunked, chunk=chunk),
+                   out_placements=(x_pl, h_pl),
+                   in_placements=(x_pl, bc_pl, bc_pl, dt_pl, a_pl, a_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(xh, Bc, Cc, dt, A, D_skip)
+
+
 class SSMCache(NamedTuple):
     conv_x: torch.Tensor    # (B, K-1, d_inner) the conv's last inputs
     conv_bc: torch.Tensor   # (B, K-1, 2·G·N)
@@ -117,6 +143,9 @@ def _project(cfg: ModelConfig, p, x: torch.Tensor):
     xs = matmul(x, p["wx"])
     bc = matmul(x, p["wbc"])
     dt = matmul(x, p["wdt"])
+    z = constrain(z, "batch", "seq", "inner")
+    xs = constrain(xs, "batch", "seq", "inner")
+    dt = constrain(dt, "batch", "seq", "heads")
     conv_x_in, conv_bc_in = xs, bc
     xs = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"])
     bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"])
@@ -147,11 +176,13 @@ def mamba_block(cfg: ModelConfig, p, x: torch.Tensor, *,
     z, xs, bc, dt, conv_x_in, conv_bc_in = _project(cfg, p, x)
     Bc, Cc = torch.chunk(bc, 2, dim=-1)
     A = -torch.exp(p["A_log"].float())
+    xh = constrain(xs.reshape(Bsz, S, H, P), "batch", "seq", "heads", None)
     y, h_final = ssd_chunked(
-        xs.reshape(Bsz, S, H, P), Bc.reshape(Bsz, S, ssm.n_groups, N),
+        xh, Bc.reshape(Bsz, S, ssm.n_groups, N),
         Cc.reshape(Bsz, S, ssm.n_groups, N), _dt_softplus(p, dt), A,
         p["D_skip"], ssm.chunk)
     out = _gate_norm_out(cfg, p, y.reshape(Bsz, S, di), z)
+    out = constrain(out, "batch", "seq", "embed")
     if not return_cache:
         return out, None
     K = ssm.d_conv

@@ -29,26 +29,34 @@ def param_defs(cfg: ModelConfig) -> Dict:
     di, gn, H = _dims(cfg)
     K = cfg.ssm.d_conv
     layers = {
-        "norm": ParamDef((L, D), "zeros"),
-        "wz": ParamDef((L, D, di)),
-        "wx": ParamDef((L, D, di)),
-        "wbc": ParamDef((L, D, 2 * gn)),
-        "wdt": ParamDef((L, D, H)),
-        "conv_x_w": ParamDef((L, K, di), scale=0.2),
-        "conv_x_b": ParamDef((L, di), "zeros"),
-        "conv_bc_w": ParamDef((L, K, 2 * gn), scale=0.2),
-        "conv_bc_b": ParamDef((L, 2 * gn), "zeros"),
-        "A_log": ParamDef((L, H), "zeros"),
-        "dt_bias": ParamDef((L, H), "zeros"),
-        "D_skip": ParamDef((L, H), "ones"),
-        "norm_gate": ParamDef((L, di), "zeros"),
-        "out_proj": ParamDef((L, di, D)),
+        "norm": ParamDef((L, D), (None, "embed"), "zeros"),
+        "wz": ParamDef((L, D, di), (None, "embed", "inner")),
+        "wx": ParamDef((L, D, di), (None, "embed", "inner")),
+        "wbc": ParamDef((L, D, 2 * gn), (None, "embed", None)),
+        "wdt": ParamDef((L, D, H), (None, "embed", "heads")),
+        "conv_x_w": ParamDef((L, K, di), (None, "conv", "inner"), scale=0.2),
+        "conv_x_b": ParamDef((L, di), (None, "inner"), "zeros"),
+        "conv_bc_w": ParamDef((L, K, 2 * gn), (None, "conv", None),
+                              scale=0.2),
+        "conv_bc_b": ParamDef((L, 2 * gn), (None, None), "zeros"),
+        "A_log": ParamDef((L, H), (None, "heads"), "zeros"),
+        "dt_bias": ParamDef((L, H), (None, "heads"), "zeros"),
+        "D_skip": ParamDef((L, H), (None, "heads"), "ones"),
+        "norm_gate": ParamDef((L, di), (None, "inner"), "zeros"),
+        "out_proj": ParamDef((L, di, D), (None, "inner", "embed")),
     }
     return {
-        "embed": ParamDef((V, D), scale=0.01),
-        "final_norm": ParamDef((D,), "zeros"),
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.01),
+        "final_norm": ParamDef((D,), ("embed",), "zeros"),
         "layers": layers,
     }
+
+
+def sharding_dims(cfg: ModelConfig) -> Dict[str, int]:
+    """'inner' is d_inner, head-aligned with 'heads' (di = H·P)."""
+    di, _, H = _dims(cfg)
+    return {"heads": H, "inner": di, "vocab": cfg.vocab, "ff": 0, "kv": 0,
+            "embed": cfg.d_model}
 
 
 def _layer_params(lp):

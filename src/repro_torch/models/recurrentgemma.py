@@ -36,6 +36,7 @@ from repro_torch.models.layers.rglru import (_N_BLOCKS, RGLRUCache,
                                              rglru_scan)
 from repro_torch.models.params import ParamDef
 from repro_torch.models.transformer import _act, _remat
+from repro_torch.parallel.sharding import constrain
 from repro_torch.tree import map_dicts
 
 N_GROUPS = 12      # (rec, mlp, rec, mlp, attn, mlp) groups
@@ -49,36 +50,36 @@ def _lru_width(cfg: ModelConfig) -> int:
 def _rec_defs(L, D, R, K):
     bw = R // _N_BLOCKS
     return {
-        "norm": ParamDef((L, D), "zeros"),
-        "w_branch1": ParamDef((L, D, R)),
-        "w_branch2": ParamDef((L, D, R)),
-        "conv_w": ParamDef((L, K, R), scale=0.2),
-        "conv_b": ParamDef((L, R), "zeros"),
-        "w_a": ParamDef((L, _N_BLOCKS, bw, bw)),
-        "b_a": ParamDef((L, R), "zeros"),
-        "w_x": ParamDef((L, _N_BLOCKS, bw, bw)),
-        "b_x": ParamDef((L, R), "zeros"),
-        "lam": ParamDef((L, R), "ones"),
-        "w_out": ParamDef((L, R, D)),
+        "norm": ParamDef((L, D), (None, "embed"), "zeros"),
+        "w_branch1": ParamDef((L, D, R), (None, "embed", "lru")),
+        "w_branch2": ParamDef((L, D, R), (None, "embed", "lru")),
+        "conv_w": ParamDef((L, K, R), (None, "conv", "lru"), scale=0.2),
+        "conv_b": ParamDef((L, R), (None, "lru"), "zeros"),
+        "w_a": ParamDef((L, _N_BLOCKS, bw, bw), (None, None, None, None)),
+        "b_a": ParamDef((L, R), (None, "lru"), "zeros"),
+        "w_x": ParamDef((L, _N_BLOCKS, bw, bw), (None, None, None, None)),
+        "b_x": ParamDef((L, R), (None, "lru"), "zeros"),
+        "lam": ParamDef((L, R), (None, "lru"), "ones"),
+        "w_out": ParamDef((L, R, D), (None, "lru", "embed")),
     }
 
 
 def _mlp_defs(L, D, F):
     return {
-        "norm": ParamDef((L, D), "zeros"),
-        "wg": ParamDef((L, D, F)),
-        "wu": ParamDef((L, D, F)),
-        "wd": ParamDef((L, F, D)),
+        "norm": ParamDef((L, D), (None, "embed"), "zeros"),
+        "wg": ParamDef((L, D, F), (None, "embed", "ff")),
+        "wu": ParamDef((L, D, F), (None, "embed", "ff")),
+        "wd": ParamDef((L, F, D), (None, "ff", "embed")),
     }
 
 
 def _attn_defs(L, D, H, KV, dh):
     return {
-        "norm": ParamDef((L, D), "zeros"),
-        "wq": ParamDef((L, D, H * dh)),
-        "wk": ParamDef((L, D, KV * dh)),
-        "wv": ParamDef((L, D, KV * dh)),
-        "wo": ParamDef((L, H * dh, D)),
+        "norm": ParamDef((L, D), (None, "embed"), "zeros"),
+        "wq": ParamDef((L, D, H * dh), (None, "embed", "heads")),
+        "wk": ParamDef((L, D, KV * dh), (None, "embed", "kv")),
+        "wv": ParamDef((L, D, KV * dh), (None, "embed", "kv")),
+        "wo": ParamDef((L, H * dh, D), (None, "heads", "embed")),
     }
 
 
@@ -96,11 +97,17 @@ def param_defs(cfg: ModelConfig) -> Dict:
         "rec": _rec_defs(N_TAIL, D, R, K), "mlp": _mlp_defs(N_TAIL, D, F),
     }
     return {
-        "embed": ParamDef((V, D), scale=0.01),
-        "final_norm": ParamDef((D,), "zeros"),
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.01),
+        "final_norm": ParamDef((D,), ("embed",), "zeros"),
         "groups": groups,
         "tail": tail,
     }
+
+
+def sharding_dims(cfg: ModelConfig) -> Dict[str, int]:
+    return {"heads": cfg.n_heads, "kv": cfg.n_kv, "ff": cfg.d_ff,
+            "vocab": cfg.vocab, "lru": _lru_width(cfg),
+            "embed": cfg.d_model}
 
 
 def _at(tree, i: int):
@@ -123,7 +130,8 @@ def _gelu_mlp(cfg: ModelConfig, lp, x):
     h = rms_norm(x, lp["norm"], cfg.norm_eps)
     g = gelu(matmul(h, lp["wg"]))
     u = matmul(h, lp["wu"])
-    return x + matmul(g * u, lp["wd"])
+    hh = constrain(g * u, "batch", "seq", "ff")
+    return x + constrain(matmul(hh, lp["wd"]), "batch", "seq", "embed")
 
 
 def _rec_layer(cfg: ModelConfig, lp, x):
@@ -152,7 +160,7 @@ def _attn_layer(cfg: ModelConfig, lp, x, positions):
                       chunk_threshold=cfg.attn_full_threshold,
                       chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
     a = matmul(a.reshape(B, S, cfg.n_heads * cfg.dh), lp["wo"])
-    return x + a, (k, v)
+    return x + constrain(a, "batch", "seq", "embed"), (k, v)
 
 
 def _group_train(cfg: ModelConfig, x, gp, positions):

@@ -34,42 +34,65 @@ from repro_torch.models.layers.common import (apply_mrope, apply_rope,
 from repro_torch.models.layers.mlp import swiglu
 from repro_torch.models.layers.moe import moe_block, virtual_expert_shapes
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.sharding import (constrain, constrain_divisible,
+                                           model_size)
+
+
+def _msize() -> int:
+    """The model axis's size in the mesh in force (1 without one): MoE
+    expert shapes follow ``virtual_expert_shapes`` at it."""
+    return model_size()
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
     L, D, dh = cfg.n_layers, cfg.d_model, cfg.dh
     H, KV, F, V = cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab
     layers: Dict = {
-        "attn_norm": ParamDef((L, D), "zeros"),
-        "wq": ParamDef((L, D, H * dh)),
-        "wk": ParamDef((L, D, KV * dh)),
-        "wv": ParamDef((L, D, KV * dh)),
-        "wo": ParamDef((L, H * dh, D)),
-        "mlp_norm": ParamDef((L, D), "zeros"),
+        "attn_norm": ParamDef((L, D), (None, "embed"), "zeros"),
+        "wq": ParamDef((L, D, H * dh), (None, "embed", "heads")),
+        "wk": ParamDef((L, D, KV * dh), (None, "embed", "kv")),
+        "wv": ParamDef((L, D, KV * dh), (None, "embed", "kv")),
+        "wo": ParamDef((L, H * dh, D), (None, "heads", "embed")),
+        "mlp_norm": ParamDef((L, D), (None, "embed"), "zeros"),
     }
-    if cfg.moe:
-        # one device: model-axis size 1, so no virtual split
-        E_v, Fv = virtual_expert_shapes(cfg.moe, D, 1)
-        layers["wr"] = ParamDef((L, D, cfg.moe.n_experts))
-        layers["wg"] = ParamDef((L, E_v, D, Fv))
-        layers["wu"] = ParamDef((L, E_v, D, Fv))
-        layers["wd"] = ParamDef((L, E_v, Fv, D))
-    else:
-        layers["wg"] = ParamDef((L, D, F))
-        layers["wu"] = ParamDef((L, D, F))
-        layers["wd"] = ParamDef((L, F, D))
     if cfg.qkv_bias:
-        layers["bq"] = ParamDef((L, H * dh), "zeros")
-        layers["bk"] = ParamDef((L, KV * dh), "zeros")
-        layers["bv"] = ParamDef((L, KV * dh), "zeros")
+        layers["bq"] = ParamDef((L, H * dh), (None, "heads"), "zeros")
+        layers["bk"] = ParamDef((L, KV * dh), (None, "kv"), "zeros")
+        layers["bv"] = ParamDef((L, KV * dh), (None, "kv"), "zeros")
+    if cfg.moe:
+        E = cfg.moe.n_experts
+        E_v, Fv = virtual_expert_shapes(cfg.moe, D, _msize())
+        layers["wr"] = ParamDef((L, D, E), (None, "embed", None))
+        layers["wg"] = ParamDef((L, E_v, D, Fv),
+                                (None, "experts", "embed", "expert_ff"))
+        layers["wu"] = ParamDef((L, E_v, D, Fv),
+                                (None, "experts", "embed", "expert_ff"))
+        layers["wd"] = ParamDef((L, E_v, Fv, D),
+                                (None, "experts", "expert_ff", "embed"))
+    else:
+        layers["wg"] = ParamDef((L, D, F), (None, "embed", "ff"))
+        layers["wu"] = ParamDef((L, D, F), (None, "embed", "ff"))
+        layers["wd"] = ParamDef((L, F, D), (None, "ff", "embed"))
     defs = {
-        "embed": ParamDef((V, D), scale=0.01),
-        "final_norm": ParamDef((D,), "zeros"),
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.01),
+        "final_norm": ParamDef((D,), ("embed",), "zeros"),
         "layers": layers,
     }
     if not cfg.tied_embeddings:
-        defs["lm_head"] = ParamDef((V, D), scale=0.01)
+        defs["lm_head"] = ParamDef((V, D), ("vocab", "embed"), scale=0.01)
     return defs
+
+
+def sharding_dims(cfg: ModelConfig) -> Dict[str, int]:
+    """Logical dimension sizes that ``make_rules`` tests for divisibility."""
+    dims = {"heads": cfg.n_heads, "kv": cfg.n_kv, "ff": cfg.d_ff,
+            "vocab": cfg.vocab, "embed": cfg.d_model}
+    if cfg.moe:
+        E_v, _ = virtual_expert_shapes(cfg.moe, cfg.d_model, _msize())
+        dims["experts"] = E_v
+        dims["expert_ff"] = 0           # stays unsharded (EP is on model)
+        dims["ff"] = 0
+    return dims
 
 
 def _act(cfg: ModelConfig) -> torch.dtype:
@@ -114,9 +137,18 @@ def _qkv(cfg: ModelConfig, lp, h, positions):
     v = matmul(h, lp["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    # a DTensor's sharded dimension splits into heads only where the heads
+    # divide its shards: lay the projections out by heads first
+    q = constrain_divisible(q, "batch", "seq_attn", "heads")
+    k = constrain_divisible(k, "batch", "seq_attn", "kv")
+    v = constrain_divisible(v, "batch", "seq_attn", "kv")
     q = q.reshape(B, S, cfg.n_heads, dh)
     k = k.reshape(B, S, cfg.n_kv, dh)
     v = v.reshape(B, S, cfg.n_kv, dh)
+    # 'seq_attn' is live only where the heads cannot shard over 'model':
+    # sequence-parallel attention in place of replicated head compute
+    q = constrain_divisible(q, "batch", "seq_attn", "heads", None)
+    k = constrain_divisible(k, "batch", "seq_attn", "kv", None)
     if cfg.rope_theta:
         q = _rope(cfg, q, positions)
         k = _rope(cfg, k, positions)
@@ -137,7 +169,8 @@ def _attn_out_and_mlp(cfg: ModelConfig, lp, x, attn):
     projection and residual, then the MLP and its residual.  Returns the
     block's output and the MLP's balance loss."""
     B, S, _ = x.shape
-    x = x + matmul(attn.reshape(B, S, cfg.n_heads * cfg.dh), lp["wo"])
+    attn = matmul(attn.reshape(B, S, cfg.n_heads * cfg.dh), lp["wo"])
+    x = x + constrain(attn, "batch", "seq", "embed")
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     y, aux = _mlp(cfg, lp, h2)
     return x + y, aux
@@ -145,6 +178,7 @@ def _attn_out_and_mlp(cfg: ModelConfig, lp, x, attn):
 
 def _layer_train(cfg: ModelConfig, x, lp, positions):
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = constrain_divisible(h, "batch", "seq_attn", "embed")
     q, k, v = _qkv(cfg, lp, h, positions)
     attn = attention_any(q, k, v, causal=True,
                          chunk_threshold=cfg.attn_full_threshold,
@@ -231,6 +265,7 @@ def forward_prefill(cfg: ModelConfig, params, batch):
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        h = constrain_divisible(h, "batch", "seq_attn", "embed")
         q, k, v = _qkv(cfg, lp, h, positions)
         attn = attention_any(q, k, v, causal=True,
                              chunk_threshold=cfg.attn_full_threshold,

@@ -38,33 +38,34 @@ from repro_torch.models.layers.common import embed, layer_norm, logits, \
 from repro_torch.models.layers.mlp import gelu_mlp
 from repro_torch.models.params import ParamDef
 from repro_torch.models.transformer import _act, _remat
+from repro_torch.parallel.sharding import constrain
 
 MAX_DEC_POS = 32_768   # the reference's: sized past Whisper's 448
 
 
 def _attn_defs(L, D, H, dh, prefix=""):
     return {
-        prefix + "wq": ParamDef((L, D, H * dh)),
-        prefix + "bq": ParamDef((L, H * dh), "zeros"),
-        prefix + "wk": ParamDef((L, D, H * dh)),
-        prefix + "wv": ParamDef((L, D, H * dh)),
-        prefix + "bv": ParamDef((L, H * dh), "zeros"),
-        prefix + "wo": ParamDef((L, H * dh, D)),
-        prefix + "bo": ParamDef((L, D), "zeros"),
+        prefix + "wq": ParamDef((L, D, H * dh), (None, "embed", "heads")),
+        prefix + "bq": ParamDef((L, H * dh), (None, "heads"), "zeros"),
+        prefix + "wk": ParamDef((L, D, H * dh), (None, "embed", "heads")),
+        prefix + "wv": ParamDef((L, D, H * dh), (None, "embed", "heads")),
+        prefix + "bv": ParamDef((L, H * dh), (None, "heads"), "zeros"),
+        prefix + "wo": ParamDef((L, H * dh, D), (None, "heads", "embed")),
+        prefix + "bo": ParamDef((L, D), (None, "embed"), "zeros"),
     }
 
 
 def _ln_defs(L, D, name):
-    return {name + "_s": ParamDef((L, D), "ones"),
-            name + "_b": ParamDef((L, D), "zeros")}
+    return {name + "_s": ParamDef((L, D), (None, "embed"), "ones"),
+            name + "_b": ParamDef((L, D), (None, "embed"), "zeros")}
 
 
 def _mlp_defs(L, D, F):
     return {
-        "w_in": ParamDef((L, D, F)),
-        "b_in": ParamDef((L, F), "zeros"),
-        "w_out": ParamDef((L, F, D)),
-        "b_out": ParamDef((L, D), "zeros"),
+        "w_in": ParamDef((L, D, F), (None, "embed", "ff")),
+        "b_in": ParamDef((L, F), (None, "ff"), "zeros"),
+        "w_out": ParamDef((L, F, D), (None, "ff", "embed")),
+        "b_out": ParamDef((L, D), (None, "embed"), "zeros"),
     }
 
 
@@ -77,16 +78,22 @@ def param_defs(cfg: ModelConfig) -> Dict:
            **_ln_defs(Ld, D, "ln2"), **_attn_defs(Ld, D, H, dh, "x_"),
            **_ln_defs(Ld, D, "ln3"), **_mlp_defs(Ld, D, F)}
     return {
-        "embed": ParamDef((V, D), scale=0.01),
-        "enc_pos": ParamDef((cfg.enc_frames, D), scale=0.01),
-        "dec_pos": ParamDef((MAX_DEC_POS, D), scale=0.01),
-        "enc_final_s": ParamDef((D,), "ones"),
-        "enc_final_b": ParamDef((D,), "zeros"),
-        "dec_final_s": ParamDef((D,), "ones"),
-        "dec_final_b": ParamDef((D,), "zeros"),
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.01),
+        "enc_pos": ParamDef((cfg.enc_frames, D), ("frames", "embed"),
+                            scale=0.01),
+        "dec_pos": ParamDef((MAX_DEC_POS, D), ("pos", "embed"), scale=0.01),
+        "enc_final_s": ParamDef((D,), ("embed",), "ones"),
+        "enc_final_b": ParamDef((D,), ("embed",), "zeros"),
+        "dec_final_s": ParamDef((D,), ("embed",), "ones"),
+        "dec_final_b": ParamDef((D,), ("embed",), "zeros"),
         "enc_layers": enc,
         "dec_layers": dec,
     }
+
+
+def sharding_dims(cfg: ModelConfig) -> Dict[str, int]:
+    return {"heads": cfg.n_heads, "kv": cfg.n_kv, "ff": cfg.d_ff,
+            "vocab": cfg.vocab, "embed": cfg.d_model}
 
 
 def _stack(params, stack: str, i: int) -> Dict[str, torch.Tensor]:
@@ -141,6 +148,7 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, enc_frames, D), the stub's embeddings → encoder states
     (B, enc_frames, D) in the activation type."""
     x = (frames + params["enc_pos"][None]).to(_act(cfg))
+    x = constrain(x, "batch", "seq", "embed")
     layer = _remat(cfg, functools.partial(_enc_layer, cfg))
     for i in range(cfg.enc_layers):
         x = layer(x, _stack(params, "enc_layers", i))

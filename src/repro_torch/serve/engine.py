@@ -16,7 +16,9 @@ Counterpart of ``repro/serve/engine.py``.  Two serving paths live here:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 import warnings
 from collections import deque
@@ -29,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.mesh import local_device
 from repro_torch.models import api
+from repro_torch.parallel.sharding import axis_rules
 from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
     SlabTransfer, make_pipeline
 from repro_torch.serve.serve_step import build_decode_step, \
@@ -76,11 +79,18 @@ class ServeEngine:
     the reference's does, so a model whose prefill needs more (the VLM's
     M-RoPE ids, Whisper's frames) raises the prefill's ``ValueError`` at
     the first admission.  Runs on the card unless ``device="cpu"``.
+    With ``mesh`` and ``rules`` every prefill and decode runs under
+    ``parallel/sharding.py::axis_rules``: an expert-parallel MoE engine
+    of a process that holds its experts' block of ``params`` (one of a
+    group that serves the same requests in lockstep).
     """
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", *, mesh=None,
+                 rules=None):
         self.device = resolve_device(device)
+        self._rules = (contextlib.nullcontext if mesh is None else
+                       functools.partial(axis_rules, mesh, rules or {}))
         self.cfg = cfg
         self.ecfg = ecfg
         self.params = params
@@ -124,7 +134,7 @@ class ServeEngine:
         b = self._bucket(len(req.prompt))
         prompt = np.zeros((1, b), np.int32)
         prompt[0, -len(req.prompt):] = req.prompt
-        with torch.no_grad():
+        with torch.no_grad(), self._rules():
             tok, caches1 = self._prefill_b1(
                 self.params,
                 {"tokens": torch.from_numpy(prompt).to(self.device)})
@@ -143,7 +153,7 @@ class ServeEngine:
                 self._admit(s, self.queue.popleft())
         if all(r is None for r in self.slot_req):
             return
-        with torch.no_grad():
+        with torch.no_grad(), self._rules():
             self.tokens, self.caches = self._decode(self.params, self.tokens,
                                                     self.caches)
         self.ticks += 1

@@ -16,12 +16,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.parallel.sharding import constrain
+
+
+def _whole_vocab(last: torch.Tensor) -> torch.Tensor:
+    """The last position's logits with the whole vocabulary on each
+    device: under a mesh whose rules split the vocabulary, the argmax (or
+    the draw) reads every logit; a no-op without one."""
+    return constrain(last, "batch", None)
 
 
 def build_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
         logits, caches = api.forward_prefill(cfg, params, batch)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        next_tok = torch.argmax(_whole_vocab(logits[:, -1]),
+                                dim=-1).to(torch.int32)
         return next_tok[:, None], caches
     return prefill_step
 
@@ -30,7 +39,7 @@ def build_decode_step(cfg: ModelConfig, *, temperature: float = 0.0):
     def decode_step(params, tokens, caches,
                     generator: Optional[torch.Generator] = None):
         logits, caches = api.forward_decode(cfg, params, tokens, caches)
-        last = logits[:, -1].float()
+        last = _whole_vocab(logits[:, -1].float())
         if temperature > 0.0 and generator is not None:
             probs = torch.softmax(last / temperature, dim=-1)
             next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]

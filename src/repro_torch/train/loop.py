@@ -1,9 +1,11 @@
 """Training loop: the train step, periodic async checkpoints, resume, a
 straggler watchdog, and the DS-FD sketch integrations wired through.
 
-Counterpart of ``repro/train/loop.py`` on one device: there is no mesh
-(the reference's logical-axis sharding rules wait for the model slice
-that needs several cards), the parameters are drawn by
+Counterpart of ``repro/train/loop.py`` on one device: the reference's
+``train(cfg, mesh)`` places the parameters and optimizer states by the
+logical-axis rules (``parallel/sharding.py``); here there is no mesh,
+only the dry-run (``launch/dryrun.py``) traces a sharded train step.
+The parameters are drawn by
 ``models/params.py::init_params`` from a ``torch.Generator`` seeded by
 ``loop.seed``, and checkpoints of ``(params, opt_state, step)`` with the
 pipeline's ``data_state`` go through ``train/checkpoint.py`` in the

@@ -172,3 +172,33 @@ def sgdm(lr: float = 0.1, momentum: float = 0.9) -> Optimizer:
 
 def get_optimizer(name: str, **kw) -> Optimizer:
     return {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}[name](**kw)
+
+
+def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate):
+    """Each optimizer-state leaf's spec, found by matching its shape
+    against its parameter's: the same shape takes the parameter's spec, the
+    row statistics (all but the last dimension) its spec without the last
+    entry, the column statistics (all but the next to last) its spec
+    without that entry, anything else (a 0-d placeholder) is replicated.
+    The states' fields (``AdamState``, ``FactoredState``) mirror the
+    parameter tree; sgdm's state is that tree itself."""
+    del opt
+
+    def leaf(spec, p, s):
+        t = tuple(spec)
+        if tuple(s.shape) == tuple(p.shape):
+            return t
+        if tuple(s.shape) == tuple(p.shape[:-1]):
+            return t[:-1]
+        if p.dim() >= 2 and tuple(s.shape) == tuple(p.shape[:-2]
+                                                   + p.shape[-1:]):
+            return t[:-2] + t[-1:]
+        return ()
+
+    def field(ftree):
+        return map_dicts(leaf, param_specs, aparams, ftree)
+
+    if hasattr(astate, "_fields"):
+        return type(astate)(*[field(getattr(astate, f))
+                              for f in astate._fields])
+    return field(astate)

@@ -17,11 +17,14 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.params import count_params
+from repro_torch.parallel.sharding import (constrain, current_mesh,
+                                           is_dtensor)
 from repro_torch.sketch.compress import compress_grads, compress_init
 from repro_torch.sketch.monitor import sketch_init, sketch_update
 from repro_torch.train.optimizer import Optimizer
@@ -73,7 +76,14 @@ def loss_fn(cfg: ModelConfig, params, micro_batch,
     zf = logits.float()
     lse = torch.logsumexp(zf, dim=-1)                          # (B, S)
     labels = micro_batch["labels"].long()
-    label_logit = torch.gather(zf, -1, labels[..., None])[..., 0]
+    if current_mesh() is None:
+        label_logit = torch.gather(zf, -1, labels[..., None])[..., 0]
+    else:
+        # under a mesh, the reference's one-hot keeps the vocab axis
+        # sharded: a gather over it would gather the (B, S, V) logits
+        onehot = constrain(F.one_hot(labels, zf.shape[-1]).to(zf.dtype),
+                           "batch", "seq", "vocab")
+        label_logit = torch.sum(zf * onehot, dim=-1)
     loss = torch.mean(lse - label_logit)
     # z-loss keeps the softmax normalizer bounded (stability at scale)
     zl = 1e-4 * torch.mean(lse * lse)
@@ -86,6 +96,26 @@ def _grads(cfg: ModelConfig, params, batch, aux_coeff: float):
     it = iter(torch.autograd.grad(tot, ps))
     return map_dicts(lambda _: next(it), params), loss.detach(), \
         aux.detach()
+
+
+def _micro(v: torch.Tensor, i: int, n_micro: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n_micro`` of a batch leaf: rows ``[i·b,
+    (i+1)·b)``.  A DTensor batch split over the data axes gives each
+    shard's own i-th block instead (``local_map``), so that no shard
+    gathers another's rows; the microbatches then differ from the
+    one-process split, and their mean gradient does not."""
+    if not is_dtensor(v):
+        size = v.shape[0] // n_micro
+        return v[i * size:(i + 1) * size]
+    from torch.distributed.tensor.experimental import local_map
+
+    def block(x):
+        b = x.shape[0] // n_micro
+        return x[i * b:(i + 1) * b]
+
+    pl = list(v.placements)
+    return local_map(block, out_placements=pl, in_placements=(pl,),
+                     device_mesh=v.device_mesh)(v)
 
 
 def build_train_step(cfg: ModelConfig, opt: Optimizer,
@@ -104,14 +134,13 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
             # the reference's reshape to (n_micro, B // n_micro, ...) fails
             raise ValueError(f"n_micro={n_micro} does not divide the "
                              f"batch of {B}")
-        size = B // n_micro
-        gacc = map_dicts(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                               device=p.device), params)
+        gacc = map_dicts(lambda p: torch.zeros_like(p, dtype=accum_dtype),
+                         params)
         dev = next(leaves(params)).device
         lacc = torch.zeros((), dtype=torch.float32, device=dev)
         aacc = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(n_micro):
-            micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            micro = {k: _micro(v, i, n_micro) for k, v in batch.items()}
             g, loss, aux = _grads(cfg, params, micro, tsc.aux_coeff)
             gacc = map_dicts(lambda a, b: a + b.to(accum_dtype) / n_micro,
                              gacc, g)

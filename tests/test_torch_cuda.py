@@ -1320,3 +1320,125 @@ def test_sketchy_update_on_the_card_matches_the_cpu(cuda):
             _gram_rows(scfg.sketch(d, cuda).query_rows(a)),
             _gram_rows(scfg.sketch(d, "cpu").query_rows(b)), rtol=0,
             atol=1e-4)
+
+
+_EP_SCRIPT = """
+import os, sys
+pid, port, root = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch import convert
+from repro_torch.configs.base import MoECfg
+from repro_torch.launch import mesh
+from repro_torch.models.layers import moe
+from repro_torch.models.params import ParamDef
+from repro_torch.parallel.sharding import axis_rules, make_rules
+
+mesh.init_distributed(pid, 2, "127.0.0.1", port, timeout_s=30)
+try:
+    torch.cuda.set_device(0)
+    pm = mesh.make_process_mesh(2)
+    z = np.load(os.path.join(root, "moe.npz"))
+    cfg = MoECfg(n_experts=int(z["E"]), top_k=int(z["k"]),
+                 d_expert=z["wg"].shape[-1])
+    w = {k: torch.from_numpy(z[k]).cuda() for k in
+         ("x", "wr", "wg", "wu", "wd")}
+    rules = make_rules(pm, {"experts": cfg.n_experts})
+    defs = {k: ParamDef(tuple(w[k].shape), ("experts", None, None))
+            for k in ("wg", "wu", "wd")}
+    local = convert.local_params({k: w[k] for k in defs}, defs, rules, pm,
+                                 convert.mesh_coords(pm))
+    with axis_rules(pm, rules), torch.no_grad():
+        y, aux = moe.moe_block(w["x"], w["wr"], local["wg"], local["wu"],
+                               local["wd"], moe=cfg)
+    np.savez(os.path.join(root, f"ep_{pid}.npz"), y=y.cpu().numpy(),
+             aux=aux.cpu().numpy())
+finally:
+    mesh.shutdown()
+"""
+
+
+def test_expert_parallel_block_on_one_card_matches_one_process(cuda,
+                                                              tmp_path):
+    """Two processes share the card, each holding 4 of 8 experts (gloo
+    group, y staged through the host): y within 1e-5 and aux within 1e-6
+    of ``moe_block`` in one process on the card."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs.base import MoECfg
+    from repro_torch.models.layers import moe
+
+    E, k, D, F = 8, 2, 64, 128
+    rng = np.random.default_rng(25)
+    z = {"x": rng.normal(size=(2, 48, D)), "wr": rng.normal(size=(D, E)),
+         "wg": 0.1 * rng.normal(size=(E, D, F)),
+         "wu": 0.1 * rng.normal(size=(E, D, F)),
+         "wd": 0.1 * rng.normal(size=(E, F, D))}
+    z = {n: a.astype(np.float32) for n, a in z.items()}
+    np.savez(tmp_path / "moe.npz", E=E, k=k, **z)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _EP_SCRIPT, str(pid), str(port),
+         str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    w = {n: torch.from_numpy(a).to(cuda) for n, a in z.items()}
+    with torch.no_grad():
+        y, aux = moe.moe_block(w["x"], w["wr"], w["wg"], w["wu"], w["wd"],
+                               moe=MoECfg(n_experts=E, top_k=k, d_expert=F))
+    for pid in range(2):
+        got = np.load(tmp_path / f"ep_{pid}.npz")
+        np.testing.assert_allclose(got["y"], y.cpu().numpy(), atol=1e-5,
+                                   rtol=0)
+        assert abs(float(got["aux"]) - float(aux)) <= 1e-6
+
+
+def test_analyzer_counts_a_flash_prefill_alike_on_card_and_cpu(cuda):
+    """The program analyzer (``launch/hlo.py``) counts a 2-layer bf16
+    prefill through the flash kernel on the card as through its plain
+    version on the CPU: the same FLOPs, bytes and calls (the kernel by its
+    work formula, once a launch)."""
+    from repro_torch.launch import hlo
+
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(),
+                              head_dim=64, use_flash=True,
+                              param_dtype="bfloat16", act_dtype="bfloat16")
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(3),
+                         dtype=torch.bfloat16, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 256)).astype(np.int32))
+    counts = {}
+    for dev in ("cpu", cuda):
+        p = {k: ({n: t.to(dev) for n, t in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in params.items()}
+        batch = {"tokens": toks.to(dev)}
+        before = flash_kernel.flash_fwd.launches
+        with torch.no_grad(), hlo.analyze() as a:
+            api.forward_prefill(cfg, p, batch)
+        counts[str(dev)] = a.stats
+        launched = flash_kernel.flash_fwd.launches - before
+    assert launched == cfg.n_layers
+    cpu, card = counts["cpu"], counts[str(cuda)]
+    assert card.kernel_calls == cpu.kernel_calls == {
+        "flash_fwd": cfg.n_layers}
+    assert card.matmul_flops == cpu.matmul_flops
+    assert card.hbm_bytes == cpu.hbm_bytes
+    assert card.dot_calls == cpu.dot_calls

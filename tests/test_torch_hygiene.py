@@ -24,7 +24,7 @@ from repro_torch.models import api, transformer, whisper
 from repro_torch.models.layers.attention import kv_cache_init
 from repro_torch.models.params import init_params
 from repro_torch.parallel.topology import FleetTopology, MemTransport
-from repro_torch.serve.engine import EngineConfig, ServeEngine, \
+from repro_torch.serve.engine import EngineConfig, Request, ServeEngine, \
     SketchFleetEngine
 from repro_torch.sketch.api import agg_tree, fleet_streams, make_sketch, \
     restore_fleet, save_fleet, shard_streams
@@ -85,7 +85,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.models.layers.rglru",
             "repro_torch.models.recurrentgemma",
             "repro_torch.configs.whisper_large_v3",
-            "repro_torch.models.whisper", "repro_torch.launch.flops"} <= names
+            "repro_torch.models.whisper", "repro_torch.launch.flops",
+            "repro_torch.parallel.sharding", "repro_torch.launch.hlo",
+            "repro_torch.launch.dryrun"} <= names
 
 
 def _topo(S, P=2, pid=0):
@@ -189,6 +191,10 @@ def no_cuda(monkeypatch):
     lambda: ServeEngine(*_tiny_model("whisper-large-v3"),
                         EngineConfig(slots=1, s_max=32)),
     lambda: launch_serve.main(["--arch", "whisper-large-v3"]),
+    lambda: ServeEngine(*_tiny_model("grok-1-314b"),
+                        EngineConfig(slots=1, s_max=32),
+                        mesh={"data": 1, "model": 1}, rules={}),
+    lambda: mesh.make_host_mesh(),
     lambda: convert.whisper_cache_from_reference(
         _numpy_cache(whisper.init_cache(
             get_config("whisper-large-v3").reduced(), 1, 8, torch.float32,
@@ -210,7 +216,8 @@ def no_cuda(monkeypatch):
         "init-params-vlm", "init-params-ssm", "init-params-hybrid",
         "serve-ssm", "serve-hybrid", "init-params-encdec",
         "init-cache-encdec", "whisper-init-cache", "serve-encdec",
-        "launch-serve-encdec", "convert-whisper-cache"])
+        "launch-serve-encdec", "serve-ep", "host-mesh",
+        "convert-whisper-cache"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -225,6 +232,20 @@ def test_cpu_runs_only_when_named(no_cuda):
     serve = ServeEngine(*_tiny_model(), EngineConfig(slots=1, s_max=32),
                         device="cpu")
     assert serve.caches.k.device.type == "cpu"
+
+
+def test_mesh_entry_points_run_on_the_cpu_when_named(no_cuda):
+    """``make_host_mesh`` and an engine under a mesh's rules run on the CPU
+    when it is named; in a process with no group the host mesh is the
+    plain shape of one process."""
+    assert mesh.make_host_mesh(device="cpu") == {"data": 1, "model": 1}
+    cfg, params = _tiny_model("grok-1-314b")
+    serve = ServeEngine(cfg, params, EngineConfig(slots=1, s_max=32),
+                        device="cpu", mesh={"data": 1, "model": 1},
+                        rules={})
+    serve.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32),
+                         max_new=2))
+    assert len(serve.run()[0].out_tokens) == 3
 
 
 def test_restores_run_on_the_cpu_only_when_named(no_cuda, tmp_path):
