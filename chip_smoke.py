@@ -36,10 +36,12 @@ Phases, each printing its seconds on a line of its own:
    how far the bf16 kernel's o lies from the plain version's on inputs
    scaled ×8, against a single bf16 rounding of p; the flash backward at
    the train phase's shape (B=8, S=1024, H=9, Hkv=3, dh=64, causal) in
-   f32 and bf16 and at dh = 128 in both, against ``flash_bwd_ref`` on the
-   forward kernel's residuals, the f32 case timed beside SDPA's backward
-   on the same inputs, with the GFLOP the kernel executes (seven products
-   over the tiles it visits) beside the bound's five.
+   f32 and bf16, at dh = 128 in both and at grok-1's expert-parallel
+   train step (B=4, S=512, H=48, Hkv=8, dh=128, bf16), against
+   ``flash_bwd_ref`` on the forward kernel's residuals, the f32 case and
+   grok-1's timed beside SDPA's backward on the same inputs, with the
+   GFLOP the kernel executes (seven products over the tiles it visits)
+   beside the bound's five.
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
@@ -179,6 +181,16 @@ Phases, each printing its seconds on a line of its own:
    process: y within 1e-5, aux within 1e-6, the same dropped pairs; and
    ``python -m repro_torch.launch.dryrun --shape decode_32k --no-save``
    for llama3-8b and grok-1 at the 16 × 16 mesh, their lines printed.
+   Part (b) of phase train_mesh runs here too: after the one-process
+   serving, grok-1 at full width and 1 of 64 layers (bf16, seeded) trains
+   2 steps of batch 4 × 512 through ``train()`` with Adafactor without
+   momentum, first in this process, then, once the two children have
+   served and freed their weights, expert-parallel in them under their
+   (1, 2) mesh; the children's losses must be equal, and against one
+   process the losses within 1e-3 and the gradient norms within 1e-2
+   relative, the router weights and expert slices after the first update
+   within one bf16 step (2⁻⁷ of their size).  It prints each run's
+   losses, step times and peak memory.
 13. zoo    — the VLM, SSM, hybrid and encoder-decoder families at full
    width and depth,
    seeded bf16 weights, each freed before the next is drawn: qwen2-vl-2b
@@ -226,9 +238,12 @@ Phases, each printing its seconds on a line of its own:
    weights: AdamW with the DS-FD gradient monitor for 30 steps (finite
    losses, the last 5's mean below the first 5's by 0.1), then one step
    with ``--compress``'s FD gradient compression (cut from three to two,
-   then to one when the mesh phase came: a step is ~1 minute of
+   then to one when the mesh phase came: a step was ~1 minute of
    ``fd_compress``) and one with Sketchy (cut from three
-   to two, then to one: a step is ~1.5 minutes).  Every run must end with
+   to two, then to one: a step was ~1.5 minutes), both at full width
+   and 10 of the 30 layers (``SKETCH_TRAIN_LAYERS``, cut when the
+   train_mesh phase came: ``fd_compress`` grows with every layer's
+   gradient rows).  Every run must end with
    finite losses and parameters and, where it has two steps or more, its
    last loss (computed after the first update) apart from its first; the
    compression's first step must project every compressed leaf onto the
@@ -243,16 +258,30 @@ Phases, each printing its seconds on a line of its own:
    train step at full width through the flash kernels against the same
    step through their plain versions: loss and every gradient within
    1e-4 relative.
-15. launch sizes — in a fresh process (``--launch-sizes``), each
+15. train_mesh — training under a mesh of processes.  (a) smollm-135m
+   at full width and depth with the train phase's shapes and AdamW with
+   the monitor: 3 steps through ``train()`` in this process, then 3 over
+   two children (``chip_smoke.py --mesh-child dp PID 2 PORT DIR``) that
+   meet through ``launch/mesh.py::init_distributed`` (gloo) on ``cuda:0``
+   as a (2, 1) mesh, 4 sequences each, saving after step 2; their losses
+   and gradient norms must equal each other's and lie within 2e-4 of the
+   one process's (relative), and this process resumes their step-2
+   checkpoint on the one-process (1, 1) shape and takes step 3 within
+   2e-4 of theirs.  Each run's flash launches are counted from 0 (2 × 30
+   forward, 30 backward a step).  (b) ran in the mesh phase.  It prints
+   each run's losses, step times, the gradient all-reduce's ms and peak
+   memory.
+16. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
    took, by CUDA events and by device time, beside its bound there, to
    sum the time it loses over its bound on the path.
 
-Then it prints one JSON line of per-kernel numbers (``launches`` on the
-path that carries the kernel, ``launches_by_path`` on every path that ran
-it, each counted from 0 just before that path), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Any failure
+Then it prints every phase's seconds on one line with the krylov
+phase's as the host's speed, one JSON line of per-kernel numbers
+(``launches`` on the path that carries the kernel, ``launches_by_path`` on
+every path that ran it, each counted from 0 just before that path), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
 exits nonzero before the last line.  Without a CUDA device, or run outside
 a checkout of the repository, it exits nonzero at once.
 """
@@ -872,14 +901,18 @@ def p_rounding(rng) -> None:
 
 
 # (label, B, S, H, Hkv, dh, dtype, causal): the train phase's shape
-# (smollm-135m at seq 1024, batch 8; it runs f32, see run_train) timed
-# first, then bf16 at the same shape and dh = 128 in both types
+# (smollm-135m at seq 1024, batch 8; it runs f32, see run_train), bf16 at
+# the same shape and dh = 128 in both types, and grok-1's expert-parallel
+# train step (bf16, batch 4 × 512, G = 6: phase train_mesh (b))
 FLASH_BWD_SHAPES = [
     ("train f32", 8, 1024, 9, 3, 64, "float32", True),
     ("train bf16", 8, 1024, 9, 3, 64, "bfloat16", True),
     ("dh=128 f32", 2, 1024, 8, 2, 128, "float32", True),
     ("dh=128 bf16", 2, 1024, 8, 2, 128, "bfloat16", True),
+    ("grok-1 train bf16", 4, 512, 48, 8, 128, "bfloat16", True),
 ]
+# timed shapes and their keys in the kernels line's flash_bwd entry
+FLASH_BWD_TIMED = {"train f32": None, "grok-1 train bf16": "grok"}
 # f32: the same identities in f32, another summation order (measured
 # ~1e-5 at gradients of ~10); bf16: each gradient rounded once to bf16
 # from f32 sums in another order, one bf16 step (2⁻⁸ relative) at most
@@ -922,8 +955,9 @@ def flash_bwd_bound(B, S, H, Hkv, dh, dtype, causal):
 def check_flash_bwd(rng) -> dict:
     """The backward kernel against ``flash_bwd_ref`` on the forward
     kernel's residuals and a random dO, at each shape of
-    ``FLASH_BWD_SHAPES``; the first is timed beside its bound, its plain
-    version and SDPA's backward on the same inputs."""
+    ``FLASH_BWD_SHAPES``; those in ``FLASH_BWD_TIMED`` are timed beside
+    their bound, their plain version and SDPA's backward on the same
+    inputs."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -931,7 +965,7 @@ def check_flash_bwd(rng) -> dict:
     from repro_torch.kernels.flash_attn import kernel, ref
 
     dev = torch.device("cuda")
-    worst, timed = 0.0, None
+    worst, timed = 0.0, {}
     for label, B, S, H, Hkv, dh, dtype, causal in FLASH_BWD_SHAPES:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
             (B * h, S, dh)).astype(np.float32)).to(dev, getattr(torch, dtype))
@@ -947,7 +981,7 @@ def check_flash_bwd(rng) -> dict:
         log(f"kernels flash_bwd {label} (B,S,H,Hkv,dh)=({B},{S},{H},{Hkv},"
             f"{dh}) {dtype} causal={causal}: dq/dk/dv err "
             + "/".join(f"{e:.3e}" for e in errs))
-        if timed is not None:
+        if label not in FLASH_BWD_TIMED:
             continue
         del want
         q4, k4, v4 = (t.view(B, t.shape[0] // B, S, dh).requires_grad_(True)
@@ -989,12 +1023,14 @@ def check_flash_bwd(rng) -> dict:
             f"{fmt_ms(dev_exp)} ms{_ratio(dev_k, dev_exp)}; executed "
             f"{done:.2f} GFLOP (7 products over the tiles visited) for the "
             f"bound's {gflop:.2f} (5)")
-        timed = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound,
-                     bound_by=by, library_ms=t["library"], device_ms=dev_k,
-                     library_device_ms=dev_lib,
-                     library_expanded_device_ms=dev_exp, shape=label)
+        timed[FLASH_BWD_TIMED[label]] = dict(
+            ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound, bound_by=by,
+            library_ms=t["library"], device_ms=dev_k,
+            library_device_ms=dev_lib, library_expanded_device_ms=dev_exp,
+            shape=label)
         del q4, k4, v4, o4, qe, ke, ve, oe
-    return dict(max_abs_err=worst, **timed)
+    main = timed.pop(None)
+    return dict(max_abs_err=worst, **main, **timed)
 
 
 # ---------------------------------------------------------------------------
@@ -2879,6 +2915,178 @@ VIRTUAL_Y_TOL, VIRTUAL_AUX_TOL = 1e-5, 1e-6
 MESH_DRYRUN = ("llama3-8b", "grok-1-314b")   # at decode_32k, 16 × 16
 
 
+# phase train_mesh (b), run inside the mesh phase's processes after their
+# serving: grok-1 at full width, 1 of 64 layers, bf16 weights, Adafactor
+# without its momentum tree (``pick_optimizer_name``'s choice for grok-1;
+# Shazeer and Stern's β₁ = 0), batch 4 × 512, 2 steps, in one process and
+# expert-parallel over the mesh phase's two children.  Warmup 1, so that
+# the first update is not below a bf16 step of the weights.
+EP_TRAIN_LAYERS, EP_TRAIN_BATCH, EP_TRAIN_SEQ = 1, 4, 512
+EP_TRAIN_STEPS = 2
+EP_SLICE = 8           # the compared expert slices: [0, e, :8, :8]
+# the first step's loss is the one process's bit for bit (with top-2 a
+# token's two partial outputs are its two addends, summed once in bf16);
+# the gradients of x and the router are the two processes' bf16 partial
+# gradients summed, so the norm and, through the updates, the second loss
+# move by a few bf16 roundings
+EP_LOSS_RTOL, EP_NORM_RTOL = 1e-3, 1e-2
+# a weight after the first update: one bf16 step (2⁻⁷ of its size) at
+# most, since its update differs by roundings of its gradient.  After the
+# second the routing may differ (the dense weights moved by roundings can
+# turn a near-tie of the top-2 choice), so those are reported, not held.
+EP_WEIGHT_RTOL = 2.0 ** -7
+
+
+def ep_train(seed: int, dev, mesh=None) -> dict:
+    """The train_mesh phase's expert-parallel run (see ``EP_TRAIN_*``)
+    through ``train()``, on one process (``mesh=None``) or under the
+    children's (1, 2) process mesh: each step's metrics and host-clock
+    time, the router weights and the ``wg`` and ``wd`` slices of this
+    process's experts (by their global index) after each update, the peak
+    memory and the flash launches, counted from 0."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.train_step import pick_optimizer_name
+
+    full = get_config(MESH_ARCH)
+    if pick_optimizer_name(full) != "adafactor":
+        raise AssertionError(f"train_mesh: {MESH_ARCH} no longer trains "
+                             "with Adafactor")
+    cfg = dataclasses.replace(full, n_layers=EP_TRAIN_LAYERS, use_flash=True)
+    m_idx = convert.mesh_coords(mesh)["model"] if mesh is not None else 0
+    opt = get_optimizer("adafactor", momentum=0.0, warmup=1)
+    seen = {"router": [], "experts": []}
+
+    def update(grads, state, params, step):
+        # the router and the expert slices after each update
+        out = opt.update(grads, state, params, step)
+        lay = params["layers"]
+        seen["router"].append(host(lay["wr"][0]))
+        seen["experts"].append({
+            str(m_idx * lay["wg"].shape[1] + e): [
+                host(lay[n][0, e, :EP_SLICE, :EP_SLICE]) for n in ("wg", "wd")]
+            for e in range(lay["wg"].shape[1])})
+        return out
+
+    def host(t):
+        return t.detach().float().cpu().numpy().tolist()
+
+    stamps = []
+    fk.flash_fwd.launches = fk.flash_bwd.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(cfg, mesh, device=dev,
+                loop=LoopConfig(steps=EP_TRAIN_STEPS, seed=seed,
+                                log_every=10 ** 9),
+                opt=dataclasses.replace(opt, update=update),
+                seq_len=EP_TRAIN_SEQ, global_batch=EP_TRAIN_BATCH,
+                param_dtype=torch.bfloat16,
+                hooks={"on_step": lambda it, m: stamps.append(
+                    time.perf_counter())})
+    out = dict(history=res["history"], wall_s=time.perf_counter() - t0,
+               step_s=np.diff([t0] + stamps).tolist(),
+               peak=torch.cuda.max_memory_allocated(),
+               launches={"flash_fwd": fk.flash_fwd.launches,
+                         "flash_bwd": fk.flash_bwd.launches},
+               held=param_bytes(res["params"]), **seen)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _log_ep_train(label: str, run: dict) -> None:
+    h = run["history"]
+    log(f"train_mesh {label}: losses "
+        + ", ".join(f"{x['loss']:.6f}" for x in h) + "; grad norms "
+        + ", ".join(f"{x['grad_norm']:.6f}" for x in h) + "; aux "
+        + ", ".join(f"{x['aux']:.6f}" for x in h) + "; steps "
+        + ", ".join(f"{1e3 * t:.3f}" for t in run["step_s"])
+        + f" ms (host clock); weights held {run['held'] / 1e9:.2f} GB; peak "
+        f"{run['peak'] / 2**30:.2f} GiB; flash launches fwd "
+        f"{run['launches']['flash_fwd']} bwd {run['launches']['flash_bwd']}")
+
+
+def check_ep_train(one: dict, kids: list) -> dict:
+    """The expert-parallel children against the one-process run: losses
+    equal to each other's and within ``EP_LOSS_RTOL`` of the one
+    process's, gradient norms within ``EP_NORM_RTOL``, the updated router
+    weights and expert slices within ``EP_WEIGHT_RTOL`` of their size;
+    each run launches the bf16 flash forward and backward.  Returns the
+    launches of the three runs."""
+    losses = [[x["loss"] for x in k["history"]] for k in kids]
+    if any(x != losses[0] for x in losses):
+        raise AssertionError(f"train_mesh (b): the children's losses "
+                             f"differ: {losses}")
+    want_l = [x["loss"] for x in one["history"]]
+    want_n = [x["grad_norm"] for x in one["history"]]
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want_l))
+    rel_n = max(abs(x["grad_norm"] - b) / abs(b) for k in kids
+                for x, b in zip(k["history"], want_n))
+
+    def rel(a, b):
+        """(the largest relative distance, the share of values that
+        differ)"""
+        a, b = np.asarray(a), np.asarray(b)
+        return (float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max()),
+                float((a != b).mean()))
+
+    def weights(i):
+        """Router and expert slices after update ``i``, against one
+        process's."""
+        r = [rel(k["router"][i], one["router"][i]) for k in kids]
+        e = [rel(k["experts"][i][x], one["experts"][i][x]) for k in kids
+             for x in k["experts"][i]]
+        return max(r), max(e)
+
+    if len(set(want_l)) < 2:
+        raise AssertionError(f"train_mesh (b): the one-process losses "
+                             f"{want_l} did not move: no update took")
+    got = sorted(e for k in kids for e in k["experts"][0])
+    if got != sorted(one["experts"][0]):
+        raise AssertionError(f"train_mesh (b): experts {got} in the children"
+                             f", {sorted(one['experts'][0])} in one process")
+    (rel_r, diff_r), (rel_e, diff_e) = weights(0)
+    later = [weights(i) for i in range(1, EP_TRAIN_STEPS)]
+    if rel_l > EP_LOSS_RTOL or rel_n > EP_NORM_RTOL \
+            or rel_r > EP_WEIGHT_RTOL or rel_e > EP_WEIGHT_RTOL:
+        raise AssertionError(
+            f"train_mesh (b): expert-parallel vs one process: losses "
+            f"{rel_l:.3e} (tol {EP_LOSS_RTOL:.0e}), grad norms {rel_n:.3e} "
+            f"(tol {EP_NORM_RTOL:.0e}), after the first update router "
+            f"{rel_r:.3e}, expert slices {rel_e:.3e} (tol "
+            f"{EP_WEIGHT_RTOL:.3e}), relative")
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    for run in [one] + kids:
+        n = run["launches"]
+        want = (2 * EP_TRAIN_LAYERS * EP_TRAIN_STEPS,
+                EP_TRAIN_LAYERS * EP_TRAIN_STEPS)
+        if (n["flash_fwd"], n["flash_bwd"]) != want:
+            raise AssertionError(f"train_mesh (b): flash launches {n}, "
+                                 f"expected fwd {want[0]} bwd {want[1]}")
+        for k in launches:
+            launches[k] += n[k]
+    log(f"train_mesh (b) {MESH_ARCH}, {EP_TRAIN_LAYERS} layer, bf16, "
+        f"Adafactor (momentum 0), batch {EP_TRAIN_BATCH} × {EP_TRAIN_SEQ}, "
+        f"{EP_TRAIN_STEPS} steps: the two expert-parallel processes' losses "
+        f"equal; against one process, losses within {rel_l:.3e}, grad norms"
+        f" within {rel_n:.3e}; after the first update the router weights "
+        f"within {rel_r:.3e} ({100 * diff_r:.2f} % of them differ) and "
+        f"{len(got)} experts' wg, wd slices within {rel_e:.3e} "
+        f"({100 * diff_e:.2f} %), relative; after the later updates "
+        + "; ".join(f"router {r[0]:.3e} ({100 * r[1]:.2f} %), slices "
+                    f"{e[0]:.3e} ({100 * e[1]:.2f} %)" for r, e in later))
+    return launches
+
+
 def _mesh_cfg():
     from repro_torch.configs.base import get_config
 
@@ -3133,7 +3341,10 @@ def mesh_child(mode: str, pid: int, n: int, port: int, root: str) -> int:
     pm = mesh.make_process_mesh(n, device=dev.type)
     coords = convert.mesh_coords(pm)
     out = {"pid": pid}
-    if mode == "virtual":
+    if mode == "dp":
+        out.update(dp_train(seed, dev, mesh.make_process_mesh(1, dev.type),
+                            Path(root) / "dp"))
+    elif mode == "virtual":
         v = VIRTUAL
         z = np.load(f"{root}/virtual.npz")
         cfg = MoECfg(n_experts=v["E"], top_k=v["k"], d_expert=v["F"])
@@ -3210,6 +3421,10 @@ def mesh_child(mode: str, pid: int, n: int, port: int, root: str) -> int:
         log(f"mesh child {pid}: {held / 1e9:.2f} GB of weights held "
             f"(wg {tuple(params['layers']['wg'].shape)}), drawn in "
             f"{init_s:.3f} s")
+        # phase train_mesh (b): the serving weights freed, the same seed's
+        # 1-layer model trained expert-parallel
+        del params, run
+        out["train"] = ep_train(seed, dev, pm)
     (Path(root) / f"{mode}_{pid}.json").write_text(json.dumps(out))
     mesh.shutdown()
     return 0
@@ -3292,6 +3507,11 @@ def run_mesh(seed: int, device: str = "cuda") -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    # phase train_mesh (b) in one process, before the children start
+    t = time.perf_counter()
+    ep_one = ep_train(seed, dev)
+    ep_s = time.perf_counter() - t
+    _log_ep_train("(b) one process", ep_one)
 
     out = {"launches": one_launches}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3342,6 +3562,11 @@ def run_mesh(seed: int, device: str = "cuda") -> dict:
                                      f"{k['launches']} times in process "
                                      f"{k['pid']}'s {MESH_BATCH} prefills")
             out["launches"] += k["launches"]
+        for k in kids:
+            _log_ep_train(f"(b) process {k['pid']} of {MESH_PROCS} "
+                          "(expert-parallel)", k["train"])
+        out["train"] = check_ep_train(ep_one, [k["train"] for k in kids])
+        out["train_s"] = ep_s + max(k["train"]["wall_s"] for k in kids)
 
         # the virtual-expert block: E = 2 over 4 processes against one;
         # the dry-runs (CPU only) start with it, after the timed runs
@@ -3948,24 +4173,31 @@ TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "smollm-135m", 1024, 8
 TRAIN_SKETCH = dict(d=128, eps=0.125, window=128)            # as --sketch
 TRAIN_COMPRESS = dict(rank=8, eps=0.125, window=32, min_size=4096)
 TRAIN_DROP = 0.1       # mean of the last 5 losses below the first 5 by this
-# Sketchy's steps: ~85 s each of fd_compress, so one, to keep the script
-# within its limit (its momenta and windows show that the step updated)
+# Sketchy's steps: ~85 s each of fd_compress at full depth, so one, to
+# keep the script within its limit (its momenta and windows show that the
+# step updated)
 SKETCHY_STEPS = 1
+# the compression's and Sketchy's runs at full width but 10 of the 30
+# layers: their time is fd_compress's, which grows with the gradient rows
+# of every layer, and the train_mesh phase needs the room
+SKETCH_TRAIN_LAYERS = 10
 
 
 def _train_runs(steps: int, extra: int):
-    """(label, steps, TrainStepConfig, optimizer or None) of the phase."""
+    """(label, steps, TrainStepConfig, optimizer or None, layers or None
+    for the config's own) of the phase."""
     from repro_torch.sketch import CompressConfig, SketchConfig, \
         SketchyConfig, sketchy_dsfd
     from repro_torch.train.train_step import TrainStepConfig
 
     return [("adamw+monitor", steps,
-             TrainStepConfig(sketch=SketchConfig(**TRAIN_SKETCH)), None),
+             TrainStepConfig(sketch=SketchConfig(**TRAIN_SKETCH)), None,
+             None),
             ("adamw+compress", extra,
              TrainStepConfig(compress=CompressConfig(**TRAIN_COMPRESS)),
-             None),
+             None, SKETCH_TRAIN_LAYERS),
             ("sketchy", SKETCHY_STEPS, TrainStepConfig(),
-             sketchy_dsfd(SketchyConfig()))]
+             sketchy_dsfd(SketchyConfig()), SKETCH_TRAIN_LAYERS)]
 
 
 def _finite(tensors) -> bool:
@@ -4071,8 +4303,9 @@ def run_train(steps: int, extra: int, seed: int,
     """``train()`` — the launcher's code path — on smollm-135m at full
     width with the flash gate and full remat, f32 parameters and bf16
     activations, seq 1024, batch 8: AdamW with the DS-FD monitor for
-    ``steps`` steps (the loss must fall), then ``extra`` steps with FD
-    gradient compression and ``SKETCHY_STEPS`` with Sketchy.  Every run
+    ``steps`` steps (the loss must fall), then, at ``SKETCH_TRAIN_LAYERS``
+    layers, ``extra`` steps with FD gradient compression and
+    ``SKETCHY_STEPS`` with Sketchy.  Every run
     must end with finite losses and parameters and, with two steps or
     more, a last loss apart from its first (each step's loss precedes its
     update); the compression's first step
@@ -4121,7 +4354,9 @@ def run_train(steps: int, extra: int, seed: int,
         return coef, low
 
     out = {}
-    for label, n, tsc, opt in _train_runs(steps, extra):
+    full = cfg
+    for label, n, tsc, opt, layers in _train_runs(steps, extra):
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
         stamps, fd_s[:], lows[:] = [], [], []
         flash_dtypes.clear()
         kernel.flash_fwd.launches = kernel.flash_bwd.launches = 0
@@ -4169,8 +4404,9 @@ def run_train(steps: int, extra: int, seed: int,
             f"median {1e3 * med:.3f} ms/step ({tokens / med:.1f} tokens/s); "
             f"FD compression {sum(fd_s):.3f} s of {float(step_s.sum()):.3f}"
             f" s ({100 * fd_share:.1f}%, {len(fd_s)} calls); flash "
-            f"launches fwd {fwd} bwd {bwd} ({cfg.n_layers} layers × {n} "
-            f"steps × 2 and × 1), in {sorted(flash_dtypes)}; peak memory "
+            f"launches fwd {fwd} bwd {bwd} ({cfg.n_layers} of "
+            f"{full.n_layers} layers × {n} steps × 2 and × 1), in "
+            f"{sorted(flash_dtypes)}; peak memory "
             f"{peak:.2f} GiB; stragglers {res['stragglers']}")
         _check_train_state(label, res, n, lows)
         if label.startswith("adamw+monitor"):
@@ -4243,6 +4479,214 @@ def check_plain_train_step(seed: int, device: str = "cuda") -> None:
         f"plain loss relative error {rel_loss:.3e}, worst gradient "
         f"(relative Frobenius, {len(grad_of)} leaves) {rel:.3e} (tol "
         f"{PLAIN_RTOL:.0e})")
+
+
+# ---------------------------------------------------------------------------
+# phase train_mesh: training under a mesh of processes
+# ---------------------------------------------------------------------------
+
+# (a) data parallelism: smollm-135m at full width and depth with the train
+# phase's shapes (f32, flash, full remat, seq 1024, global batch 8) and
+# AdamW with the monitor, 3 steps in one process, then over two children
+# on cuda:0 with a data axis of 2 (4 sequences each) saving after step 2,
+# whose checkpoint one process resumes for step 3.  (b) is the expert-
+# parallel grok-1 run inside the mesh phase (``EP_TRAIN_*``).
+TRAIN_MESH_STEPS, TRAIN_MESH_SAVE, TRAIN_MESH_PROCS = 3, 2, 2
+# f32 throughout, TF32 off: the two halves' mean gradient differs from the
+# whole batch's only in the order of its sums, and AdamW divides by √v̂,
+# so such a rounding δg moves an update by up to lr·δg/√v̂
+# (``tests/test_torch_train.py``'s step tolerance)
+TRAIN_MESH_RTOL = 2e-4
+
+
+def dp_train(seed: int, dev, mesh=None, ckpt_dir=None) -> dict:
+    """One run of the train_mesh phase's part (a) through ``train()``
+    under ``mesh`` (None: one process), saving every ``TRAIN_MESH_SAVE``
+    steps into ``ckpt_dir`` (and resuming from it): each step's metrics
+    and host-clock time, the flat all-reduces' host-clock ms, the peak
+    memory and the flash launches, counted from 0."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.sketch import SketchConfig
+    from repro_torch.train import loop, train_step
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_flash=True,
+                              remat="full")
+    stamps, reduce_ms = [], []
+    orig = train_step.all_reduce_flat
+
+    def timed(tensors, group):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = orig(tensors, group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t1) * 1e3)
+        return r
+
+    starts = []
+    build = loop.build_train_step
+
+    def built(*a, **k):
+        fn = build(*a, **k)
+
+        def step(*args):
+            starts.append(time.perf_counter())
+            return fn(*args)
+        return step
+
+    fk.flash_fwd.launches = fk.flash_bwd.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step.all_reduce_flat = timed
+    loop.build_train_step = built
+    try:
+        res = train(cfg, mesh, device=dev,
+                    loop=LoopConfig(steps=TRAIN_MESH_STEPS, seed=seed,
+                                    log_every=10 ** 9,
+                                    ckpt_dir=ckpt_dir and str(ckpt_dir),
+                                    ckpt_every=TRAIN_MESH_SAVE),
+                    tsc=train_step.TrainStepConfig(
+                        sketch=SketchConfig(**TRAIN_SKETCH)),
+                    seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    hooks={"on_step": lambda it, m: stamps.append(
+                        time.perf_counter())})
+    finally:
+        train_step.all_reduce_flat = orig
+        loop.build_train_step = build
+    out = dict(history=res["history"], wall_s=time.perf_counter() - t0,
+               setup_s=starts[0] - t0,
+               step_s=[b - a for a, b in zip(starts, stamps)],
+               reduce_ms=reduce_ms,
+               peak=torch.cuda.max_memory_allocated(),
+               launches={"flash_fwd": fk.flash_fwd.launches,
+                         "flash_bwd": fk.flash_bwd.launches})
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _log_dp(label: str, run: dict) -> None:
+    h = run["history"]
+    red = ("; gradient all-reduce " + ", ".join(
+        f"{x:.3f}" for x in run["reduce_ms"]) + " ms (host clock, one flat "
+        "f32 buffer a step)" if run["reduce_ms"] else "")
+    log(f"train_mesh {label}: losses "
+        + ", ".join(f"{x['loss']:.6f}" for x in h) + "; grad norms "
+        + ", ".join(f"{x['grad_norm']:.6f}" for x in h) + "; steps "
+        + ", ".join(f"{1e3 * t:.3f}" for t in run["step_s"])
+        + f" ms (host clock, from the step's call to its metrics){red}; "
+        f"{run['setup_s']:.3f} s before the first step (the draw, the "
+        f"states, a restore), {run['wall_s']:.3f} s in all with the "
+        f"checkpoints; peak {run['peak'] / 2**30:.2f} GiB; flash launches "
+        f"fwd {run['launches']['flash_fwd']} bwd "
+        f"{run['launches']['flash_bwd']}")
+
+
+def _held_to(label: str, got: list, want: list) -> float:
+    """The worst relative distance of ``got``'s losses and gradient norms
+    from ``want``'s; fails past ``TRAIN_MESH_RTOL``."""
+    worst = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+                for k in ("loss", "grad_norm"))
+    if len(got) != len(want) or worst > TRAIN_MESH_RTOL:
+        raise AssertionError(f"train_mesh (a) {label}: losses and grad "
+                             f"norms {got} vs {want}: {worst:.3e} (tol "
+                             f"{TRAIN_MESH_RTOL:.0e}, relative)")
+    return worst
+
+
+def run_train_mesh(seed: int, device: str = "cuda") -> dict:
+    """Part (a) of the train_mesh phase (see ``TRAIN_MESH_*``): the two
+    children's metrics must equal each other's and lie within
+    ``TRAIN_MESH_RTOL`` of the one process's; the checkpoint they saved
+    after step 2 (on the (2, 1) mesh) takes step 3 in one process as the
+    children took it.  Returns the flash launches of the three runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.train import checkpoint as ckpt
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    one = dp_train(seed, dev)
+    _log_dp("(a) one process", one)
+    runs = [one]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as root:
+        (Path(root) / "seed.json").write_text(json.dumps(
+            {"seed": seed, "device": dev.type}))
+        kids = _spawn_mesh_children("dp", TRAIN_MESH_PROCS, root)
+        for k in kids:
+            _log_dp(f"(a) process {k['pid']} of {TRAIN_MESH_PROCS} "
+                    "(data-parallel)", k)
+        runs += kids
+        # the loss and gradient norm come from the same reduced values in
+        # every process; the monitor's count-sketch sums with atomics
+        # (``index_add_``), so its metrics may differ by roundings
+        key = [[(x["loss"], x["grad_norm"]) for x in k["history"]]
+               for k in kids]
+        if any(x != key[0] for x in key):
+            raise AssertionError(f"train_mesh (a): the children's losses and"
+                                 f" gradient norms differ: {key}")
+        mon = max(abs(a[n] - b[n]) / max(abs(b[n]), 1e-30)
+                  for k in kids[1:]
+                  for a, b in zip(k["history"], kids[0]["history"])
+                  for n in a if n.startswith("sketch/"))
+        err = _held_to("two processes vs one", kids[0]["history"],
+                       one["history"])
+        src, dst = Path(root) / "dp", Path(root) / "resume"
+        shutil.copytree(src, dst)
+        last = ckpt.latest_step(str(dst))
+        shutil.rmtree(dst / f"step_{last:09d}")
+        saved = ckpt.read_manifest(str(dst))
+        if saved["step"] != TRAIN_MESH_SAVE or saved["mesh_shape"] != [
+                TRAIN_MESH_PROCS, 1]:
+            raise AssertionError(f"train_mesh (a): resuming step "
+                                 f"{saved['step']} saved on mesh "
+                                 f"{saved['mesh_shape']}")
+        res = dp_train(seed, dev, {"data": 1, "model": 1}, dst)
+        _log_dp(f"(a) one process resumed at step {TRAIN_MESH_SAVE}", res)
+        runs.append(res)
+        err_r = _held_to("resumed vs two processes", res["history"],
+                         kids[0]["history"][TRAIN_MESH_SAVE:])
+    from repro_torch.configs.base import get_config
+
+    layers = get_config(TRAIN_ARCH).n_layers
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    for run in runs:
+        n, steps = run["launches"], len(run["history"])
+        for k in launches:
+            launches[k] += n[k]
+        if (n["flash_fwd"], n["flash_bwd"]) != (2 * layers * steps,
+                                                layers * steps):
+            raise AssertionError(f"train_mesh (a): flash launches {n} in "
+                                 f"{steps} steps of {layers} layers (full "
+                                 "remat: forward 2 a layer, backward 1)")
+    log(f"train_mesh (a) {TRAIN_ARCH} at full width and depth, data-parallel"
+        f" over {TRAIN_MESH_PROCS} processes on cuda:0: the children's "
+        f"losses and gradient norms equal (their monitors' metrics within "
+        f"{mon:.3e}), within {err:.3e} of one process's; the step-"
+        f"{TRAIN_MESH_SAVE} checkpoint of the (2, 1) mesh resumed in one "
+        f"process within {err_r:.3e} of their step {TRAIN_MESH_SAVE + 1} "
+        f"(relative, tol {TRAIN_MESH_RTOL:.0e})")
+    return launches
+
+
+PHASE_S: dict = {}      # each phase's seconds, in the order run
+
+
+def _phase(name: str, t0: float) -> None:
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_S[name]:.3f} s")
 
 
 def main(argv=None) -> int:
@@ -4320,7 +4764,7 @@ def main(argv=None) -> int:
         for line in lib.with_name(lib.name + ".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
-    log(f"phase build: {time.perf_counter() - t:.3f} s")
+    _phase("build", t)
 
     t = time.perf_counter()
     stats = check_kernels(rng)
@@ -4328,22 +4772,22 @@ def main(argv=None) -> int:
     stats["flash_fwd"] = check_flash(rng)
     p_rounding(rng)
     stats["flash_bwd"] = check_flash_bwd(rng)
-    log(f"phase kernels: {time.perf_counter() - t:.3f} s")
+    _phase("kernels", t)
 
     t = time.perf_counter()
     kry = run_engine(KRYLOV, args.ticks, args.seed, use_kernel=True)
-    log(f"phase krylov: {time.perf_counter() - t:.3f} s")
+    _phase("krylov", t)
 
     t = time.perf_counter()
     run_engine(FAST, args.fast_ticks, args.seed + 100)
-    log(f"phase fast: {time.perf_counter() - t:.3f} s")
+    _phase("fast", t)
 
     gc.collect()                       # the fleets' tensors
     torch.cuda.empty_cache()
     t = time.perf_counter()
     fine = run_engine(FINE, args.fine_ticks, args.seed + 200,
                       use_kernel=True)
-    log(f"phase fine: {time.perf_counter() - t:.3f} s")
+    _phase("fine", t)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4352,25 +4796,25 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tds = run_layered(TIME, args.time_ticks, args.seed + 400)
-    log(f"phase layered: {time.perf_counter() - t:.3f} s")
+    _phase("layered", t)
 
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     sco = run_score(args.score_ticks, args.seed + 500)
-    log(f"phase score: {time.perf_counter() - t:.3f} s")
+    _phase("score", t)
 
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     hist = run_history(args.history_ticks, args.seed + 600)
-    log(f"phase history: {time.perf_counter() - t:.3f} s")
+    _phase("history", t)
 
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     topo = run_topology(args.topology_ticks, hist, args.seed + 700)
-    log(f"phase topology: {time.perf_counter() - t:.3f} s")
+    _phase("topology", t)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4379,27 +4823,27 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     check_plain_prefill(args.seed)
-    log(f"phase serve: {time.perf_counter() - t:.3f} s")
+    _phase("serve", t)
 
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     mix = run_moe(args.seed)
     check_moe_reduced(args.seed)
-    log(f"phase moe: {time.perf_counter() - t:.3f} s")
+    _phase("moe", t)
 
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     msh = run_mesh(args.seed)
-    log(f"phase mesh: {time.perf_counter() - t:.3f} s")
+    _phase("mesh", t)
 
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
     zoo = run_zoo(args.seed)
     check_zoo_reduced(args.seed)
-    log(f"phase zoo: {time.perf_counter() - t:.3f} s")
+    _phase("zoo", t)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4408,12 +4852,22 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     check_plain_train_step(args.seed)
-    log(f"phase train: {time.perf_counter() - t:.3f} s")
+    _phase("train", t)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    tm = run_train_mesh(args.seed)
+    _phase("train_mesh", t)
+    log(f"phase train_mesh (b), run inside the mesh phase: "
+        f"{msh['train_s']:.3f} s")
+    for k, n in msh["train"].items():
+        tm[k] += n
 
     t = time.perf_counter()
     at = time_launch_sizes_apart({"krylov": kry["timing"],
                                   "fine": fine["timing"]})
-    log(f"phase launch sizes: {time.perf_counter() - t:.3f} s")
+    _phase("launch sizes", t)
 
     # each kernel's launches on the path that runs it, and for the dump
     # step's kernels the streams a launch took and their time at the median
@@ -4444,7 +4898,7 @@ def main(argv=None) -> int:
              "moe": {"flash_fwd": mix["launches"]},
              "mesh": {"flash_fwd": msh["launches"]},
              "zoo": {"flash_fwd": zoo["launches"]},
-             "train": trn["launches"]}
+             "train": trn["launches"], "train_mesh": tm}
     rows = [dict(name=name, route="cuda",
                  source=f"src/repro_torch/csrc/{src}",
                  replaces=f"src/repro/kernels/{tpu}",
@@ -4453,6 +4907,10 @@ def main(argv=None) -> int:
                                    if n.get(name)},
                  **stats[name])
             for name, (src, tpu) in where.items()]
+    log("phase seconds: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in PHASE_S.items())
+        + f"; total {sum(PHASE_S.values()):.3f}; host speed: the krylov "
+        f"phase took {PHASE_S['krylov']:.3f} s")
     print(json.dumps({"kernels": rows}))
     print(f"gpu: {gpu}")
     print(json.dumps({"ok": True, "device": {

@@ -427,18 +427,27 @@ def local_block(d: ParamDef, rules, mesh, coords: dict) -> tuple:
     (major to minor) is cut into equal blocks."""
     from repro_torch.parallel.sharding import to_pspec
 
-    shape = mesh_shape(mesh)
+    return block_of(d.shape, to_pspec(d.axes, rules), mesh, coords,
+                    what=str(d))
+
+
+def block_of(shape, spec, mesh, coords: dict, what: str = "a leaf") -> tuple:
+    """The block (a slice a dimension) of an array of ``shape`` laid out by
+    ``spec`` (a mesh axis, a tuple of them or None a dimension) that the
+    process at ``coords`` holds."""
+    sizes = mesh_shape(mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     out = []
-    for n, p in zip(d.shape, to_pspec(d.axes, rules)):
+    for n, p in zip(shape, spec):
         if p is None:
             out.append(slice(0, n))
             continue
         idx, ways = 0, 1
         for a in (tuple(p) if isinstance(p, (tuple, list)) else (p,)):
-            idx, ways = idx * shape[a] + coords[a], ways * shape[a]
+            idx, ways = idx * sizes[a] + coords[a], ways * sizes[a]
         if n % ways:
-            raise ValueError(f"dimension {n} of {d} does not split {ways} "
-                             "ways")
+            raise ValueError(f"dimension {n} of {what} does not split "
+                             f"{ways} ways")
         out.append(slice(idx * (n // ways), (idx + 1) * (n // ways)))
     return tuple(out)
 

@@ -8,7 +8,13 @@ every token, keeps the (token, choice) pairs of its own experts, runs the
 dispatch and the grouped SwiGLU over them, and the sum of y over the
 model axis (the reference's ``psum``; ``parallel/sharding.py::
 all_reduce``) adds the processes' partial outputs; the balance loss is
-averaged over it (``pmean``).
+averaged over it (``pmean``).  Both pass autograd through as the
+reference's transposes do (the sum's cotangent unchanged, the mean's
+divided by the axis's size), and x and the router's weights enter the
+body through ``enter_group``, whose backward sums their partial
+gradients over the axis: a train step gets the one-process gradients.
+Under a data axis at model size 1 a process routes its own batch shard,
+so capacity and the balance loss are per shard, as in the reference.
 
 **Virtual experts**: where the model axis M outnumbers the experts E,
 each expert is cut into ``M / E`` column shards of its FFN
@@ -46,9 +52,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.parallel.sharding import (all_reduce, current_rules,
-                                           fit_spec, is_dtensor,
-                                           model_coord, model_size,
-                                           spec_placements)
+                                           enter_group, fit_spec,
+                                           is_dtensor, model_coord,
+                                           model_size, spec_placements)
 
 
 def virtual_split(moe: MoECfg, msize: int) -> int:
@@ -180,12 +186,16 @@ def _ep_body(x, wr, wg, wu, wd, *, moe: MoECfg, split: int, msize: int):
         return _local_moe(x, wr, wg, wu, wd, moe=moe, split=1, msize=1,
                           m_idx=0)
     m_idx, group = model_coord()
-    y, aux = _local_moe(x, wr, wg, wu, wd, moe=moe, split=split,
-                        msize=msize, m_idx=m_idx)
     if group is None:
         raise RuntimeError("expert parallelism over a model axis of "
                            f"{msize} needs a mesh with process groups "
                            "(launch/mesh.py), not a plain shape")
+    # every process routes every token: x's and the router's gradients
+    # are the sums of the processes' partial ones (the router's in f32,
+    # the type its product runs in, rounded once to the weight's type)
+    x, wr = enter_group(x, group), enter_group(wr.float(), group)
+    y, aux = _local_moe(x, wr, wg, wu, wd, moe=moe, split=split,
+                        msize=msize, m_idx=m_idx)
     return all_reduce(y, group, "sum"), all_reduce(aux, group, "mean")
 
 

@@ -34,7 +34,9 @@ from repro_torch.models.layers.common import (apply_mrope, apply_rope,
 from repro_torch.models.layers.mlp import swiglu
 from repro_torch.models.layers.moe import moe_block, virtual_expert_shapes
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.sharding import (constrain, constrain_divisible,
+from repro_torch.parallel.sharding import (axis_rules, constrain,
+                                           constrain_divisible,
+                                           current_mesh, current_rules,
                                            model_size)
 
 
@@ -202,18 +204,34 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 def _remat(cfg: ModelConfig, body):
     """``body`` under the config's remat policy: "full" keeps only the
     layer's inputs and recomputes its forward in the backward, "minimal"
-    also keeps its matrix products, "none" keeps everything."""
-    if cfg.remat == "full":
-        return functools.partial(tcp.checkpoint, body, use_reentrant=False)
-    if cfg.remat == "minimal":
-        return functools.partial(
-            tcp.checkpoint, body, use_reentrant=False,
-            context_fn=functools.partial(
-                tcp.create_selective_checkpoint_contexts, _save_matmuls))
+    also keeps its matrix products, "none" keeps everything.  The
+    recompute runs under the mesh and rules in force at the forward: on
+    the card it runs on autograd's device thread, which does not hold the
+    caller's (a process mesh's expert-parallel layer needs them)."""
     if cfg.remat == "none":
         return body
-    raise ValueError(f"remat {cfg.remat!r} not in ('none', 'minimal', "
-                     "'full')")
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "minimal":
+        kw = {"context_fn": functools.partial(
+            tcp.create_selective_checkpoint_contexts, _save_matmuls)}
+    else:
+        raise ValueError(f"remat {cfg.remat!r} not in ('none', 'minimal', "
+                         "'full')")
+
+    def run(*args):
+        mesh = current_mesh()
+        fn = body if mesh is None else _under(body, mesh, current_rules())
+        return tcp.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _under(body, mesh, rules):
+    def call(*args):
+        with axis_rules(mesh, rules):
+            return body(*args)
+    return call
 
 
 def forward_train(cfg: ModelConfig, params, batch

@@ -16,7 +16,10 @@ out a value, :func:`constrain` redistributes a ``DTensor`` to the rule's
 placements (:func:`placements`); on a plain tensor, or without a mesh, it
 returns its argument as it is, so the one-card path is unchanged.  The
 expert-parallel MoE block (``models/layers/moe.py``) reads the model axis
-of the mesh in force and reduces over its group with :func:`all_reduce`.
+of the mesh in force and reduces over its group with :func:`all_reduce`
+(forward and backward, for autograd) after :func:`enter_group`; a train
+step over a process mesh (``train/train_step.py``) averages its gradients
+over the data axes (:func:`data_axes`) with :func:`all_reduce_flat`.
 """
 
 from __future__ import annotations
@@ -239,16 +242,56 @@ def model_coord() -> Tuple[int, Optional[dist.ProcessGroup]]:
     return int(mesh.get_local_rank("model")), mesh.get_group("model")
 
 
-def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """Sum (``op="sum"``) or mean (``"mean"``) of ``t`` over ``group``,
-    in ``t``'s type, as a new tensor.  A CUDA tensor is staged through a
-    pinned host buffer, since the processes of one card meet in a gloo
-    group (NCCL refuses two ranks on one device) and gloo reduces on the
-    host.  The active program analyzer (``launch/hlo.py``) counts it as
-    one all-reduce of ``t``'s bytes over the group's size, whatever the
-    device."""
+def data_axes() -> list:
+    """``[(axis, coordinate, size, group)]`` of the data axes ('pod',
+    'data') of the process mesh in force whose size passes 1: the axes a
+    train step averages its gradients over.  Empty without a mesh, on a
+    plain shape, or where every data axis has one process."""
+    mesh = current_mesh()
+    if mesh is None or not hasattr(mesh, "get_group"):
+        return []
+    shape = mesh_shape(mesh)
+    return [(a, int(mesh.get_local_rank(a)), int(shape[a]),
+             mesh.get_group(a))
+            for a in ("pod", "data") if int(shape.get(a, 1)) > 1]
+
+
+def spec_names_model(spec: Spec) -> bool:
+    """True where ``spec`` splits some dimension over 'model'."""
+    for p in spec:
+        names = tuple(p) if isinstance(p, (tuple, list)) else (p,)
+        if "model" in names:
+            return True
+    return False
+
+
+@contextlib.contextmanager
+def model_sharded(flags):
+    """Within the block, :func:`model_sharded_leaves` is ``flags``: a tree
+    (nested dicts, as the parameters) of bools, True for a leaf that each
+    process holds one block of along the model axis.  An optimizer whose
+    update reduces over a whole leaf (Adafactor's update clipping) adds up
+    such a leaf's blocks over the model axis's group."""
+    prev = getattr(_ctx, "sharded", None)
+    _ctx.sharded = flags
+    try:
+        yield
+    finally:
+        _ctx.sharded = prev
+
+
+def model_sharded_leaves():
+    """The flags :func:`model_sharded` put in force, or None."""
+    return getattr(_ctx, "sharded", None)
+
+
+def _reduce(t: torch.Tensor, group, op: str) -> torch.Tensor:
+    """Sum or mean of ``t`` over ``group`` as a new tensor, outside
+    autograd; the active analyzer counts one all-reduce."""
     from repro_torch.kernels import dispatch
 
+    if op not in ("sum", "mean"):
+        raise ValueError(f"op {op!r} not in ('sum', 'mean')")
     n = dist.get_world_size(group)
     with dispatch.collective("all-reduce", t.numel() * t.element_size(), n):
         if t.is_cuda:
@@ -263,6 +306,74 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
                 dist.all_reduce(out, group=group)
         if op == "mean":
             out = out / n
-        elif op != "sum":
-            raise ValueError(f"op {op!r} not in ('sum', 'mean')")
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum (or mean) over a group; its backward passes the cotangent
+    through unchanged (divided by the group's size for the mean), as
+    ``psum``'s and ``pmean``'s transposes do where every process holds the
+    same cotangent of the result."""
+
+    @staticmethod
+    def forward(ctx, t, group, op):
+        ctx.n = dist.get_world_size(group) if op == "mean" else 1
+        return _reduce(t, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g / ctx.n if ctx.n > 1 else g), None, None
+
+
+class _EnterGroup(torch.autograd.Function):
+    """The identity on a value every process of a group holds; its
+    backward sums the processes' cotangents over the group, so the value
+    takes the gradient of everything the group computed from it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.contiguous(), ctx.group, "sum"), None
+
+
+def enter_group(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as it is, marked as an input the processes of ``group`` hold
+    alike and compute partial results from: backward sums its cotangents
+    over the group (one all-reduce, counted by the analyzer)."""
+    return _EnterGroup.apply(t, group)
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="sum"``) or mean (``"mean"``) of ``t`` over ``group``,
+    in ``t``'s type, as a new tensor that autograd passes through (the
+    sum's cotangent unchanged, the mean's divided by the group's size).  A
+    CUDA tensor is staged through a pinned host buffer, since the
+    processes of one card meet in a gloo group (NCCL refuses two ranks on
+    one device) and gloo reduces on the host.  The active program analyzer
+    (``launch/hlo.py``) counts it as one all-reduce of ``t``'s bytes over
+    the group's size, whatever the device."""
+    return _AllReduce.apply(t, group, op)
+
+
+def all_reduce_flat(tensors, group) -> list:
+    """The sum over ``group`` of every tensor of ``tensors``, outside
+    autograd, with one reduction (one host round trip, one count of the
+    analyzer) per dtype: the tensors of a dtype travel as one flat buffer.
+    Returns the sums in ``tensors``' order and shapes."""
+    out = [None] * len(tensors)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        flat = _reduce(flat, group, "sum")
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view(tensors[i].shape)
+            off += n
     return out

@@ -17,7 +17,11 @@ for a NamedTuple field.  bfloat16 is saved as its ``uint16`` bit pattern
 and restored as ``torch.bfloat16``.
 
 Writes go to ``<dir>/.tmp-<pid>-<step>`` and are ``os.replace``d into
-place, so a crash mid-save never corrupts the latest checkpoint.
+place, so a crash mid-save never corrupts the latest checkpoint.  The
+processes of a mesh save one tree together (:func:`save_sharded`, the
+same files: process 0 writes the whole leaves and each block's holder
+fills its block of the full array in place) and restore their own blocks
+of it (``restore(blocks=)``), whatever mesh saved it.
 Re-saving a step renames the old directory aside first and prunes it only
 after the new one has landed (replace-then-prune).  A directory holding
 :data:`HISTORY_MARKER` belongs to a history spill tier: retention never
@@ -26,6 +30,7 @@ prunes it, the sweep never collects it and a save never renames it aside.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -190,6 +195,14 @@ def save(ckpt_dir: str, step: int, tree, *, data_state: Optional[Dict] = None,
         manifest["shapes"].append(list(arr.shape))
         np.save(os.path.join(tmp, f"leaf_{i:06d}.npy"),
                 np.asarray(arr, order="C").view(np.ndarray))
+    _land(ckpt_dir, step, tmp, final, manifest, keep)
+    return final
+
+
+def _land(ckpt_dir: str, step: int, tmp: str, final: str, manifest: Dict,
+          keep: int) -> None:
+    """Write the manifest into ``tmp`` (after every leaf), rename it into
+    place as ``final`` and prune to the newest ``keep``."""
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     # Replace-then-prune: a crash between the two renames leaves both
@@ -217,6 +230,122 @@ def save(ckpt_dir: str, step: int, tree, *, data_state: Optional[Dict] = None,
     # never prune the checkpoint just written (keep=0, or a save below
     # stale newer steps after a rollback)
     _retain(ckpt_dir, max(int(keep), 1), protect=int(step))
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where one process's tree lies in a checkpoint's full arrays, leaf
+    by leaf in leaf order: ``shapes`` the full shapes, ``blocks`` this
+    process's block of each (a slice a dimension; None where it holds the
+    leaf whole).  ``writer``: this process writes its blocks (one process
+    of those holding a block).  The processes meet through ``store`` (a
+    ``torch.distributed.Store``, not the process group, so that a save on
+    a worker thread never races the train step's collectives) as process
+    ``rank`` of ``world``; process 0 writes the whole leaves, the manifest
+    and the rename."""
+    shapes: Tuple[Tuple[int, ...], ...]
+    blocks: Tuple[Optional[Tuple[slice, ...]], ...]
+    writer: bool
+    rank: int
+    world: int
+    store: Any
+
+    def writes(self, i: int) -> bool:
+        """This process writes leaf ``i`` (whole, or its block)."""
+        if self.blocks[i] is None:
+            return self.rank == 0
+        return self.writer
+
+
+def _signal(store, key: str, fn: Callable[[], Any]):
+    """Run ``fn``; on a failure publish its message under ``key`` before
+    raising, so that the waiting processes raise too."""
+    try:
+        return fn()
+    except BaseException as e:
+        store.set(key, "!" + repr(e))
+        raise
+
+
+def _await(store, key: str) -> str:
+    """The value of ``key`` once it is set (the store's timeout applies);
+    raises where a process published a failure there."""
+    store.wait([key])
+    val = store.get(key).decode()
+    if val.startswith("!"):
+        raise RuntimeError(f"checkpoint save failed in another process: "
+                           f"{val[1:]}")
+    return val
+
+
+def save_sharded(ckpt_dir: str, step: int, paths: List[str],
+                 arrays: List[Optional[np.ndarray]], layout: Layout,
+                 key: str, *, data_state: Optional[Dict] = None,
+                 mesh_shape: Optional[Tuple[int, ...]] = None,
+                 keep: int = 3) -> str:
+    """Blocking atomic save of a tree that the processes of a mesh hold in
+    blocks, in the layout of :func:`save` (full arrays), so that any
+    process count restores it.  ``arrays`` are this process's host leaves
+    (those it writes, by ``layout.writes``; None elsewhere).  Process 0
+    makes the temporary directory, writes every leaf it holds whole and
+    lays out each split leaf as an empty ``.npy`` of its full shape; each
+    writer then fills its blocks in place through ``np.lib.format.
+    open_memmap``; once every process has reported to the store under
+    ``key``, process 0 writes the manifest and renames.  Every process
+    returns after the rename."""
+    L = layout
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+
+    def prepare() -> str:
+        tmp = os.path.join(ckpt_dir, f".tmp-{os.getpid()}-{step}")
+        os.makedirs(tmp, exist_ok=True)
+        _sweep_stale(ckpt_dir)
+        for i, (arr, block) in enumerate(zip(arrays, L.blocks)):
+            path = os.path.join(tmp, f"leaf_{i:06d}.npy")
+            if block is None:
+                np.save(path, np.asarray(arr, order="C").view(np.ndarray))
+            else:
+                np.lib.format.open_memmap(path, mode="w+", dtype=arr.dtype,
+                                          shape=tuple(L.shapes[i]))
+        return tmp
+
+    if L.rank == 0:
+        tmp = _signal(L.store, f"{key}/tmp", prepare)
+        L.store.set(f"{key}/tmp", tmp)
+    else:
+        tmp = _await(L.store, f"{key}/tmp")
+
+    def fill() -> None:
+        for i, (arr, block) in enumerate(zip(arrays, L.blocks)):
+            if block is None or not L.writer:
+                continue
+            mm = np.load(os.path.join(tmp, f"leaf_{i:06d}.npy"),
+                         mmap_mode="r+")
+            mm[block] = np.asarray(arr).view(np.ndarray)
+            mm.flush()
+            del mm
+
+    _signal(L.store, f"{key}/done/{L.rank}", fill)
+    L.store.set(f"{key}/done/{L.rank}", "1")
+    if L.rank != 0:
+        _await(L.store, f"{key}/landed")
+        return final
+
+    def land() -> None:
+        for r in range(L.world):
+            _await(L.store, f"{key}/done/{r}")
+        manifest = {
+            "step": int(step), "paths": list(paths),
+            "dtypes": [_dtype_name(a) for a in arrays],
+            "shapes": [list(sh) for sh in L.shapes],
+            "mesh_shape": list(mesh_shape) if mesh_shape else None,
+            "data_state": data_state, "sketch_spec": None,
+            "wallclock": time.time(), "format": 1,
+        }
+        _land(ckpt_dir, step, tmp, final, manifest, keep)
+
+    _signal(L.store, f"{key}/landed", land)
+    L.store.set(f"{key}/landed", final)
     return final
 
 
@@ -271,12 +400,17 @@ def _to_tensor(arr: np.ndarray, dtype: str, dev) -> torch.Tensor:
 
 def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
             device="cuda",
-            host_leaves: Optional[Callable[[str], bool]] = None
+            host_leaves: Optional[Callable[[str], bool]] = None,
+            blocks: Optional[Callable[[int, Tuple[int, ...]],
+                                      Optional[Tuple[slice, ...]]]] = None
             ) -> Tuple[Any, Dict]:
     """Restore into the structure of ``tree_like`` (only its structure is
     read); returns ``(tree, manifest)``.  Leaves become tensors on
     ``device`` at their saved dtype; leaves whose manifest path
-    ``host_leaves`` accepts stay numpy arrays at their on-disk dtype."""
+    ``host_leaves`` accepts stay numpy arrays at their on-disk dtype.
+    ``blocks(i, full_shape)`` gives the block (a slice a dimension) of
+    leaf ``i`` that this process keeps, or None for all of it: the full
+    arrays on disk suit any mesh, and only the block is read."""
     dev = resolve_device(device)
     manifest = read_manifest(ckpt_dir, step=step)
     path = os.path.join(ckpt_dir, f"step_{manifest['step']:09d}")
@@ -287,7 +421,12 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
             f"{len(manifest['paths'])}")
     leaves = []
     for i in range(n):
-        arr = np.load(os.path.join(path, f"leaf_{i:06d}.npy"))
+        file = os.path.join(path, f"leaf_{i:06d}.npy")
+        block = blocks(i, tuple(manifest["shapes"][i])) if blocks else None
+        if block is None:
+            arr = np.load(file)
+        else:
+            arr = np.ascontiguousarray(np.load(file, mmap_mode="r")[block])
         dtype = manifest["dtypes"][i]
         if host_leaves is not None and host_leaves(manifest["paths"][i]):
             leaves.append(arr)
@@ -306,11 +445,16 @@ def host_copy(tree):
 class AsyncCheckpointer:
     """One-slot async saver: a save runs on a worker thread; a newer save
     waits for the previous one to land (the host copy of the tree exists
-    once)."""
+    once).  With a :class:`Layout` the processes of a mesh save one tree
+    together (:func:`save_sharded`); each copies to the host only the
+    leaves it writes."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, *,
+                 layout: Optional[Layout] = None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.layout = layout
+        self._saves = 0
         self._thread: Optional[threading.Thread] = None
         self.last_path: Optional[str] = None
         self.error: Optional[BaseException] = None
@@ -318,12 +462,28 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, **kw) -> None:
         self.wait()
         # the device → host copy on the caller's thread, in its stream order
-        host_tree = host_copy(tree)
+        if self.layout is None:
+            host_tree = host_copy(tree)
+
+            def run():
+                return save(self.ckpt_dir, step, host_tree, keep=self.keep,
+                            **kw)
+        else:
+            flat = leaves_with_paths(tree)
+            arrays = [_host(x).copy() if self.layout.writes(i) else None
+                      for i, (_, x) in enumerate(flat)]
+            # the same key in every process: they save in the same order
+            key = f"ckpt:{os.path.abspath(self.ckpt_dir)}:{self._saves}"
+            self._saves += 1
+
+            def run():
+                return save_sharded(self.ckpt_dir, step,
+                                    [p for p, _ in flat], arrays,
+                                    self.layout, key, keep=self.keep, **kw)
 
         def work():
             try:
-                self.last_path = save(self.ckpt_dir, step, host_tree,
-                                      keep=self.keep, **kw)
+                self.last_path = run()
             except BaseException as e:   # noqa: BLE001 — surfaced in wait()
                 self.error = e
 

@@ -3,7 +3,9 @@
 Counterpart of ``repro/train/optimizer.py``:
 
 * ``adamw`` — f32 m and v;
-* ``adafactor`` — factored f32 second moments and bf16 momentum;
+* ``adafactor`` — factored f32 second moments and bf16 momentum; under a
+  process mesh its update clipping adds a leaf's blocks up over the model
+  axis (``parallel/sharding.py::model_sharded``), the rest is local;
 * ``sgdm`` — for toy runs.
 
 The states are the reference's NamedTuples (``AdamState(m, v)``,
@@ -23,7 +25,10 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.parallel.sharding import (all_reduce, model_coord,
+                                           model_sharded_leaves)
 from repro_torch.tree import map_dicts
 
 
@@ -124,32 +129,56 @@ def adafactor(lr: float = 1e-3, decay: float = 0.99, eps: float = 1e-30,
     def update(grads, state, params, step):
         stepf = _step_f32(step, _first(params))
         sched = _schedule(lr, warmup, stepf)
+        sharded = model_sharded_leaves()
+        if sharded is None:
+            sharded = map_dicts(lambda _: False, params)
 
-        def leaf(p, g, vr, vc, mom):
+        # the reference's arithmetic, with every full-size temporary
+        # written in place where that computes the same values, so that an
+        # expert leaf of a full-width MoE needs at most three f32 copies
+        def leaf(p, g, vr, vc, mom, split):
             g = g.float()
-            g2 = g * g + eps
+            g2 = g * g
+            g2.add_(eps)
             if p.dim() >= 2:
                 vr.mul_(decay).add_((1 - decay) * g2.mean(dim=-1))
                 vc.mul_(decay).add_((1 - decay) * g2.mean(dim=-2))
+                del g2
                 norm = torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
                                    min=eps)
-                denom = torch.sqrt(vr[..., None] * vc[..., None, :] / norm)
-                u = g / torch.clamp(denom, min=1e-12)
+                denom = vr[..., None] * vc[..., None, :]
+                denom.div_(norm).sqrt_().clamp_(min=1e-12)
+                u = g / denom
+                del denom
             else:
                 vr.mul_(decay).add_((1 - decay) * g2)
                 u = g / torch.clamp(torch.sqrt(vr), min=1e-12)
-            # update clipping (Shazeer & Stern)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms, min=1.0)
+            del g
+            # update clipping (Shazeer & Stern): the RMS over the whole
+            # leaf, whose blocks the model axis's processes add up
+            rms = torch.sqrt(_mean_square(u, split) + 1e-30)
+            u.div_(torch.clamp(rms, min=1.0))
             if momentum:
                 u = momentum * mom.float() + u
                 mom.copy_(u)
-            p.copy_(p.float() - sched * u)
+            u.mul_(sched)
+            p.copy_(p.float().sub_(u))
 
-        map_dicts(leaf, params, grads, state.vr, state.vc, state.mom)
+        map_dicts(leaf, params, grads, state.vr, state.vc, state.mom, sharded)
         return params, state
 
     return Optimizer("adafactor", init, update)
+
+
+def _mean_square(u: torch.Tensor, split: bool) -> torch.Tensor:
+    """mean(u²) of a whole leaf: of ``u`` itself, or where each process of
+    the model axis holds one equal block of it (``split``), the sum over
+    the axis's group over the count of the whole leaf."""
+    if not split:
+        return torch.mean(u * u)
+    _, group = model_coord()
+    total = all_reduce(torch.sum(u * u), group, "sum")
+    return total / (u.numel() * dist.get_world_size(group))
 
 
 def sgdm(lr: float = 0.1, momentum: float = 0.9) -> Optimizer:

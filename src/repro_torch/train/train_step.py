@@ -9,6 +9,16 @@ update, then the monitor on the clipped gradients.  The reference's jitted
 ``lax.scan`` over microbatches is a Python loop of ``torch.autograd.grad``
 calls; the parameters are the nested dict of tensors the optimizer updates
 in place.
+
+Under a mesh of processes (``launch/mesh.py::make_process_mesh``, plain
+tensors, one block a process) each process computes the gradients of its
+own batch shard; the step then averages every gradient and the loss over
+the data axes ('pod', 'data'), one host round trip per dtype
+(``parallel/sharding.py::all_reduce_flat``), takes the gradient norm over
+the whole model (a leaf the model axis splits adds its sum of squares over
+that axis's group) and reports data coordinate 0's balance loss.  The
+gradient sketches run where every process holds the same gradients (a
+data axis); under a model axis of more than one process they raise.
 """
 
 from __future__ import annotations
@@ -22,9 +32,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
-from repro_torch.models.params import count_params
-from repro_torch.parallel.sharding import (constrain, current_mesh,
-                                           is_dtensor)
+from repro_torch.models.params import count_params, param_pspecs
+from repro_torch.parallel.sharding import (all_reduce, all_reduce_flat,
+                                           constrain, current_mesh,
+                                           data_axes, is_dtensor,
+                                           model_coord, model_sharded,
+                                           model_size, spec_names_model)
 from repro_torch.sketch.compress import compress_grads, compress_init
 from repro_torch.sketch.monitor import sketch_init, sketch_update
 from repro_torch.train.optimizer import Optimizer
@@ -70,16 +83,16 @@ def loss_fn(cfg: ModelConfig, params, micro_batch,
             aux_coeff: float = 0.01):
     """Cross-entropy ``logsumexp(z) − z[label]`` plus the z-loss
     1e-4·mean(lse²) and ``aux_coeff``·aux.  The reference forms a one-hot
-    only to keep the vocab axis sharded; the label logit is gathered here,
-    the same value."""
+    only to keep the vocab axis sharded; the label logit is gathered here
+    (the one-hot form only for DTensor logits), the same value."""
     logits, aux = api.forward_train(cfg, params, micro_batch)
     zf = logits.float()
     lse = torch.logsumexp(zf, dim=-1)                          # (B, S)
     labels = micro_batch["labels"].long()
-    if current_mesh() is None:
+    if not is_dtensor(zf):
         label_logit = torch.gather(zf, -1, labels[..., None])[..., 0]
     else:
-        # under a mesh, the reference's one-hot keeps the vocab axis
+        # on DTensors, the reference's one-hot keeps the vocab axis
         # sharded: a gather over it would gather the (B, S, V) logits
         onehot = constrain(F.one_hot(labels, zf.shape[-1]).to(zf.dtype),
                            "batch", "seq", "vocab")
@@ -151,7 +164,11 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
     def train_step(params, opt_state, step, batch, sketch_state=None):
         """sketch_state (optional): {"compress": ..., "monitor": ...}, the
         DS-FD training-integration state."""
+        split = _model_split(cfg, params)
+        if split is not None:
+            refuse_sketches_under_model_axis(tsc, opt)
         grads, loss, aux = grads_of(params, batch)
+        grads, loss, aux = _reduce_over_data(grads, loss, aux)
         if sketch_state is not None:
             sk = dict(sketch_state)
         elif tsc.compress is not None or tsc.sketch is not None:
@@ -163,13 +180,13 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
             grads, sk["compress"] = compress_grads(
                 tsc.compress, grads, sk.get("compress"))
 
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in leaves(grads)))
+        gnorm = _global_norm(grads, split)
         scale = torch.clamp(tsc.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         grads = map_dicts(lambda g: g * scale.to(g.dtype), grads)
 
-        new_params, new_opt = opt.update(grads, opt_state, params, step)
+        with model_sharded(split):
+            new_params, new_opt = opt.update(grads, opt_state, params, step)
         metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm}
 
         if tsc.sketch is not None:
@@ -183,6 +200,73 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
         return out
 
     return train_step
+
+
+def refuse_sketches_under_model_axis(tsc: TrainStepConfig,
+                                     opt: Optimizer) -> None:
+    """Raise where ``tsc`` or ``opt`` asks for a gradient sketch: each
+    sketches whole gradient matrices, which a model axis of more than one
+    process splits (not ported yet)."""
+    if (tsc.sketch is not None or tsc.compress is not None
+            or opt.name == "sketchy_dsfd"):
+        raise NotImplementedError(
+            "the gradient sketches (the monitor, FD compression, Sketchy) "
+            "under a model axis of more than one process: ROADMAP §1, "
+            "'Gradient sketches under a model axis'")
+
+
+def _in_processes(params) -> bool:
+    """True under a mesh of processes (``launch/mesh.py::
+    make_process_mesh``) whose parameters are plain tensors, one block a
+    process: the step reduces over the mesh's groups itself.  On DTensors
+    (the dry-run) DTensor places the reductions."""
+    mesh = current_mesh()
+    return (mesh is not None and hasattr(mesh, "get_group")
+            and not is_dtensor(next(leaves(params))))
+
+
+def _model_split(cfg: ModelConfig, params):
+    """Under a process mesh with a model axis of more than one process,
+    the tree of bools (as ``params``) that marks each leaf the axis
+    splits, by its spec under the rules in force; None otherwise."""
+    if model_size() == 1 or not _in_processes(params):
+        return None
+    specs = param_pspecs(api.param_defs(cfg))
+    return map_dicts(lambda _, spec: spec_names_model(spec), params, specs)
+
+
+def _reduce_over_data(grads, loss, aux):
+    """Under a process mesh, the mean of every gradient and of the loss
+    over the data axes, one reduction per dtype an axis; ``aux`` becomes
+    the value of data coordinate 0, as the reference's ``shard_map`` over
+    the batch returns its first shard's balance loss (while its gradient
+    is the shards' mean: ROADMAP §3 note (w))."""
+    axes = data_axes() if _in_processes(grads) else []
+    if not axes:
+        return grads, loss, aux
+    flat = list(leaves(grads))
+    for _, idx, n, group in axes:
+        out = all_reduce_flat(
+            flat + [loss, aux if idx == 0 else torch.zeros_like(aux)], group)
+        # the sums are views of one buffer a dtype: divided in place
+        flat, loss, aux = [g.div_(n) for g in out[:-2]], out[-2].div_(n), \
+            out[-1]
+    it = iter(flat)
+    return map_dicts(lambda _: next(it), grads), loss, aux
+
+
+def _global_norm(grads, split) -> torch.Tensor:
+    """‖g‖ over every leaf; a leaf the model axis splits (``split``) adds
+    its sum of squares over the axis's group."""
+    if split is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves(grads)))
+    parts = [torch.sum(torch.square(g.float())) for g in leaves(grads)]
+    flags = list(leaves(split))
+    whole = sum(p for p, f in zip(parts, flags) if not f)
+    blocks = sum(p for p, f in zip(parts, flags) if f)
+    _, group = model_coord()
+    return torch.sqrt(whole + all_reduce(blocks, group, "sum"))
 
 
 def init_sketch_state(tsc: TrainStepConfig, params, opt: Optimizer,

@@ -1409,6 +1409,82 @@ def test_expert_parallel_block_on_one_card_matches_one_process(cuda,
         assert abs(float(got["aux"]) - float(aux)) <= 1e-6
 
 
+_TRAIN_MESH_SCRIPT = r"""
+import json, os, sys
+import torch
+pid, port, root, arch, n_model = (int(sys.argv[1]), int(sys.argv[2]),
+                                  sys.argv[3], sys.argv[4], int(sys.argv[5]))
+torch.backends.cuda.matmul.allow_tf32 = False
+import dataclasses
+from repro_torch.configs.base import get_config
+from repro_torch.launch import mesh
+from repro_torch.train.loop import LoopConfig, train
+
+mesh.init_distributed(pid, 2, "127.0.0.1", port, timeout_s=30)
+try:
+    torch.cuda.set_device(0)
+    pm = mesh.make_process_mesh(n_model)
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64,
+                              use_flash=True, remat="full")
+    res = train(cfg, pm, device="cuda", loop=LoopConfig(steps=3),
+                seq_len=256, global_batch=4)
+    with open(os.path.join(root, f"train_{pid}.json"), "w") as f:
+        json.dump(res["history"], f)
+finally:
+    mesh.shutdown()
+"""
+
+
+@pytest.mark.parametrize("arch,n_model", [("grok-1-314b", 2),
+                                          ("smollm-135m", 1)])
+def test_train_under_a_process_mesh_on_one_card_matches_one_process(
+        cuda, tmp_path, arch, n_model):
+    """``train(cfg, mesh)`` over two processes sharing the card, through
+    the flash kernels with full remat (whose recompute runs on autograd's
+    device thread): reduced grok-1 expert-parallel under (1, 2), reduced
+    smollm-135m data-parallel under (2, 1), against ``train(cfg)`` in one
+    process on the card: each step's loss and gradient norm within 1e-5
+    relative (f32, TF32 off: the partial gradients' sums in another
+    order)."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.train.loop import LoopConfig, train
+
+    root = tmp_path
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TRAIN_MESH_SCRIPT, str(pid), str(port),
+         str(root), arch, str(n_model)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64,
+                              use_flash=True, remat="full")
+    want = train(cfg, device=cuda,
+                 loop=LoopConfig(steps=3), seq_len=256,
+                 global_batch=4)["history"]
+    for pid in range(2):
+        got = json.loads((root / f"train_{pid}.json").read_text())
+        for g, w in zip(got, want):
+            for k in ("loss", "grad_norm"):
+                assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]), (pid, k, g, w)
+
+
 def test_analyzer_counts_a_flash_prefill_alike_on_card_and_cpu(cuda):
     """The program analyzer (``launch/hlo.py``) counts a 2-layer bf16
     prefill through the flash kernel on the card as through its plain

@@ -33,7 +33,7 @@ from repro_torch.sketch.history import HistoryPlane
 from repro_torch.sketch.monitor import SketchConfig, sketch_init
 from repro_torch.sketch.runner import run_sketch
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.loop import train
+from repro_torch.train.loop import LoopConfig, train
 from repro_torch.train.optimizer import adamw
 from repro_torch.train.train_step import TrainStepConfig, init_sketch_state
 
@@ -87,7 +87,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.configs.whisper_large_v3",
             "repro_torch.models.whisper", "repro_torch.launch.flops",
             "repro_torch.parallel.sharding", "repro_torch.launch.hlo",
-            "repro_torch.launch.dryrun"} <= names
+            "repro_torch.launch.dryrun", "repro_torch.convert",
+            "repro_torch.models.params",
+            "repro_torch.models.transformer"} <= names
 
 
 def _topo(S, P=2, pid=0):
@@ -200,6 +202,8 @@ def no_cuda(monkeypatch):
             get_config("whisper-large-v3").reduced(), 1, 8, torch.float32,
             "cpu")),
         get_config("whisper-large-v3").reduced()),
+    lambda: train(get_config("grok-1-314b").reduced(),
+                  {"data": 1, "model": 1}),
 ], ids=["engine", "make_sketch-dsfd", "make_sketch-fd", "dsfd_init",
         "fd_init", "dsfd_run_stream", "convert", "serve-engine",
         "launch-serve", "convert-model", "init-cache", "init-cache-dense",
@@ -217,7 +221,7 @@ def no_cuda(monkeypatch):
         "serve-ssm", "serve-hybrid", "init-params-encdec",
         "init-cache-encdec", "whisper-init-cache", "serve-encdec",
         "launch-serve-encdec", "serve-ep", "host-mesh",
-        "convert-whisper-cache"])
+        "convert-whisper-cache", "train-mesh"])
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
@@ -285,6 +289,18 @@ def test_training_state_runs_on_the_cpu_when_named(no_cuda):
     assert sketch_init(SketchConfig(d=8), "cpu")["dsfd"].main.buf.shape \
         == (1, 16, 8)
     assert init_sketch_state(TrainStepConfig(), params, adamw()) is None
+
+
+def test_train_under_a_mesh_runs_on_the_cpu_when_named(no_cuda):
+    """``train(cfg, mesh)`` on the plain shape of one process runs on the
+    CPU when it is named; a plain shape of several processes, which has
+    no process group behind it, is refused."""
+    cfg = get_config("grok-1-314b").reduced()
+    res = train(cfg, {"data": 1, "model": 1}, device="cpu",
+                loop=LoopConfig(steps=1), seq_len=16, global_batch=2)
+    assert res["params"]["embed"].device.type == "cpu"
+    with pytest.raises(ValueError, match="make_process_mesh"):
+        train(cfg, {"data": 2, "model": 1}, device="cpu")
 
 
 def test_init_cache_runs_on_the_cpu_when_named(no_cuda):

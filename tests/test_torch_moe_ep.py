@@ -10,7 +10,8 @@ every expert into the virtual experts of their model axis
 (``convert.split_experts``), keep their own block of each leaf
 (``convert.local_params`` under ``param_pspecs``-style rules) and run
 ``moe_block`` under ``axis_rules``; the parent compares their y, aux and
-the (token, choice) pairs the capacity dropped with:
+the (token, choice) pairs the capacity dropped, and their gradients of
+sum(y²) + aux with respect to x, the router and the experts, with:
 
 * the port's one-process ``moe_block`` on the same weights (y 1e-5, aux
   1e-6, the dropped set equal);
@@ -20,7 +21,9 @@ the (token, choice) pairs the capacity dropped with:
 
 The cases: reduced grok (E = 8, top-2) at M = 2 and 4, reduced kimi
 (E = 16, top-8) at M = 2 and 4, and E = 2 at M = 4 (two virtual experts
-an expert).
+an expert).  The children also hold the autograd collectives to their
+definitions and count the block's all-reduces under the program analyzer
+with and without its backward.
 """
 
 import os
@@ -46,6 +49,10 @@ pin_host_threads(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 Y_TOL, AUX_TOL = 1e-5, 1e-6
+# gradients of sum(y²) + aux: y's tolerance (entries up to ~1; f32, only
+# the order of the sums differs)
+GRAD_TOL = 1e-5
+GRADS = ("x", "wr", "wg", "wu", "wd")
 D, F, B, S = 16, 32, 2, 24
 # name: (experts, top-k, model-axis sizes)
 CASES = {"grok": (8, 2, (2, 4)), "kimi": (16, 8, (2, 4)),
@@ -76,9 +83,11 @@ pid, world, port, root = (int(sys.argv[1]), int(sys.argv[2]),
                           int(sys.argv[3]), sys.argv[4])
 from repro_torch import convert
 from repro_torch.configs.base import MoECfg
+from repro_torch.launch import hlo
 from repro_torch.launch.mesh import init_distributed, make_process_mesh
 from repro_torch.models.layers import moe
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import axis_rules, make_rules
 
 init_distributed(pid, world, port=port, timeout_s=30)
@@ -122,8 +131,72 @@ for name in sys.argv[5].split(","):
     mine = (v // E_l) == coords["model"]
     gone = mine & (seen["slot"] == E_l * seen["C"])
     t, jj = torch.nonzero(gone, as_tuple=True)
+    # the gradients of sum(y²) + aux, and the analyzer's count of the
+    # block's all-reduces with and without its backward
+    ins = [w["x"].clone().requires_grad_(True),
+           w["wr"].clone().requires_grad_(True)] + [
+        local[n][0].clone().requires_grad_(True) for n in ("wg", "wu", "wd")]
+    with axis_rules(mesh, rules), hlo.analyze() as a:
+        gy, gaux = moe.moe_block(*ins, moe=cfg.moe)
+        grads = torch.autograd.grad((gy * gy).sum() + gaux, ins)
+    with axis_rules(mesh, rules), hlo.analyze() as f, torch.no_grad():
+        moe.moe_block(*ins, moe=cfg.moe)
     np.savez(f"{root}/{name}_{world}_{pid}.npz", y=y.numpy(),
-             aux=aux.numpy(), t=t.numpy(), j=(jj // split).numpy())
+             aux=aux.numpy(), t=t.numpy(), j=(jj // split).numpy(),
+             **{"g" + n: g.numpy() for n, g in
+                zip(("x", "wr", "wg", "wu", "wd"), grads)},
+             n_fwd_bwd=a.stats.collective_counts.get("all-reduce", 0),
+             n_fwd=f.stats.collective_counts.get("all-reduce", 0))
+
+# the autograd collectives on their own: this process's value pid + 1
+group = mesh.get_group("model")
+out = {}
+for op in ("sum", "mean", "enter"):
+    t = torch.full((3,), float(pid + 1), requires_grad=True)
+    r = (sharding.enter_group(t, group) if op == "enter"
+         else sharding.all_reduce(t * 1.0, group, op))
+    (r * float(pid + 1)).sum().backward()
+    out[op] = (r.detach().numpy(), t.grad.numpy())
+np.savez(f"{root}/ops_{world}_{pid}.npz",
+         **{f"{op}_{k}": v[i] for op, v in out.items()
+            for i, k in enumerate(("value", "grad"))})
+
+# a remat'd expert-parallel model whose backward runs on another thread
+# (as autograd's device thread runs a card's backward): the recompute
+# must run under the forward's mesh and rules
+import dataclasses, threading
+from repro_torch.configs.base import get_config
+from repro_torch.models import api
+from repro_torch.models.params import init_params
+cfg = dataclasses.replace(get_config("grok-1-314b").reduced(), n_layers=1,
+                          remat="full")
+rules = {"experts": "model"}
+with axis_rules(mesh, rules):
+    params = init_params(api.param_defs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu",
+                         local=lambda d: convert.local_block(d, rules, mesh,
+                                                             coords))
+tok = torch.arange(32, dtype=torch.int32).reshape(2, 16) % cfg.vocab
+leaves = [params["layers"][n] for n in ("wg", "wr")]
+grads = {}
+for where in ("here", "thread"):
+    ps = [x.detach().clone().requires_grad_(True) for x in leaves]
+    params["layers"]["wg"], params["layers"]["wr"] = ps
+    with axis_rules(mesh, rules):
+        logits, aux = api.forward_train(cfg, params, {"tokens": tok})
+        loss = (logits.float() ** 2).mean() + aux
+    if where == "here":
+        with axis_rules(mesh, rules):
+            grads[where] = torch.autograd.grad(loss, ps)
+    else:
+        def run():
+            grads[where] = torch.autograd.grad(loss, ps)
+        th = threading.Thread(target=run)
+        th.start()
+        th.join()
+np.savez(f"{root}/thread_{world}_{pid}.npz",
+         **{f"{w}_{i}": g.numpy() for w, gs in grads.items()
+            for i, g in enumerate(gs)})
 print("OK", pid)
 """
 
@@ -152,12 +225,19 @@ for name in sys.argv[3].split(","):
         E * split, Dm, Fv)
     wd = z["wd"].reshape(E * split, Fv, Dm)
     rules = make_rules(mesh, {"experts": E * split})
+    args = [jnp.asarray(a) for a in (z["x"], z["wr"], wg, wu, wd)]
+
+    def loss(*a):
+        y, aux = moe.moe_block(*a, moe=cfg)
+        return jnp.sum(y * y) + aux
+
     with mesh, axis_rules(mesh, rules):
-        y, aux = jax.jit(lambda *a: moe.moe_block(*a, moe=cfg))(
-            jnp.asarray(z["x"]), jnp.asarray(z["wr"]), jnp.asarray(wg),
-            jnp.asarray(wu), jnp.asarray(wd))
+        y, aux = jax.jit(lambda *a: moe.moe_block(*a, moe=cfg))(*args)
+        grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(*args)
     np.savez(f"{root}/{name}_ref{world}.npz", y=np.asarray(y),
-             aux=np.asarray(aux))
+             aux=np.asarray(aux),
+             **{"g" + n: np.asarray(g) for n, g in
+                zip(("x", "wr", "wg", "wu", "wd"), grads)})
 print("OK")
 """
 
@@ -302,3 +382,104 @@ def test_split_experts_keeps_the_function():
                                 ("wg", "wu", "wd")),
                               moe=_cfg(name), split=2, msize=1, m_idx=0)
     np.testing.assert_allclose(y.numpy(), y1, atol=Y_TOL, rtol=0)
+
+
+# -- the backward ---------------------------------------------------------------
+
+
+def _grads_one_process(name):
+    """The port's one-process gradients of sum(y²) + aux, the experts'
+    cut into the virtual experts of ``world`` processes."""
+    w = {n: torch.from_numpy(a).requires_grad_(True)
+         for n, a in _inputs(name).items()}
+    y, aux = moe.moe_block(*(w[n] for n in GRADS), moe=_cfg(name))
+    g = dict(zip(GRADS, torch.autograd.grad((y * y).sum() + aux,
+                                            [w[n] for n in GRADS])))
+    return {n: v.detach() for n, v in g.items()}
+
+
+def _virtual(g, name, world):
+    cfg = type("Cfg", (), {"moe": _cfg(name)})()
+    lay = convert.split_experts({"layers": {n: g[n][None] for n in
+                                            ("wg", "wu", "wd")}}, cfg,
+                                world)["layers"]
+    return {**g, **{n: lay[n][0].numpy() for n in ("wg", "wu", "wd")},
+            "x": g["x"].numpy(), "wr": g["wr"].numpy()}
+
+
+def _ep_grads(root, name, world):
+    """Every process's x and router gradients, and the experts' gradients
+    put together from the processes' blocks in model-axis order."""
+    zs = [np.load(root / f"{name}_{world}_{pid}.npz")
+          for pid in range(world)]
+    out = {n: np.concatenate([z["g" + n] for z in zs])
+           for n in ("wg", "wu", "wd")}
+    return out, [{n: z["g" + n] for n in ("x", "wr")} for z in zs]
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=0,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("name,world", PAIRS)
+def test_ep_gradients_match_the_one_process_block(runs, name, world):
+    want = _virtual(_grads_one_process(name), name, world)
+    experts, dense = _ep_grads(runs, name, world)
+    for n, g in experts.items():
+        _close(g, want[n], n)
+    for pid, d in enumerate(dense):        # every process holds the sum
+        for n, g in d.items():
+            _close(g, want[n], f"{n} of process {pid}")
+
+
+@pytest.mark.parametrize("name,world", PAIRS)
+def test_ep_gradients_match_the_reference_shard_map_block(runs, name, world):
+    z = np.load(runs / f"{name}_ref{world}.npz")
+    experts, dense = _ep_grads(runs, name, world)
+    for n, g in experts.items():
+        _close(g, z["g" + n], n)
+    for pid, d in enumerate(dense):
+        for n, g in d.items():
+            _close(g, z["g" + n], f"{n} of process {pid}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_autograd_collectives(runs, world):
+    """Process p holds p + 1 and weights the result by p + 1: the sum's
+    backward passes p + 1 through, the mean's divides it by the group's
+    size, the entry's sums every process's p + 1."""
+    total = world * (world + 1) / 2
+    for pid in range(world):
+        z = np.load(runs / f"ops_{world}_{pid}.npz")
+        np.testing.assert_array_equal(z["sum_value"], total)
+        np.testing.assert_array_equal(z["sum_grad"], pid + 1)
+        np.testing.assert_allclose(z["mean_value"], total / world,
+                                   rtol=1e-7)
+        np.testing.assert_allclose(z["mean_grad"], (pid + 1) / world,
+                                   rtol=1e-7)
+        np.testing.assert_array_equal(z["enter_value"], pid + 1)
+        np.testing.assert_array_equal(z["enter_grad"], total)
+
+
+@pytest.mark.parametrize("name,world", PAIRS)
+def test_the_analyzer_counts_the_backward_all_reduces(runs, name, world):
+    """Forward: y's sum and aux's mean; the backward adds the sums of x's
+    and the router's gradients (the sum's and the mean's backward move
+    nothing)."""
+    for pid in range(world):
+        z = np.load(runs / f"{name}_{world}_{pid}.npz")
+        assert int(z["n_fwd"]) == 2
+        assert int(z["n_fwd_bwd"]) == 4
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_remat_recompute_runs_under_the_forwards_rules(runs, world):
+    """A remat'd expert-parallel layer whose backward runs on another
+    thread (a card's backward runs on autograd's device thread): its
+    recompute takes the forward's mesh and rules, so the gradients are
+    those of a backward on the forward's own thread."""
+    for pid in range(world):
+        z = np.load(runs / f"thread_{world}_{pid}.npz")
+        for i in range(2):
+            np.testing.assert_array_equal(z[f"thread_{i}"], z[f"here_{i}"])
