@@ -38,10 +38,11 @@ Phases, each printing its seconds on a line of its own:
    the train phase's shape (B=8, S=1024, H=9, Hkv=3, dh=64, causal) in
    f32 and bf16, at dh = 128 in both and at grok-1's expert-parallel
    train step (B=4, S=512, H=48, Hkv=8, dh=128, bf16), against
-   ``flash_bwd_ref`` on the forward kernel's residuals, the f32 case and
-   grok-1's timed beside SDPA's backward on the same inputs, with the
-   GFLOP the kernel executes (seven products over the tiles it visits)
-   beside the bound's five.
+   ``flash_bwd_ref`` on the forward kernel's residuals, the f32 case, the
+   bf16 train shape and grok-1's timed beside SDPA's backward on the same
+   inputs, with the GFLOP the kernel executes over the tiles it visits
+   (seven f32 products on the CUDA cores; in bf16 ten products' worth on
+   the tensor cores, dV, dK and dQ split in two) beside the bound's five.
 3. krylov  — the sketch fleet at full width:
    ``SketchFleetEngine("dsfd", d=300, streams=1024, eps=1/32,
    window=1024, block=8, mode="krylov", use_kernel=True)``, fed by
@@ -241,9 +242,10 @@ Phases, each printing its seconds on a line of its own:
    then to one when the mesh phase came: a step was ~1 minute of
    ``fd_compress``) and one with Sketchy (cut from three
    to two, then to one: a step was ~1.5 minutes), both at full width
-   and 10 of the 30 layers (``SKETCH_TRAIN_LAYERS``, cut when the
-   train_mesh phase came: ``fd_compress`` grows with every layer's
-   gradient rows).  Every run must end with
+   and 4 of the 30 layers (``SKETCH_TRAIN_LAYERS``, cut to 10 when the
+   train_mesh phase came, then to 4 to keep the script near 1000 s on a
+   host whose krylov phase takes ~175 s: ``fd_compress`` grows with every
+   layer's gradient rows).  Every run must end with
    finite losses and parameters and, where it has two steps or more, its
    last loss (computed after the first update) apart from its first; the
    compression's first step must project every compressed leaf onto the
@@ -912,23 +914,33 @@ FLASH_BWD_SHAPES = [
     ("grok-1 train bf16", 4, 512, 48, 8, 128, "bfloat16", True),
 ]
 # timed shapes and their keys in the kernels line's flash_bwd entry
-FLASH_BWD_TIMED = {"train f32": None, "grok-1 train bf16": "grok"}
+FLASH_BWD_TIMED = {"train f32": None, "train bf16": "train_bf16",
+                   "grok-1 train bf16": "grok"}
 # f32: the same identities in f32, another summation order (measured
 # ~1e-5 at gradients of ~10); bf16: each gradient rounded once to bf16
 # from f32 sums in another order, one bf16 step (2⁻⁸ relative) at most
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-def flash_bwd_executed_gflop(B, S, H, Hkv, dh, causal):
-    """GFLOP the backward kernel executes: seven products of 2·dh
-    operations per (query, key) pair of the tiles it visits (S and dP in
-    both roles; dQ, dK and dV once).  dQ visits, per query tile, the
-    64-key tiles up to the diagonal; dK/dV, per key tile, the 64-row query
-    tiles from the diagonal down (tiles of ``kernel.bwd_plan``)."""
+def flash_bwd_executed_gflop(B, S, H, Hkv, dh, causal, dtype="float32"):
+    """GFLOP the backward kernel executes, in products of 2·dh operations
+    per (query, key) pair of the tiles it visits.  f32 (the CUDA cores):
+    seven (S and dP in both roles; dQ, dK and dV once); dQ visits, per
+    query tile, the 64-key tiles up to the diagonal, dK/dV, per key tile,
+    the 64-row query tiles from the diagonal down (tiles of
+    ``kernel.bwd_plan``).  bf16 (the tensor cores): each 64-row consumer
+    of dK/dV takes six per pair (Sᵀ, dPᵀ, dV and dK twice: the hi + lo
+    split) over the 64-row query tiles from its diagonal down, each of dQ
+    four (S, dP, dQ twice) over the 64-key tiles up to its diagonal."""
     from repro_torch.kernels.flash_attn import kernel
 
-    rows = kernel.bwd_plan(dh, S, B * H, B * Hkv)[1]
     n = S // kernel.STREAM
+    if dtype == "bfloat16":
+        tiles = sum(6 * (n - c if causal else n) + 4 * (c + 1 if causal
+                                                        else n)
+                    for c in range(n))
+        return 2 * dh * B * H * kernel.STREAM ** 2 * tiles / 1e9
+    rows = kernel.bwd_plan(dh, S, B * H, B * Hkv)[1]
     dq_pairs = dkv_pairs = 0
     for t in range(-(-S // rows)):
         lo, hi = t * rows, min(S, (t + 1) * rows)
@@ -1013,7 +1025,9 @@ def check_flash_bwd(rng) -> dict:
             oe, (qe, ke, ve), do4, retain_graph=True), reps=10)
         pairs = (S * (S + 1) // 2 if causal else S * S) * B * H
         gflop = 10 * dh * pairs / 1e9
-        done = flash_bwd_executed_gflop(B, S, H, Hkv, dh, causal)
+        done = flash_bwd_executed_gflop(B, S, H, Hkv, dh, causal, dtype)
+        how = ("10 products' worth on the tensor cores"
+               if dtype == "bfloat16" else "7 products on the CUDA cores")
         log(f"kernels time flash_bwd {label}: kernel_ms {t['kernel']:.4f} "
             f"plain_ms {t['plain']:.4f} library_ms (sdpa backward) "
             f"{t['library']:.4f} bound_ms {bound:.4f} ({by}); device time "
@@ -1021,7 +1035,7 @@ def check_flash_bwd(rng) -> dict:
             f"{fmt_ms(dev_lib)} ms{_ratio(dev_k, dev_lib)}; sdpa's "
             f"memory-efficient backward on k, v expanded to {H} heads "
             f"{fmt_ms(dev_exp)} ms{_ratio(dev_k, dev_exp)}; executed "
-            f"{done:.2f} GFLOP (7 products over the tiles visited) for the "
+            f"{done:.2f} GFLOP ({how} over the tiles visited) for the "
             f"bound's {gflop:.2f} (5)")
         timed[FLASH_BWD_TIMED[label]] = dict(
             ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound, bound_by=by,
@@ -4177,10 +4191,10 @@ TRAIN_DROP = 0.1       # mean of the last 5 losses below the first 5 by this
 # keep the script within its limit (its momenta and windows show that the
 # step updated)
 SKETCHY_STEPS = 1
-# the compression's and Sketchy's runs at full width but 10 of the 30
+# the compression's and Sketchy's runs at full width but 4 of the 30
 # layers: their time is fd_compress's, which grows with the gradient rows
-# of every layer, and the train_mesh phase needs the room
-SKETCH_TRAIN_LAYERS = 10
+# of every layer, and the script's limit needs the room
+SKETCH_TRAIN_LAYERS = 4
 
 
 def _train_runs(steps: int, extra: int):

@@ -99,6 +99,7 @@
 #include <stdio.h>
 
 #include "flash_f32.cuh"
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -266,7 +267,6 @@ constexpr int kTcBQ = kTcRows * kConsumers; // query rows per CTA
 constexpr int kTcBKV = 128;                 // keys per KV tile
 constexpr int kStages = 3;                  // K/V ring depth
 constexpr int kTcThreads = 128 * (kConsumers + 1);
-constexpr int kPanel = 64;                  // bf16 columns per 128-byte row
 constexpr uint32_t kQBox = kTcRows * 128;   // bytes of a 64-row Q panel
 constexpr uint32_t kKVBox = kTcBKV * 128;   // bytes of a 128-row K/V panel
 
@@ -284,170 +284,6 @@ struct TcSmem {
   static constexpr uint32_t bytes = bar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-// A wait past 2^34 SM clocks (~9 s) traps: a load that never lands is a
-// launch error, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// One box of a 3-d tensor map (dh, S, heads) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// One box of shared memory into a 3-d tensor map (dh, S, heads).
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading byte offset (used only by an MN-major operand wider
-// than one 64-column panel), stride byte offset 1024 (8 rows of 128 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Pin registers in place across the asynchronous wgmma: the compiler may
-// neither move their writes past the fence nor reuse them before the wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define ACC8(c, d, i)                                                  \
-  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), \
-      c(d[i + 6]), c(d[i + 7])
-#define ACC32(c, d) ACC8(c, d, 0), ACC8(c, d, 8), ACC8(c, d, 16), ACC8(c, d, 24)
-#define ACC64(c, d) ACC32(c, d), ACC8(c, d, 32), ACC8(c, d, 40), \
-      ACC8(c, d, 48), ACC8(c, d, 56)
-#define OPS64                                   \
-  "%0, %1, %2, %3, %4, %5, %6, %7, "            \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "      \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "    \
-  "%24, %25, %26, %27, %28, %29, %30, %31, "    \
-  "%32, %33, %34, %35, %36, %37, %38, %39, "    \
-  "%40, %41, %42, %43, %44, %45, %46, %47, "    \
-  "%48, %49, %50, %51, %52, %53, %54, %55, "    \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
-#define OPS32                                   \
-  "%0, %1, %2, %3, %4, %5, %6, %7, "            \
-  "%8, %9, %10, %11, %12, %13, %14, %15, "      \
-  "%16, %17, %18, %19, %20, %21, %22, %23, "    \
-  "%24, %25, %26, %27, %28, %29, %30, %31"
-
-// d (64 × 128 f32) = a (64 × 16) · bᵀ (16 × 128), both K-major in shared
-// memory; `first` drops d's old value.
-__device__ __forceinline__ void wgmma_qk_first(float (&d)[64], uint64_t a,
-                                               uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" OPS64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC64("=f", d)
-      : "l"(a), "l"(b), "n"(0));
-}
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" OPS64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC64("+f", d)
-      : "l"(a), "l"(b), "n"(1));
-}
-
-// d (64 × N f32) += a (64 × 16 bf16, registers) · b (16 × N, MN-major in
-// shared memory, 64 columns a panel, panels `lbo` bytes apart), N = 64 or
-// 128.
-__device__ __forceinline__ void wgmma_pv(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" OPS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32("+f", d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[64],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" OPS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC64("+f", d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-
-// 2^x on the MUFU unit (relative error ~2^-22).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // acc += hi·V + lo·V for the V tile at shared address sv: 16 keys and all
 // dh columns per wgmma, one commit group.
 template <int N>
@@ -462,10 +298,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N],
     wgmma_pv(acc, lo[j], db);
   }
   wgmma_commit();
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
 }
 
 // s (64 × 128 f32) = Q·Kᵀ for the Q panels at sq and the K panels at sk,
@@ -541,23 +373,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     l[r] = l[r] * corr[r] + sum;
   }
-}
-
-// p = hi + lo in bf16.  Register pair (8j + 2u, 8j + 2u + 1) of s is
-// register u of the A fragment of keys 16j .. 16j + 15.
-__device__ __forceinline__ void split_p(const float (&s)[64],
-                                        uint32_t (&hi)[8][4],
-                                        uint32_t (&lo)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float x0 = s[8 * j + 2 * u], x1 = s[8 * j + 2 * u + 1];
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
-      const float2 hf = __bfloat1622float2(h2);
-      hi[j][u] = bf16x2_bits(h2);
-      lo[j][u] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-    }
 }
 
 template <int DH>
@@ -723,49 +538,6 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// Error codes past cudaError_t's range for the tensor-map encode.
-constexpr int kNoEncoder = 0x10000;     // driver entry point not found
-constexpr int kEncodeFailed = 0x20000;  // + the CUresult
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map of a (heads, S, dh) bf16 tensor as 3-d (dh, S, heads), boxes
-// of 64 columns × `rows` rows, 128-byte swizzle; 0 or an error code.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads,
-           int S, int dh, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)S,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2,
-                                 (cuuint64_t)S * dh * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
-}
-
 template <int DH>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int BH, int BHkv, int S, int G, float scale,
@@ -834,17 +606,7 @@ int flash_attn_max_smem(int device) {
   return v;
 }
 
-const char* flash_attn_error_string(int err) {
-  static char buf[96];
-  if (err == kNoEncoder)
-    return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
-  if (err >= kEncodeFailed) {
-    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
-             err - kEncodeFailed);
-    return buf;
-  }
-  return cudaGetErrorString((cudaError_t)err);
-}
+const char* flash_attn_error_string(int err) { return tc_error_string(err); }
 
 // o (BH, S, dh) and lse (BH, S) of q (BH, S, dh), k and v (BHkv, S, dh);
 // bf16 != 0 for bfloat16 q, k, v and o (tensor cores), else float32.

@@ -42,10 +42,9 @@
 // Staging.  Streamed f32 tiles go through a 2-stage ring filled by 16-byte
 // cp.async.cg (one commit group a tile; the forward's V has one stage,
 // copied while its tile's scores are computed): tile j + 1 is copied while
-// tile j is computed, and a tile costs one barrier.  bf16 tiles (the
-// backward only) are widened through registers into the same ring, so
-// their copy is not overlapped.  Kept tiles are loaded once, through
-// registers, transposed, scaled and zero past the last valid row.
+// tile j is computed, and a tile costs one barrier.  Kept tiles are loaded
+// once, through registers, transposed, scaled and zero past the last valid
+// row.
 
 #pragma once
 
@@ -88,13 +87,10 @@ int occupancy(Kernel kern, int threads, size_t smem, unsigned* done) {
              : -1;
 }
 
+// A value of either input type as f32 (the backward's D pass).
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -147,16 +143,9 @@ __device__ __forceinline__ float comp(const float4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
 
-// 4 consecutive values of device memory, widened to f32.
+// 4 consecutive values of device memory.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(raw.x << 16),
-                     __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16),
-                     __uint_as_float(raw.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src) {
@@ -184,8 +173,7 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // A streamed tile: ROWS rows of DH contiguous values at `src` into the
-// row-major tile `dst` (sw).  f32 by cp.async (the caller commits the group);
-// bf16 widened through registers.
+// row-major tile `dst` (sw), by cp.async (the caller commits the group).
 // Thread t copies chunk t % (DH / 4) of rows t / (DH / 4) + j·NT / (DH / 4),
 // so every address of the unrolled copy is a constant offset from the
 // first.
@@ -216,18 +204,6 @@ __device__ __forceinline__ void stage_rows_upto(float* dst, const float* src,
                        keep);
   }
 }
-template <int DH, int NT, int ROWS = kStream>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const __nv_bfloat16* src) {
-  constexpr int CH = DH / 4, STEP = NT / CH;
-  static_assert(NT % CH == 0, "a row's chunks within one pass");
-  const int r0 = threadIdx.x / CH, c = (threadIdx.x % CH) * 4;
-#pragma unroll
-  for (int j = 0; j < ROWS / STEP; ++j) {
-    const int r = r0 + j * STEP;
-    st4(dst + sw<DH, DH>(r, c), load4(src + r * DH + c));
-  }
-}
 
 // kStream f32 values (a tile's lse or D) by cp.async, threads 16·slot to
 // 16·slot + 15.
@@ -242,9 +218,9 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
 // transposed (DH × R); rows at and past `valid` are zero.  Consecutive
 // threads take consecutive rows, so the stores are free of bank
 // conflicts.
-template <int R, int DH, int NT, typename T>
-__device__ __forceinline__ void stage_t(float* dst, const T* src, int valid,
-                                        float mul) {
+template <int R, int DH, int NT>
+__device__ __forceinline__ void stage_t(float* dst, const float* src,
+                                        int valid, float mul) {
   for (int i = threadIdx.x; i < R * (DH / 4); i += NT) {
     const int r = i % R, c = (i / R) * 4;
     float4 f = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -1,6 +1,8 @@
 """ctypes bindings of ``csrc/flash_attn.cu`` (the forward: bf16 on the
 tensor cores, f32 on the CUDA cores; one CTA per (bh, q-tile)) and
-``csrc/flash_attn_bwd.cu`` (the backward, f32 on the CUDA cores).
+``csrc/flash_attn_bwd.cu`` (the backward: bf16 on the tensor cores, f32 on
+the CUDA cores; both share ``csrc/hopper_tc.cuh``'s wgmma and TMA
+helpers).
 
 ``flash_fwd`` and ``flash_bwd`` check what their kernels take (contiguous
 bf16 or f32 CUDA tensors of one type and device, dh ∈ {64, 128}, S a
@@ -13,6 +15,8 @@ one to ``flash_fwd.launches`` or ``flash_bwd.launches``.
 the f32 kernels (``flash_attn_f32_plan``, ``flash_attn_bwd_plan``) in
 Python, for the CPU and the tests; :func:`plan` asks the library on the
 card, with the resident CTAs a SM that only the card knows.
+:func:`tc_bwd_smem` mirrors the bf16 backward's shared memory
+(``flash_attn_bwd_tc_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -90,6 +94,17 @@ def bwd_plan(dh: int, S: int, BH: int, BHkv: int) -> tuple:
     dkv = 4 * (2 * dh * rows + ring + 2 * STREAM * _row(rows, dh)
                + 4 * STREAM)
     return threads, rows, max(dq, dkv), BHkv * tiles, BH * tiles
+
+
+def tc_bwd_smem(dh: int) -> int:
+    """``flash_attn_bwd_tc_smem_bytes`` of ``csrc/flash_attn_bwd.cu``: the
+    bf16 backward's dynamic shared memory at head dimension ``dh``, in
+    bytes: two consumers' kept tiles A and B and three stages of streamed
+    tiles X and Y, each 64 rows of dh bf16 values (8 KB a 64-column
+    panel), three stages of lse and D (64 f32 each), seven mbarriers and
+    1 KB to align the base to the 128-byte swizzle's 1024 bytes."""
+    tile = (dh // 64) * 64 * 128
+    return 2 * 2 * tile + 3 * 2 * tile + 3 * 2 * 64 * 4 + 8 * 7 + 1024
 
 
 def waves(ctas: int, resident: int, sms: int = dispatch.H100_SMS) -> float:
@@ -191,6 +206,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attn_bwd_tile.restype = _I
         lib.flash_attn_bwd_smem_bytes.argtypes = [_I]
         lib.flash_attn_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_attn_bwd_tc_smem_bytes.argtypes = [_I]
+        lib.flash_attn_bwd_tc_smem_bytes.restype = ctypes.c_size_t
         lib.flash_attn_bwd_max_smem.argtypes = [_I]
         lib.flash_attn_bwd_max_smem.restype = _I
         lib.flash_attn_bwd_error_string.argtypes = [_I]
@@ -209,7 +226,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               causal: bool = True):
     """(dq, dk, dv) of the flash forward's residuals (q, k, v, o, lse) and
-    dO on the card, in q's type; ``lse`` (BH, S) f32 is the forward's."""
+    dO on the card, in q's type; ``lse`` (BH, S) f32 is the forward's.
+    The bf16 kernel reads ``lse`` by 16-byte bulk copies, so an ``lse``
+    that does not start on 16 bytes is copied first."""
     _check_tensors(q, k, v, "flash_bwd")
     for name, t in (("o", o), ("do", do)):
         dispatch.check_cuda_tensor(t, f"flash_bwd: {name}", (q.dtype,), 3,
@@ -224,6 +243,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"(BH, S) = {tuple(q.shape[:2])}")
     lib = _bwd_lib()
     _check_fit(lib, q, "flash_bwd", "flash_attn_bwd")
+    if lse.data_ptr() % 16:
+        lse = lse.clone()
     BH, S, dh = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     D = torch.empty((BH, S), dtype=torch.float32, device=q.device)

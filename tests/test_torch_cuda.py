@@ -1012,17 +1012,24 @@ def test_vlm_prefill_on_the_card_goes_through_flash(cuda):
     assert rel <= 2e-2, rel
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("G", [1, 3, 4])
-@pytest.mark.parametrize("dh", [64, 128])
-@pytest.mark.parametrize("S", [64, 256, 1024])
+# (S, dh, G, causal, dtype) of the backward test: every S × dh × G × mask
+# in both types, and grok-1's group sizes (G = 6; 8) at dh = 128 in bf16
+FLASH_BWD_CASES = [
+    (S, dh, G, causal, dtype)
+    for S in (64, 256, 1024) for dh in (64, 128) for G in (1, 3, 4)
+    for causal in (True, False) for dtype in (torch.float32, torch.bfloat16)
+] + [(S, 128, G, causal, torch.bfloat16)
+     for S in (64, 256, 1024) for G in (6, 8) for causal in (True, False)]
+
+
+@pytest.mark.parametrize("S,dh,G,causal,dtype", FLASH_BWD_CASES)
 def test_flash_backward_kernel_matches_plain_version(cuda, S, dh, G, causal,
                                                      dtype):
     """The backward kernel against ``flash_bwd_ref`` on the same residuals
-    (the forward kernel's o and lse) and dO, one launch a call.  f32: 1e-4
-    (the same f32 identities, another summation order); bf16: 2e-2 (each
-    gradient rounded to bf16 once from f32 sums in another order)."""
+    (the forward kernel's o and lse) and dO, one launch a call; two calls
+    bitwise equal.  f32: 1e-4 (the same f32 identities, another summation
+    order); bf16: 2e-2 (each gradient rounded to bf16 once from f32 sums
+    in another order; ``-s`` prints the bf16 kernel's largest distance)."""
     g = torch.Generator(device=cuda).manual_seed(S + dh + G)
     q, k, v, do = (torch.randn((h, S, dh), generator=g, device=cuda)
                    .to(dtype) for h in (2 * G, 2, 2, 2 * G))
@@ -1032,9 +1039,16 @@ def test_flash_backward_kernel_matches_plain_version(cuda, S, dh, G, causal,
     assert flash_kernel.flash_bwd.launches == n0 + 1
     want = flash_ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    if dtype == torch.bfloat16:
+        print(f"flash_bwd bf16 S={S} dh={dh} G={G} causal={causal}: max "
+              "|kernel − plain| " + "/".join(
+                  f"{float((a.float() - b.float()).abs().max()):.3e}"
+                  for a, b in zip(got, want)))
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    again = flash_ops.flash_backward(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_flash_backward_kernel_refuses_what_it_cannot_take(cuda):
@@ -1051,14 +1065,19 @@ def test_flash_backward_kernel_refuses_what_it_cannot_take(cuda):
 
 
 def test_flash_backward_fits_a_block(cuda):
-    """The backward's shared memory (its C formula, the larger of its two
-    tiled passes) fits what a block may opt in to at both head dims:
-    203,776 B at dh = 64 and 230,400 B at dh = 128 (the dK/dV pass), as
-    ``csrc/flash_attn_bwd.cu`` states."""
+    """The backward's shared memory fits what a block may opt in to at both
+    head dims, as ``csrc/flash_attn_bwd.cu`` states: the f32 kernel's (its
+    C formula, the larger of its two tiled passes) 203,776 B at dh = 64
+    and 230,400 B at dh = 128 (the dK/dV pass), the bf16 kernel's 84,536
+    and 166,456 B (its Python mirror ``tc_bwd_smem``); the fit check takes
+    the larger, the f32 kernel's."""
     lib = flash_kernel._bwd_lib()
     have = lib.flash_attn_bwd_max_smem(cuda.index or 0)
     need = {dh: lib.flash_attn_bwd_smem_bytes(dh) for dh in (64, 128)}
     assert need == {64: 203_776, 128: 230_400} and need[128] <= have
+    tc = {dh: lib.flash_attn_bwd_tc_smem_bytes(dh) for dh in (64, 128)}
+    assert tc == {dh: flash_kernel.tc_bwd_smem(dh) for dh in (64, 128)}
+    assert tc == {64: 84_536, 128: 166_456} and tc[128] <= have
 
 
 # a few f32 rounding steps at the ×8 backward's gradients (~44: 2⁻²⁴·44

@@ -26,6 +26,14 @@ tiles, p split into bf16 hi + lo, each times v accumulated in f32) and is
 held to the reference's Pallas kernel, run in f32 on the same
 bf16-valued inputs, at the f32 tolerance: the split keeps the reference's
 f32 p, where a single bf16 rounding of p would not.
+
+The bf16 backward computes on the tensor cores too:
+``_tensor_core_bwd_model`` repeats its arithmetic (bf16 products exact in
+f32 and scaled after, P and dS in f32, P and dS split into bf16 hi + lo
+for dV, dK and dQ) and is held to the reference's own ``_fwd`` and
+``_bwd`` on the same bf16-valued residuals at the reference's f32 VJP
+tolerance (atol 5e-5, rtol 5e-4); with P and dS rounded to bf16 once it
+misses that tolerance.
 """
 
 import math
@@ -38,6 +46,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attn.kernel import flash_fwd_pallas
+from repro.kernels.flash_attn import ops as ref_ops
 from repro.kernels.flash_attn.ops import \
     flash_attention as ref_flash_attention
 from repro.kernels.flash_attn.ops import \
@@ -289,3 +298,88 @@ def test_tensor_core_arithmetic_matches_pallas(BH, BHkv, S, dh, causal,
     # the tolerance tells the split from one bf16 rounding of p
     o1, _ = _tensor_core_model(q, k, v, causal, split=False)
     assert np.abs(o1.numpy() - _f32(o_r)).max() > 2e-5
+
+
+def _halves(x):
+    """x as bf16 hi + lo (both rounded to nearest even), in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tensor_core_bwd_model(q, k, v, o, lse, do, causal, split=True):
+    """(dq, dk, dv) before their cast to bf16 of the bf16 backward kernel's
+    arithmetic on f32 tensors that hold bf16 values: the products q·kᵀ and
+    dO·vᵀ exact (f32 sums), scaled after; P = exp(s·scale − lse) with the
+    difference rounded once, 0 above the diagonal; dS = P∘(dP − D) in f32;
+    dV = Pᵀ·dO, dK = dSᵀ·q·scale and dQ = dS·k·scale with P and dS as bf16
+    hi + lo, each half's product summed in f32, the GQA group summed onto
+    its KV head.  ``split=False`` rounds P and dS to bf16 once instead.
+    The kernel's tile order changes only the order of f32 sums."""
+    BH, S, dh = q.shape
+    BHkv = k.shape[0]
+    G = BH // BHkv
+    scale = 1.0 / math.sqrt(dh)
+    kr, vr = (t.repeat_interleave(G, 0) for t in (k, v))
+    D = (do * o).sum(-1)
+    x = ((q @ kr.mT).double() * scale - lse.double()[..., None]).float()
+    p = torch.exp(x)
+    if causal:
+        p = torch.where(torch.ones((S, S), dtype=torch.bool).tril(), p,
+                        torch.zeros(()))
+    ds = p * (do @ vr.mT - D[..., None])
+
+    def mm(a, b):
+        if split:
+            hi, lo = _halves(a)
+            return hi @ b + lo @ b
+        return a.to(torch.bfloat16).float() @ b
+
+    dq = mm(ds, kr) * scale
+    dk = mm(ds.mT, q).reshape(BHkv, G, S, dh).sum(1) * scale
+    dv = mm(p.mT, do).reshape(BHkv, G, S, dh).sum(1)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("BH,BHkv,S,dh,causal,dtype", CASES)
+def test_tensor_core_backward_arithmetic_matches_reference_bwd(
+        BH, BHkv, S, dh, causal, dtype):
+    """Every case in bf16 values, whatever its dtype: q, k, v and dO, and o
+    rounded to bf16 as the forward kernel returns it; the reference's
+    ``_fwd`` gives o and lse, and its ``_bwd`` the gradients in f32 on the
+    same residuals.  The model is within the reference's f32 VJP tolerance
+    (atol 5e-5, rtol 5e-4; measured ≤ 1.6e-5 at gradients up to ~10), and
+    with P and dS rounded to bf16 once it is not."""
+    (q, k, v), _ = _inputs(BH, BHkv, S, dh, "bfloat16", seed=5)
+    q, k, v = (t.float() for t in (q, k, v))
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16).float()
+    qj, kj, vj, doj = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+    o, (*_, lse) = ref_ops._fwd(qj, kj, vj, causal, 128, 128)
+    o = torch.from_numpy(np.array(o)).to(torch.bfloat16).float()
+    lse = torch.from_numpy(np.array(lse))
+    want = ref_ops._bwd(causal, 128, 128,
+                        (qj, kj, vj, jnp.asarray(o.numpy()),
+                         jnp.asarray(lse.numpy())), doj)
+    atol, rtol = GRAD_TOL["float32"]
+    got = _tensor_core_bwd_model(q, k, v, o, lse, do, causal)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), _f32(b), atol=atol, rtol=rtol,
+                                   err_msg=f"d{name}")
+    # the tolerance tells the split from one bf16 rounding of P and dS
+    once = _tensor_core_bwd_model(q, k, v, o, lse, do, causal, split=False)
+    for a, b in zip(once, want):
+        b = _f32(b)
+        assert (np.abs(a.numpy() - b) > atol + rtol * np.abs(b)).any()
+
+
+@pytest.mark.parametrize("dh,want", [(64, 84_536), (128, 166_456)])
+def test_tensor_core_backward_fits_a_block(dh, want):
+    """The Python mirror of the bf16 backward's shared memory
+    (``flash_attn_bwd_tc_smem_bytes``; the card test holds it to the C
+    library): 84,536 B at dh = 64 and 166,456 B at dh = 128, as
+    ``csrc/flash_attn_bwd.cu`` states, within an H100 block's opt-in and
+    under the f32 backward's, so the wrapper's fit check is unchanged."""
+    from repro_torch.kernels import dispatch
+    assert kernel.tc_bwd_smem(dh) == want
+    assert want <= dispatch.H100_SMEM_PER_BLOCK
+    assert want < kernel.bwd_plan(dh, 1024, 72, 24)[2]

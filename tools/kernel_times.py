@@ -20,15 +20,18 @@ made from seed 0:
   in ``chip_smoke.py``'s krylov phase) and 1024 (the fleet);
 - ``fused_krylov_step``: the same D with λ̂, û from the plain gram_power,
   at S = 11, 20 and 36 (its launches' median, p90 and most) and 1024;
-- ``flash_fwd``: standard normal q, k, v in f32, causal, at smollm-135m's
+- ``flash_fwd``: standard normal q, k, v, causal, in f32 at smollm-135m's
   training shape (B, S, H, Hkv, dh) = (8, 1024, 9, 3, 64) and llama3-8b's
-  f32 prefill (1, 512, 32, 8, 128);
-- ``flash_bwd``: the f32 backward at the training shape, on the forward
-  kernel's o and lse and a standard normal dO.
+  f32 prefill (1, 512, 32, 8, 128), in bf16 at grok-1's bucket 512
+  (1, 512, 48, 8, 128);
+- ``flash_bwd``: the backward on the forward kernel's o and lse and a
+  standard normal dO, in f32 at the training shape, in bf16 at grok-1's
+  train step (4, 512, 48, 8, 128) and at the training shape.
 
 At each size the script holds the kernel's outputs to the tree's plain
-version (λ̂ within 1e-4 + 1e-4·|λ̂|, lse within 1e-3, every other output
-within 1e-4), then times it by CUDA events (median of 5 rounds of 10
+version (λ̂ within 1e-4 + 1e-4·|λ̂|, lse within 1e-3, every other f32
+output within 1e-4, a bf16 one within 2e-2 + 2e-2·|plain|: one bf16
+rounding), then times it by CUDA events (median of 5 rounds of 10
 calls) and by device time (``chip_smoke.device_ms``: the kernels' own time
 under ``torch.profiler``, null where the profiler's sessions disagree).
 It prints one JSON line: the card's name and power limit (as
@@ -55,14 +58,18 @@ ITERS = 24
 SIZES = {"power_iter": (256, 300, (25, 256)),
          "gram_power": (64, 300, (354, 450, 2036, 1024)),
          "fused_krylov_step": (64, 300, (11, 20, 36, 1024))}
-# (label, B, S, H, Hkv, dh) of the flash kernels, causal f32
-TRAIN = ("train", 8, 1024, 9, 3, 64)
-PREFILL = ("llama3-8b f32 prefill", 1, 512, 32, 8, 128)
-FLASH_SIZES = {"flash_fwd": (TRAIN, PREFILL), "flash_bwd": (TRAIN,)}
+# (label, B, S, H, Hkv, dh, dtype) of the flash kernels, causal
+TRAIN = ("train", 8, 1024, 9, 3, 64, "float32")
+PREFILL = ("llama3-8b f32 prefill", 1, 512, 32, 8, 128, "float32")
+GROK_PREFILL = ("grok-1 bf16 bucket 512", 1, 512, 48, 8, 128, "bfloat16")
+GROK_TRAIN = ("grok-1 bf16 train", 4, 512, 48, 8, 128, "bfloat16")
+TRAIN_BF16 = ("train bf16", 8, 1024, 9, 3, 64, "bfloat16")
+FLASH_SIZES = {"flash_fwd": (TRAIN, PREFILL, GROK_PREFILL),
+               "flash_bwd": (TRAIN, GROK_TRAIN, TRAIN_BF16)}
 LIBRARY = {"power_iter": "power_iter", "gram_power": "fused_tick",
            "fused_krylov_step": "fused_tick", "flash_fwd": "flash_attn",
            "flash_bwd": "flash_attn_bwd"}
-TOL, LSE_TOL = 1e-4, 1e-3
+TOL, LSE_TOL, BF16_TOL = 1e-4, 1e-3, 2e-2
 TENSOR_CORE = re.compile(r"\b(HMMA|HGMMA|IMMA|IGMMA|QGMMA|DMMA)\b")
 
 
@@ -88,11 +95,15 @@ def build_report(lib: Path) -> dict:
 
 
 def _held(what: str, got, want, tols) -> None:
-    for i, (g, w, tol) in enumerate(zip(got, want, tols)):
+    """Raise unless every output lies within its (atol, rtol) of ``tols``:
+    |kernel − plain| ≤ atol + rtol·|plain|."""
+    for i, (g, w, (tol, rtol)) in enumerate(zip(got, want, tols)):
+        g, w = g.float(), w.float()
         err = float((g - w).abs().max())
-        if not err <= tol:
+        if not bool(((g - w).abs() <= tol + rtol * w.abs()).all()):
             raise AssertionError(f"{what}: output {i} max |kernel − plain| "
-                                 f"{err:.3e} > {tol:.1e}")
+                                 f"{err:.3e} beyond {tol:.1e} + "
+                                 f"{rtol:.1e}·|plain|")
 
 
 def sketch_calls(kernel: str):
@@ -120,8 +131,8 @@ def sketch_calls(kernel: str):
             call = lambda: fk.fused_krylov_step_cuda(            # noqa: E731
                 D, lam, u, ITERS)
             want = fr.fused_krylov_step_ref(D, lam, u, ITERS)
-        tols = [TOL + (TOL * float(w.abs().max()) if w.dim() == 1 else 0.)
-                for w in want]
+        tols = [(TOL + (TOL * float(w.abs().max()) if w.dim() == 1 else 0.),
+                 0.0) for w in want]
         yield str(S), call, lambda c=call, w=want, t=tols, s=S: _held(
             f"{kernel} at S = {s}", c(), w, t)
 
@@ -133,20 +144,21 @@ def flash_calls(kernel: str):
     from repro_torch.kernels.flash_attn import kernel as fa, ref
 
     rng = np.random.default_rng(0)
-    for label, B, S, H, Hkv, dh in FLASH_SIZES[kernel]:
+    for label, B, S, H, Hkv, dh, dtype in FLASH_SIZES[kernel]:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            (B * h, S, dh)).astype(np.float32)).cuda()
-            for h in (H, Hkv, Hkv, H))
+            (B * h, S, dh)).astype(np.float32)).cuda().to(
+                getattr(torch, dtype)) for h in (H, Hkv, Hkv, H))
+        tol = (BF16_TOL, BF16_TOL) if dtype == "bfloat16" else (TOL, 0.0)
         if kernel == "flash_fwd":
             call = lambda: fa.flash_fwd(q, k, v, True)           # noqa: E731
             want = ref.flash_ref(q, k, v, causal=True)
-            tols = (TOL, LSE_TOL)
+            tols = (tol, (LSE_TOL, 0.0))
         else:
             o, lse = fa.flash_fwd(q, k, v, True)
             call = lambda: fa.flash_bwd(q, k, v, o, lse, do,     # noqa: E731
                                         True)
             want = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=True)
-            tols = (TOL,) * 3
+            tols = (tol,) * 3
         yield label, call, lambda c=call, w=want, t=tols, s=label: _held(
             f"{kernel} at {s}", c(), w, t)
 
