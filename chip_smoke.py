@@ -185,13 +185,20 @@ Phases, each printing its seconds on a line of its own:
    Part (b) of phase train_mesh runs here too: after the one-process
    serving, grok-1 at full width and 1 of 64 layers (bf16, seeded) trains
    2 steps of batch 4 × 512 through ``train()`` with Adafactor without
-   momentum, first in this process, then, once the two children have
-   served and freed their weights, expert-parallel in them under their
-   (1, 2) mesh; the children's losses must be equal, and against one
-   process the losses within 1e-3 and the gradient norms within 1e-2
-   relative, the router weights and expert slices after the first update
-   within one bf16 step (2⁻⁷ of their size).  It prints each run's
-   losses, step times and peak memory.
+   momentum and the DS-FD gradient monitor (``--sketch``'s), first in
+   this process, then, once the two children have served and freed their
+   weights, expert-parallel in them under their (1, 2) mesh; the
+   children's losses must be equal, and against one process the losses
+   within 1e-3 and the gradient norms and the monitor's three metrics
+   within 1e-2 relative, the router weights and expert slices after the
+   first update within one bf16 step (2⁻⁷ of their size).  It prints each
+   run's losses, metrics, step times, the monitor's seconds a step and
+   peak memory.  Part (c) follows in the same processes: reduced grok-1
+   (d_model 48, E = 4, f32) 3 steps of AdamW with the monitor and FD
+   compression, then 3 of Sketchy, in this process and in the two
+   children; each child's losses, balance losses, gradient norms and
+   monitor metrics within 2e-4 (metrics 1e-4) of this process's, as
+   |Δ| / (1 + |x|).
 13. zoo    — the VLM, SSM, hybrid and encoder-decoder families at full
    width and depth,
    seeded bf16 weights, each freed before the next is drawn: qwen2-vl-2b
@@ -270,9 +277,13 @@ Phases, each printing its seconds on a line of its own:
    one process's (relative), and this process resumes their step-2
    checkpoint on the one-process (1, 1) shape and takes step 3 within
    2e-4 of theirs.  Each run's flash launches are counted from 0 (2 × 30
-   forward, 30 backward a step).  (b) ran in the mesh phase.  It prints
-   each run's losses, step times, the gradient all-reduce's ms and peak
-   memory.
+   forward, 30 backward a step).  (b) and (c) ran in the mesh phase.
+   It prints each run's losses, step times, the gradient all-reduce's ms
+   and peak memory.  Last, ``fd_compress`` of 4096 Gaussian rows at
+   grok-1's widths d = 6144 and 32768, with ℓ = 4 (the compression's 8
+   summary rows) and 2 (Sketchy's 4): its ms a round, and from them the
+   seconds one full-width grok-1 step would spend in it, at 1 and 64
+   layers.
 16. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
@@ -2953,19 +2964,24 @@ EP_WEIGHT_RTOL = 2.0 ** -7
 
 def ep_train(seed: int, dev, mesh=None) -> dict:
     """The train_mesh phase's expert-parallel run (see ``EP_TRAIN_*``)
-    through ``train()``, on one process (``mesh=None``) or under the
+    through ``train()`` with the DS-FD gradient monitor (``TRAIN_SKETCH``,
+    as ``--sketch``), on one process (``mesh=None``) or under the
     children's (1, 2) process mesh: each step's metrics and host-clock
-    time, the router weights and the ``wg`` and ``wd`` slices of this
-    process's experts (by their global index) after each update, the peak
-    memory and the flash launches, counted from 0."""
+    time, the monitor's seconds a step (``sketch_update`` between two
+    synchronisations), the router weights and the ``wg`` and ``wd`` slices
+    of this process's experts (by their global index) after each update,
+    the peak memory and the flash launches, counted from 0."""
     import torch
 
     from repro_torch import convert
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.sketch import SketchConfig
+    from repro_torch.train import train_step as ts
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.optimizer import get_optimizer
-    from repro_torch.train.train_step import pick_optimizer_name
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              pick_optimizer_name)
 
     full = get_config(MESH_ARCH)
     if pick_optimizer_name(full) != "adafactor":
@@ -2990,23 +3006,39 @@ def ep_train(seed: int, dev, mesh=None) -> dict:
     def host(t):
         return t.detach().float().cpu().numpy().tolist()
 
+    monitor_s = []
+    orig = ts.sketch_update
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*args, **kw)
+        torch.cuda.synchronize()
+        monitor_s.append(time.perf_counter() - t)
+        return out
+
     stamps = []
     fk.flash_fwd.launches = fk.flash_bwd.launches = 0
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    ts.sketch_update = timed
     t0 = time.perf_counter()
-    res = train(cfg, mesh, device=dev,
-                loop=LoopConfig(steps=EP_TRAIN_STEPS, seed=seed,
-                                log_every=10 ** 9),
-                opt=dataclasses.replace(opt, update=update),
-                seq_len=EP_TRAIN_SEQ, global_batch=EP_TRAIN_BATCH,
-                param_dtype=torch.bfloat16,
-                hooks={"on_step": lambda it, m: stamps.append(
-                    time.perf_counter())})
+    try:
+        res = train(cfg, mesh, device=dev,
+                    loop=LoopConfig(steps=EP_TRAIN_STEPS, seed=seed,
+                                    log_every=10 ** 9),
+                    tsc=TrainStepConfig(sketch=SketchConfig(**TRAIN_SKETCH)),
+                    opt=dataclasses.replace(opt, update=update),
+                    seq_len=EP_TRAIN_SEQ, global_batch=EP_TRAIN_BATCH,
+                    param_dtype=torch.bfloat16,
+                    hooks={"on_step": lambda it, m: stamps.append(
+                        time.perf_counter())})
+    finally:
+        ts.sketch_update = orig
     out = dict(history=res["history"], wall_s=time.perf_counter() - t0,
-               step_s=np.diff([t0] + stamps).tolist(),
+               step_s=np.diff([t0] + stamps).tolist(), monitor_s=monitor_s,
                peak=torch.cuda.max_memory_allocated(),
                launches={"flash_fwd": fk.flash_fwd.launches,
                          "flash_bwd": fk.flash_bwd.launches},
@@ -3022,8 +3054,14 @@ def _log_ep_train(label: str, run: dict) -> None:
     log(f"train_mesh {label}: losses "
         + ", ".join(f"{x['loss']:.6f}" for x in h) + "; grad norms "
         + ", ".join(f"{x['grad_norm']:.6f}" for x in h) + "; aux "
-        + ", ".join(f"{x['aux']:.6f}" for x in h) + "; steps "
+        + ", ".join(f"{x['aux']:.6f}" for x in h) + "; monitor "
+        + ", ".join(f"{x['sketch/grad_norm_proj']:.6f} / "
+                    f"{x['sketch/top_energy']:.6f} / "
+                    f"{x['sketch/window_norm2']:.6f}" for x in h)
+        + " (grad_norm_proj / top_energy / window_norm2); steps "
         + ", ".join(f"{1e3 * t:.3f}" for t in run["step_s"])
+        + " ms, of which the monitor "
+        + ", ".join(f"{1e3 * t:.3f}" for t in run["monitor_s"])
         + f" ms (host clock); weights held {run['held'] / 1e9:.2f} GB; peak "
         f"{run['peak'] / 2**30:.2f} GiB; flash launches fwd "
         f"{run['launches']['flash_fwd']} bwd {run['launches']['flash_bwd']}")
@@ -3041,10 +3079,19 @@ def check_ep_train(one: dict, kids: list) -> dict:
         raise AssertionError(f"train_mesh (b): the children's losses "
                              f"differ: {losses}")
     want_l = [x["loss"] for x in one["history"]]
-    want_n = [x["grad_norm"] for x in one["history"]]
     rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want_l))
-    rel_n = max(abs(x["grad_norm"] - b) / abs(b) for k in kids
-                for x, b in zip(k["history"], want_n))
+    # the gradient norm and the monitor's metrics sum the processes' bf16
+    # partial gradients of x and the router: within EP_NORM_RTOL
+    normed = ["grad_norm"] + [n for n in one["history"][0]
+                              if n.startswith("sketch/")]
+    if len(normed) != 4 or any(len(k["monitor_s"]) != EP_TRAIN_STEPS
+                               for k in [one] + kids):
+        raise AssertionError(f"train_mesh (b): the monitor did not run "
+                             f"every step: metrics {normed}")
+    rel_m = {n: max(abs(x[n] - w[n]) / abs(w[n]) for k in kids
+                    for x, w in zip(k["history"], one["history"]))
+             for n in normed}
+    rel_n = rel_m["grad_norm"]
 
     def rel(a, b):
         """(the largest relative distance, the share of values that
@@ -3070,11 +3117,12 @@ def check_ep_train(one: dict, kids: list) -> dict:
                              f", {sorted(one['experts'][0])} in one process")
     (rel_r, diff_r), (rel_e, diff_e) = weights(0)
     later = [weights(i) for i in range(1, EP_TRAIN_STEPS)]
-    if rel_l > EP_LOSS_RTOL or rel_n > EP_NORM_RTOL \
+    if rel_l > EP_LOSS_RTOL or max(rel_m.values()) > EP_NORM_RTOL \
             or rel_r > EP_WEIGHT_RTOL or rel_e > EP_WEIGHT_RTOL:
         raise AssertionError(
             f"train_mesh (b): expert-parallel vs one process: losses "
-            f"{rel_l:.3e} (tol {EP_LOSS_RTOL:.0e}), grad norms {rel_n:.3e} "
+            f"{rel_l:.3e} (tol {EP_LOSS_RTOL:.0e}), grad norms and the "
+            f"monitor's metrics {rel_m} "
             f"(tol {EP_NORM_RTOL:.0e}), after the first update router "
             f"{rel_r:.3e}, expert slices {rel_e:.3e} (tol "
             f"{EP_WEIGHT_RTOL:.3e}), relative")
@@ -3090,15 +3138,196 @@ def check_ep_train(one: dict, kids: list) -> dict:
             launches[k] += n[k]
     log(f"train_mesh (b) {MESH_ARCH}, {EP_TRAIN_LAYERS} layer, bf16, "
         f"Adafactor (momentum 0), batch {EP_TRAIN_BATCH} × {EP_TRAIN_SEQ}, "
-        f"{EP_TRAIN_STEPS} steps: the two expert-parallel processes' losses "
-        f"equal; against one process, losses within {rel_l:.3e}, grad norms"
-        f" within {rel_n:.3e}; after the first update the router weights "
+        f"{EP_TRAIN_STEPS} steps with the monitor: the two expert-parallel "
+        f"processes' losses equal; against one process, losses within "
+        f"{rel_l:.3e}, grad norms within {rel_n:.3e}, the monitor's "
+        + ", ".join(f"{n[7:]} within {e:.3e}" for n, e in rel_m.items()
+                    if n != "grad_norm")
+        + f" (tol {EP_NORM_RTOL:.0e}); the monitor "
+        + ", ".join(f"{float(np.mean(r['monitor_s'])):.3f}" for r in
+                    [one] + kids)
+        + " s a step (one process, then each child; host clock); "
+        "after the first update the router weights "
         f"within {rel_r:.3e} ({100 * diff_r:.2f} % of them differ) and "
         f"{len(got)} experts' wg, wd slices within {rel_e:.3e} "
         f"({100 * diff_e:.2f} %), relative; after the later updates "
         + "; ".join(f"router {r[0]:.3e} ({100 * r[1]:.2f} %), slices "
                     f"{e[0]:.3e} ({100 * e[1]:.2f} %)" for r, e in later))
     return launches
+
+
+# phase train_mesh (c), in the same processes after (b): the gradient
+# sketches under the (1, 2) mesh at the CPU tests' width
+# (reduced grok-1, d_model 48, E = 4, top-2, f32; tests/
+# test_torch_grad_sketch_mesh.py): AdamW with the monitor and FD
+# compression, then Sketchy, 3 steps each, in one process and in the two
+# children, held to each other at the tests' tolerances.  At grok-1's full
+# width their fd_compress would take minutes a step; the train_mesh phase
+# times its rounds instead (``FD_TIMED``).
+SKETCH_MESH_STEPS, SKETCH_MESH_SEQ, SKETCH_MESH_BATCH = 3, 32, 4
+SKETCH_MESH_RUNS = {
+    "adamw+monitor+compress": {
+        "monitor": dict(d=64, eps=0.25, window=64),
+        "compress": dict(rank=4, eps=0.25, window=8, min_size=2048,
+                         summary_rows=4)},
+    "sketchy": {"sketchy": dict(lr=2e-2, rank=4, eps=0.5, window=4,
+                                summary_rows=4, warmup=4)}}
+SKETCH_STEP_TOL, SKETCH_METRIC_TOL = 2e-4, 1e-4
+
+
+def sketch_mesh(seed: int, dev, mesh=None) -> dict:
+    """Part (c): each of ``SKETCH_MESH_RUNS`` through ``train()`` on one
+    process (``mesh=None``) or under the children's (1, 2) mesh: its
+    history and host-clock seconds."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.sketch import (CompressConfig, SketchConfig,
+                                    SketchyConfig, sketchy_dsfd)
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.train_step import TrainStepConfig
+
+    cfg = dataclasses.replace(get_config(MESH_ARCH).reduced(), d_model=48)
+    out = {}
+    for label, kw in SKETCH_MESH_RUNS.items():
+        tsc = TrainStepConfig(
+            sketch=SketchConfig(**kw["monitor"]) if "monitor" in kw
+            else None,
+            compress=CompressConfig(**kw["compress"]) if "compress" in kw
+            else None)
+        opt = sketchy_dsfd(SketchyConfig(**kw["sketchy"])) \
+            if "sketchy" in kw else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train(cfg, mesh, device=dev,
+                    loop=LoopConfig(steps=SKETCH_MESH_STEPS, seed=seed,
+                                    log_every=10 ** 9),
+                    tsc=tsc, opt=opt, seq_len=SKETCH_MESH_SEQ,
+                    global_batch=SKETCH_MESH_BATCH)
+        torch.cuda.synchronize()
+        out[label] = dict(history=res["history"],
+                          wall_s=time.perf_counter() - t0)
+        del res
+    return out
+
+
+def check_sketch_mesh(one: dict, kids: list) -> float:
+    """Part (c): every child's losses, balance losses, gradient norms
+    and monitor metrics against the one process's, |Δ| ≤ tol·(1 + |x|)
+    at the CPU tests' tolerances; the monitor must have run and each run's
+    loss moved.  Returns the part's seconds (the one process's and the
+    slower child's)."""
+    worst = {}
+    for label, kw in SKETCH_MESH_RUNS.items():
+        want = one[label]["history"]
+        if len(want) != SKETCH_MESH_STEPS or len({x["loss"] for x in want}) \
+                < 2 or ("monitor" in kw) != any(
+                    n.startswith("sketch/") for n in want[0]):
+            raise AssertionError(f"train_mesh (c) {label}: history {want}")
+        for k in kids:
+            got = k[label]["history"]
+            if len(got) != len(want) or any(g.keys() != w.keys()
+                                            for g, w in zip(got, want)):
+                raise AssertionError(f"train_mesh (c) {label}: child "
+                                     f"history {got} vs {want}")
+            for g, w in zip(got, want):
+                for n in w:
+                    tol = (SKETCH_METRIC_TOL if n.startswith("sketch/")
+                           else SKETCH_STEP_TOL)
+                    err = abs(g[n] - w[n]) / (1.0 + abs(w[n]))
+                    worst[label, n] = max(worst.get((label, n), 0.0), err)
+                    if err > tol:
+                        raise AssertionError(
+                            f"train_mesh (c) {label} {n}: {g[n]} in a "
+                            f"child, {w[n]} in one process (tol {tol})")
+        log(f"train_mesh (c) {label}, reduced {MESH_ARCH} (d_model 48, f32) "
+            f"under (1, 2): losses "
+            + ", ".join(f"{x['loss']:.6f}" for x in want) + "; against one "
+            "process " + ", ".join(f"{n} {e:.3e}" for (lb, n), e in
+                                  worst.items() if lb == label)
+            + " (|Δ| / (1 + |x|)); seconds one process "
+            f"{one[label]['wall_s']:.3f}, children "
+            + " / ".join(f"{k[label]['wall_s']:.3f}" for k in kids))
+    return sum(max(r[label]["wall_s"] for r in kids) + one[label]["wall_s"]
+               for label in SKETCH_MESH_RUNS)
+
+
+# the fd_compress rounds at grok-1's widths, for the full-width estimate:
+# (d, ℓ) with ℓ = summary_rows // 2 (compression's 8 → 4, Sketchy's 4 → 2)
+FD_TIMED_ROWS = 4096
+FD_TIMED = ((6144, 4), (32768, 4), (6144, 2), (32768, 2))
+
+
+def time_fd_rounds(seed: int, dev) -> dict:
+    """``fd_compress`` of ``FD_TIMED_ROWS`` Gaussian rows at each of
+    ``FD_TIMED``'s (d, ℓ) (host clock between synchronisations, after a
+    warm call): ms, rounds (shrinks counted) and ms a round; then the
+    seconds one full-width grok-1 step would spend in it, for the
+    compression (``TRAIN_COMPRESS``'s leaves) and Sketchy (every leaf of
+    two dimensions), on 1 layer and on 64: each leaf's rounds (its rows
+    over ℓ + 1) at the ms a round of a line through the two widths
+    timed."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import fd
+    from repro_torch.models import api
+    from repro_torch.models.params import abstract_params
+    from repro_torch.sketch import CompressConfig, SketchyConfig
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shrinks = []
+    orig = fd.fd_shrink
+
+    def counted(buf, ell):
+        shrinks.append(1)
+        return orig(buf, ell)
+
+    per_round = {}
+    fd.fd_shrink = counted
+    try:
+        for d, ell in FD_TIMED:
+            x = torch.randn((1, FD_TIMED_ROWS, d), generator=gen, device=dev)
+            fd.fd_compress(x[:, :8 * ell], ell)
+            shrinks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fd.fd_compress(x, ell)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            per_round[d, ell] = ms / len(shrinks)
+            log(f"train_mesh fd_compress of ({FD_TIMED_ROWS}, {d}) at ℓ "
+                f"{ell}: {ms:.3f} ms, {len(shrinks)} rounds, "
+                f"{per_round[d, ell]:.4f} ms a round (host clock)")
+            del x
+    finally:
+        fd.fd_shrink = orig
+    comp, sky = CompressConfig(**TRAIN_COMPRESS), SketchyConfig()
+    out = {"ms_a_round": {f"{d}x{ell}": v
+                          for (d, ell), v in per_round.items()}}
+    full = get_config(MESH_ARCH)
+    for label, ell, keep in (
+            ("compression", max(comp.summary_rows // 2, 1),
+             lambda x: x.dim() >= 2 and x.numel() >= comp.min_size),
+            ("sketchy", max(sky.summary_rows // 2, 1),
+             lambda x: x.dim() >= 2 and x.shape[-1] >= sky.min_dim)):
+        (d0, _), (d1, _) = [k for k in per_round if k[1] == ell]
+        slope = (per_round[d1, ell] - per_round[d0, ell]) / (d1 - d0)
+        for layers in (1, full.n_layers):
+            cfg = dataclasses.replace(full, n_layers=layers)
+            sec = 0.0
+            for x in leaves(abstract_params(api.param_defs(cfg))):
+                if keep(x):
+                    d = x.shape[-1]
+                    ms = per_round[d0, ell] + slope * (d - d0)
+                    sec += ms * (x.numel() // d) / (ell + 1) / 1e3
+            out[f"{label} {layers}"] = sec
+        log(f"train_mesh full-width estimate: {label} (ℓ {ell}) spends "
+            f"{out[f'{label} 1']:.1f} s a step in fd_compress at 1 layer of "
+            f"{MESH_ARCH}, {out[f'{label} {full.n_layers}']:.1f} s at its "
+            f"{full.n_layers}")
+    return out
 
 
 def _mesh_cfg():
@@ -3439,6 +3668,8 @@ def mesh_child(mode: str, pid: int, n: int, port: int, root: str) -> int:
         # 1-layer model trained expert-parallel
         del params, run
         out["train"] = ep_train(seed, dev, pm)
+        # phase train_mesh (c): the gradient sketches at the tests' width
+        out["sketch"] = sketch_mesh(seed, dev, pm)
     (Path(root) / f"{mode}_{pid}.json").write_text(json.dumps(out))
     mesh.shutdown()
     return 0
@@ -3526,6 +3757,7 @@ def run_mesh(seed: int, device: str = "cuda") -> dict:
     ep_one = ep_train(seed, dev)
     ep_s = time.perf_counter() - t
     _log_ep_train("(b) one process", ep_one)
+    sk_one = sketch_mesh(seed, dev)            # phase train_mesh (c)
 
     out = {"launches": one_launches}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -3581,6 +3813,8 @@ def run_mesh(seed: int, device: str = "cuda") -> dict:
                           "(expert-parallel)", k["train"])
         out["train"] = check_ep_train(ep_one, [k["train"] for k in kids])
         out["train_s"] = ep_s + max(k["train"]["wall_s"] for k in kids)
+        out["sketch_s"] = check_sketch_mesh(sk_one,
+                                            [k["sketch"] for k in kids])
 
         # the virtual-expert block: E = 2 over 4 processes against one;
         # the dry-runs (CPU only) start with it, after the timed runs
@@ -4343,8 +4577,10 @@ def run_train(steps: int, extra: int, seed: int,
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), use_flash=True,
                               remat="full")
     tokens = TRAIN_SEQ * TRAIN_BATCH
-    saved = {"flash": ops.flash_forward, "compress": compress.fd_compress,
-             "sketchy": sketchy.fd_compress,
+    # the FD summary of a whole leaf (``sketch/blocks.py::fd_summary``,
+    # which is ``fd_compress`` in one process), timed in each user
+    saved = {"flash": ops.flash_forward, "compress": compress.fd_summary,
+             "sketchy": sketchy.fd_summary,
              "project": compress.project_rank_r}
     flash_dtypes, fd_s, lows = set(), [], []
 
@@ -4379,8 +4615,8 @@ def run_train(steps: int, extra: int, seed: int,
         torch.cuda.reset_peak_memory_stats()
         try:
             ops.flash_forward = flash_seen
-            compress.fd_compress = fd_timed("compress")
-            sketchy.fd_compress = fd_timed("sketchy")
+            compress.fd_summary = fd_timed("compress")
+            sketchy.fd_summary = fd_timed("sketchy")
             compress.project_rank_r = project_seen
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4393,8 +4629,8 @@ def run_train(steps: int, extra: int, seed: int,
                             time.perf_counter())})
         finally:
             ops.flash_forward = saved["flash"]
-            compress.fd_compress = saved["compress"]
-            sketchy.fd_compress = saved["sketchy"]
+            compress.fd_summary = saved["compress"]
+            sketchy.fd_summary = saved["sketchy"]
             compress.project_rank_r = saved["project"]
         fwd, bwd = kernel.flash_fwd.launches, kernel.flash_bwd.launches
         losses = [h["loss"] for h in res["history"]]
@@ -4872,9 +5108,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t = time.perf_counter()
     tm = run_train_mesh(args.seed)
+    time_fd_rounds(args.seed, torch.device("cuda", 0))
     _phase("train_mesh", t)
     log(f"phase train_mesh (b), run inside the mesh phase: "
-        f"{msh['train_s']:.3f} s")
+        f"{msh['train_s']:.3f} s; (c) {msh['sketch_s']:.3f} s")
     for k, n in msh["train"].items():
         tm[k] += n
 

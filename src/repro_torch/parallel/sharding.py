@@ -19,7 +19,9 @@ expert-parallel MoE block (``models/layers/moe.py``) reads the model axis
 of the mesh in force and reduces over its group with :func:`all_reduce`
 (forward and backward, for autograd) after :func:`enter_group`; a train
 step over a process mesh (``train/train_step.py``) averages its gradients
-over the data axes (:func:`data_axes`) with :func:`all_reduce_flat`.
+over the data axes (:func:`data_axes`) with :func:`all_reduce_flat`, and
+its gradient sketches carry an FD summary from one block's owner to the
+next with :func:`broadcast` (``sketch/blocks.py``).
 """
 
 from __future__ import annotations
@@ -256,24 +258,26 @@ def data_axes() -> list:
             for a in ("pod", "data") if int(shape.get(a, 1)) > 1]
 
 
-def spec_names_model(spec: Spec) -> bool:
-    """True where ``spec`` splits some dimension over 'model'."""
-    for p in spec:
+def split_dim(spec: Spec) -> Optional[int]:
+    """The dimension that ``spec`` splits over 'model', or None."""
+    for i, p in enumerate(spec):
         names = tuple(p) if isinstance(p, (tuple, list)) else (p,)
         if "model" in names:
-            return True
-    return False
+            return i
+    return None
 
 
 @contextlib.contextmanager
-def model_sharded(flags):
-    """Within the block, :func:`model_sharded_leaves` is ``flags``: a tree
-    (nested dicts, as the parameters) of bools, True for a leaf that each
-    process holds one block of along the model axis.  An optimizer whose
-    update reduces over a whole leaf (Adafactor's update clipping) adds up
-    such a leaf's blocks over the model axis's group."""
+def model_sharded(dims):
+    """Within the block, :func:`model_sharded_leaves` is ``dims``: a tree
+    (nested dicts, as the parameters) that gives for each leaf the
+    dimension along which each process holds one block of it over the
+    model axis, or None for a leaf every process holds whole.  An
+    optimizer whose update reduces over a whole leaf (Adafactor's update
+    clipping, Sketchy's sketch and trust region) adds up such a leaf's
+    blocks over the model axis's group."""
     prev = getattr(_ctx, "sharded", None)
-    _ctx.sharded = flags
+    _ctx.sharded = dims
     try:
         yield
     finally:
@@ -281,7 +285,7 @@ def model_sharded(flags):
 
 
 def model_sharded_leaves():
-    """The flags :func:`model_sharded` put in force, or None."""
+    """The split dimensions :func:`model_sharded` put in force, or None."""
     return getattr(_ctx, "sharded", None)
 
 
@@ -377,3 +381,20 @@ def all_reduce_flat(tensors, group) -> list:
             out[i] = flat[off:off + n].view(tensors[i].shape)
             off += n
     return out
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """The value of ``t`` at the process of coordinate ``src`` in
+    ``group``, as a new tensor on every process of it (outside autograd;
+    a CUDA tensor staged through pinned host memory, as in
+    :func:`all_reduce`).  The active analyzer counts one broadcast."""
+    from repro_torch.kernels import dispatch
+
+    n = dist.get_world_size(group)
+    with dispatch.collective("broadcast", t.numel() * t.element_size(), n):
+        host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                           pin_memory=t.is_cuda)
+        host.copy_(t)
+        dist.broadcast(host, src=dist.get_global_rank(group, src),
+                       group=group)
+        return host.to(t.device)

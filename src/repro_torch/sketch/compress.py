@@ -16,7 +16,9 @@ dimensions and ``min_size`` entries::
 
 Each leaf's sketch is one DS-FD stream (S = 1).  Its summary rows are
 ``fd_compress`` of the whole (rows, d) gradient, which the port's
-``core/fd.py`` absorbs ℓ + 1 rows a round.  ``compressed_psum`` is the
+``core/fd.py`` absorbs ℓ + 1 rows a round; under a model axis of
+processes, that of the whole leaf carried across the axis
+(``sketch/blocks.py``).  ``compressed_psum`` is the
 reference's ``shard_map`` psum: an all-reduce of the rank-r coefficients
 over a ``torch.distributed`` process group.
 """
@@ -30,9 +32,9 @@ import torch
 
 from repro_torch.core.dsfd import DSFDConfig, dsfd_init, dsfd_query_rows, \
     dsfd_update_block, make_config
-from repro_torch.core.fd import fd_compress
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.sketch.basis import project_rank_r, topr_basis
+from repro_torch.sketch.blocks import fd_summary, whole_numel
 from repro_torch.tree import leaves, map_dicts
 
 
@@ -50,8 +52,11 @@ class CompressConfig:
                            mode="fast")
 
 
-def _compressed(cfg: CompressConfig, g: torch.Tensor) -> bool:
-    return g.dim() >= 2 and g.numel() >= cfg.min_size
+def _compressed(cfg: CompressConfig, g: torch.Tensor,
+                dim: Optional[int] = None) -> bool:
+    """Whether the leaf of which ``g`` is this process's block along
+    ``dim`` (None: the whole leaf) is compressed: its whole size counts."""
+    return g.dim() >= 2 and whole_numel(g, dim) >= cfg.min_size
 
 
 def _as2d(g: torch.Tensor) -> torch.Tensor:
@@ -63,24 +68,33 @@ def _unzip(pairs):
     return (map_dicts(lambda t: t[0], pairs), map_dicts(lambda t: t[1], pairs))
 
 
-def compress_init(cfg: CompressConfig, grads, device="cuda") -> Dict:
+def _dims(split, grads):
+    """``split`` (each leaf's split dimension or None, as ``grads``; None
+    for no split), or a tree of None."""
+    return split if split is not None else map_dicts(lambda _: None, grads)
+
+
+def compress_init(cfg: CompressConfig, grads, device="cuda",
+                  split=None) -> Dict:
     """Per leaf: None (passes through) or {"dsfd", "err", "step"}, on the
-    card unless ``device`` names the CPU."""
+    card unless ``device`` names the CPU.  Under a model axis (``split``:
+    each leaf's split dimension, as in :func:`compress_grads`) a block's
+    ``err`` has the block's 2-D shape."""
     dev = resolve_device(device)
 
-    def leaf(g):
-        if not _compressed(cfg, g):
+    def leaf(g, dim):
+        if not _compressed(cfg, g, dim):
             return None
         return {"dsfd": dsfd_init(cfg.dsfd(g.shape[-1]), device=dev),
                 "err": torch.zeros(_as2d(g).shape, dtype=torch.float32,
                                    device=dev),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    return map_dicts(leaf, grads)
+    return map_dicts(leaf, grads, _dims(split, grads))
 
 
-def _compress_leaf(cfg: CompressConfig, g: torch.Tensor, st: Dict
-                   ) -> Tuple[torch.Tensor, Dict]:
+def _compress_leaf(cfg: CompressConfig, g: torch.Tensor, st: Dict,
+                   dim: Optional[int]) -> Tuple[torch.Tensor, Dict]:
     d = g.shape[-1]
     dcfg = cfg.dsfd(d)
     gi = _as2d(g).float() + st["err"]
@@ -92,8 +106,10 @@ def _compress_leaf(cfg: CompressConfig, g: torch.Tensor, st: Dict
     err = gi - low
 
     # a row summary of the EF-corrected gradient enters the sketch: how new
-    # directions reach the basis (projecting `low` alone never could)
-    summary = fd_compress(gi[None], max(cfg.summary_rows // 2, 1))
+    # directions reach the basis (projecting `low` alone never could); on
+    # a split leaf, the summary of the whole leaf, the same on every process
+    summary = fd_summary(gi.view(g.shape), max(cfg.summary_rows // 2, 1),
+                         dim)
     summary = summary[:, :cfg.summary_rows]
     nrm = torch.linalg.vector_norm(summary, dim=2, keepdim=True)
     unit = summary / torch.clamp(nrm, min=1e-30)
@@ -106,17 +122,25 @@ def _compress_leaf(cfg: CompressConfig, g: torch.Tensor, st: Dict
     return out, {"dsfd": dsfd, "err": err, "step": st["step"] + 1}
 
 
-def compress_grads(cfg: CompressConfig, grads, state: Optional[Dict]
-                   ) -> Tuple[Dict, Dict]:
+def compress_grads(cfg: CompressConfig, grads, state: Optional[Dict],
+                   split=None) -> Tuple[Dict, Dict]:
     """Error-feedback low-rank compression leaf by leaf.  Returns
-    (grads', state); a missing state starts on the gradients' device."""
+    (grads', state); a missing state starts on the gradients' device.
+
+    ``split`` (a tree as ``grads``: each leaf's split dimension, or None
+    for a leaf held whole; ``train/train_step.py::_model_split``) marks
+    the leaves of which each process of the model axis holds one block.
+    Their summary is the whole leaf's, carried across the axis
+    (``sketch/blocks.py::fd_summary``), so the DS-FD state and its basis
+    stay the same on every process; the error feedback and the projection
+    are row-local, and each process keeps its block of them."""
     if state is None:
-        state = compress_init(cfg, grads, next(leaves(grads)).device)
+        state = compress_init(cfg, grads, next(leaves(grads)).device, split)
 
-    def leaf(g, st):
-        return (g, None) if st is None else _compress_leaf(cfg, g, st)
+    def leaf(g, st, dim):
+        return (g, None) if st is None else _compress_leaf(cfg, g, st, dim)
 
-    return _unzip(map_dicts(leaf, grads, state))
+    return _unzip(map_dicts(leaf, grads, state, _dims(split, grads)))
 
 
 def wire_bytes(cfg: CompressConfig, grads) -> Tuple[int, int]:

@@ -15,26 +15,38 @@ path string of the leaf (``"['layers']['wq']"``), and the leaves are added
 in that package's order (dict keys sorted).  The bucket sums are
 ``index_add_``, which on a CUDA tensor sums by atomics in an order that
 changes from run to run: the row agrees with the CPU's to rounding, not
-bit for bit.  The monitor's sketch is one DS-FD stream (S = 1); queries
-give the reference's single-stream shapes.
+bit for bit.  A leaf is hashed ``HASH_CHUNK`` entries at a time, so that
+the hash's int64 temporaries stay small beside a full-width leaf.  Under a
+model axis of processes a block of a split leaf hashes each entry by its
+flat index in the whole leaf, and the blocks' partial rows are summed over
+the axis's group (``train/train_step.py``).  The monitor's sketch is one
+DS-FD stream (S = 1); queries give the reference's single-stream shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.parallel.sharding import all_reduce, model_coord, \
+    model_size
 from repro_torch.sketch.api import ALL, SlidingSketch, make_sketch, \
     query_cohort
 from repro_torch.sketch.basis import subspace_overlap, topr_basis
+from repro_torch.sketch.blocks import check_split
 from repro_torch.train.checkpoint import leaves_with_paths
+from repro_torch.tree import leaves
 
 _P1 = 2654435761          # Knuth multiplicative hashes
 _P2 = 40503
 _U32 = 0xFFFFFFFF
+# entries hashed at once: a chunk's int64 temporaries take 32 MiB each, so
+# a leaf of any size needs a fixed few hundred MiB beside its gradient
+HASH_CHUNK = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,27 +77,73 @@ def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
-def hash_buckets(path: str, n: int, d: int, device) -> Tuple[torch.Tensor,
-                                                             torch.Tensor]:
+def _hash(gidx: torch.Tensor, seed: int, d: int) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
     """The count-sketch bucket (int64, in [0, d)) and sign (±1 f32) of the
-    n entries of the leaf at ``path``."""
-    idx = (torch.arange(n, dtype=torch.int64, device=device)
-           + _leaf_seed(path)) & _U32
+    entries at the flat indices ``gidx`` (int64) of a leaf whose seed is
+    ``seed``."""
+    idx = (gidx + seed) & _U32
     bucket = (_mul_u32(idx, _P1) >> 16) % d
     sign = torch.where((_mul_u32(idx, _P2) & (1 << 15)) != 0, 1.0, -1.0)
     return bucket, sign
 
 
-def project_grads(cfg: SketchConfig, grads) -> torch.Tensor:
-    """Count-sketch the whole gradient tree into one (d,) f32 row."""
-    vec = None
-    for path, g in leaves_with_paths(grads):
-        gf = g.reshape(-1).float()
+def hash_buckets(path: str, n: int, d: int, device) -> Tuple[torch.Tensor,
+                                                             torch.Tensor]:
+    """The count-sketch bucket (int64, in [0, d)) and sign (±1 f32) of the
+    n entries of the leaf at ``path``."""
+    return _hash(torch.arange(n, dtype=torch.int64, device=device),
+                 _leaf_seed(path), d)
+
+
+def _sketch_leaf(vec: torch.Tensor, path: str, g: torch.Tensor,
+                 dim: Optional[int]) -> None:
+    """Add the count-sketch of ``g`` into ``vec``, ``HASH_CHUNK`` entries
+    at a time.  ``g`` is the whole leaf at ``path`` (``dim`` None) or this
+    process's block of it along ``dim``: a block's entry is hashed by its
+    flat index in the whole leaf.  Block c of M along a dimension holds,
+    for each index p of the dimensions before it, a run of ``blk`` entries
+    that starts at (p·M + c)·blk in the whole leaf, so its local flat index
+    q lands at q + p·(M − 1)·blk + c·blk."""
+    check_split(g.shape, dim)
+    flat = g.reshape(-1)
+    seed = _leaf_seed(path)
+    if dim is not None:
+        coord, _ = model_coord()
+        ways = model_size()
+        blk = math.prod(g.shape[dim:])
+    for lo in range(0, flat.numel(), HASH_CHUNK):
+        hi = min(lo + HASH_CHUNK, flat.numel())
+        q = torch.arange(lo, hi, dtype=torch.int64, device=g.device)
+        if dim is not None:
+            q = q + (q // blk) * ((ways - 1) * blk) + coord * blk
+        bucket, sign = _hash(q, seed, vec.shape[0])
+        vec.index_add_(0, bucket, flat[lo:hi].float() * sign)
+
+
+def project_grads(cfg: SketchConfig, grads, split=None) -> torch.Tensor:
+    """Count-sketch the whole gradient tree into one (d,) f32 row.
+
+    ``split`` (a tree as ``grads``: each leaf's split dimension, or None
+    for a leaf held whole; ``train/train_step.py::_model_split``) marks
+    the leaves of which each process of the model axis holds one block:
+    their partial row is summed once over the axis's group, and the whole
+    leaves, which every process holds, are added once."""
+    dims = list(leaves(split)) if split is not None else None
+    vec = part = None
+    for i, (path, g) in enumerate(leaves_with_paths(grads)):
         if vec is None:
-            vec = torch.zeros((cfg.d,), dtype=torch.float32,
-                              device=gf.device)
-        bucket, sign = hash_buckets(path, gf.numel(), cfg.d, gf.device)
-        vec.index_add_(0, bucket, gf * sign)
+            vec = torch.zeros((cfg.d,), dtype=torch.float32, device=g.device)
+        dim = dims[i] if dims is not None else None
+        if dim is None:
+            _sketch_leaf(vec, path, g, None)
+        else:
+            if part is None:
+                part = torch.zeros_like(vec)
+            _sketch_leaf(part, path, g, dim)
+    if part is not None:
+        _, group = model_coord()
+        vec = vec + all_reduce(part, group, "sum")
     return vec
 
 
@@ -99,10 +157,11 @@ def sketch_init(cfg: SketchConfig, device="cuda") -> Dict:
 
 
 def sketch_update(cfg: SketchConfig, state: Optional[Dict], grads,
-                  step) -> Tuple[Dict, Dict]:
-    """Feed one step's gradients; returns (state, metrics).  A missing
-    state starts on the gradients' device."""
-    row = project_grads(cfg, grads)
+                  step, split=None) -> Tuple[Dict, Dict]:
+    """Feed one step's gradients (``split``: as :func:`project_grads`);
+    returns (state, metrics).  A missing state starts on the gradients'
+    device."""
+    row = project_grads(cfg, grads, split)
     if state is None:
         state = sketch_init(cfg, row.device)
     sk = cfg.sketch(row.device)

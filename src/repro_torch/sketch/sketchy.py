@@ -16,6 +16,14 @@ fields (a per-leaf DS-FD state of one stream, S = 1, or None; the
 diagonal; the momentum), and ``update`` writes the parameters, the
 diagonal and the momentum in place.  The summary rows are ``fd_compress``
 of the whole gradient matrix (``core/fd.py``, ℓ + 1 rows a round).
+
+Under a model axis of processes (``parallel/sharding.py::model_sharded``
+gives each leaf's split dimension) a process holds one block of a split
+leaf: the summary is the whole leaf's, carried across the axis
+(``sketch/blocks.py``), so the DS-FD state stays the same on every
+process; the gradient energy and the trust region's mean square are
+summed over the axis's group; the projection, the momentum and the
+parameter are row-local.
 """
 
 from __future__ import annotations
@@ -26,12 +34,13 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.fd import fd_compress
+from repro_torch.parallel.sharding import model_sharded_leaves
 from repro_torch.sketch.api import SlidingSketch, make_sketch
 from repro_torch.sketch.basis import topr_basis
+from repro_torch.sketch.blocks import fd_summary, whole_numel, whole_sum
 from repro_torch.train.optimizer import Optimizer, _first, _schedule, \
     _step_f32
-from repro_torch.tree import map_dicts
+from repro_torch.tree import map_dicts, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +74,12 @@ def _sketched(p: torch.Tensor, cfg: SketchyConfig) -> bool:
 def sketchy_dsfd(cfg: SketchyConfig = SketchyConfig()) -> Optimizer:
     def init(params):
         def sk(p):
-            return (cfg.sketch(p.shape[-1], p.device).init()
-                    if _sketched(p, cfg) else None)
+            if not _sketched(p, cfg):
+                return None
+            if p.device.type == "meta":    # shapes only (a layout)
+                return tree_map(lambda x: x.to("meta"),
+                                cfg.sketch(p.shape[-1], "cpu").init())
+            return cfg.sketch(p.shape[-1], p.device).init()
 
         def dg(p):
             return torch.zeros(() if _sketched(p, cfg) else p.shape,
@@ -79,15 +92,17 @@ def sketchy_dsfd(cfg: SketchyConfig = SketchyConfig()) -> Optimizer:
                             diag=map_dicts(dg, params),
                             mom=map_dicts(mom, params))
 
-    def precondition(g, step, sk):
-        """(the sketched update of one leaf, its new DS-FD state)."""
+    def precondition(g, step, sk, dim):
+        """(the sketched update of one leaf, its new DS-FD state); ``g``
+        is this process's block of the leaf along ``dim`` under a model
+        axis (None: the whole leaf)."""
         d = g.shape[-1]
         sliding = cfg.sketch(d, g.device)
         g2 = g.reshape(-1, d)
-        # the FD-compressed row summary, unit-normalised
-        summary = fd_compress(g2[None], max(cfg.summary_rows // 2, 1))
+        # the FD-compressed row summary of the whole leaf, unit-normalised
+        summary = fd_summary(g, max(cfg.summary_rows // 2, 1), dim)
         summary = summary[:, :cfg.summary_rows]
-        scale2 = torch.sum(g2 * g2)
+        scale2 = whole_sum(torch.sum(g2 * g2), dim)
         nrm = torch.linalg.vector_norm(summary, dim=2, keepdim=True)
         unit = summary / torch.clamp(nrm, min=1e-30)
         base = torch.as_tensor(step, device=g.device).to(torch.int32) \
@@ -104,28 +119,36 @@ def sketchy_dsfd(cfg: SketchyConfig = SketchyConfig()) -> Optimizer:
         low = (coef * inv[None, :]) @ V
         tail = (g2 - coef @ V) / math.sqrt(cfg.rho)
         upd = (low + tail).reshape(g.shape)
-        # trust-region style normalisation (Sketchy App. B)
-        rms = torch.sqrt(torch.mean(upd * upd) + 1e-30)
+        # trust-region style normalisation (Sketchy App. B), over the whole
+        # leaf
+        if dim is None:
+            ms = torch.mean(upd * upd)
+        else:
+            ms = whole_sum(torch.sum(upd * upd), dim) / whole_numel(upd, dim)
+        rms = torch.sqrt(ms + 1e-30)
         return upd / torch.clamp(rms, min=1.0), sk
 
     @torch.no_grad()
     def update(grads, state, params, step):
         stepf = _step_f32(step, _first(params))
         sched = _schedule(cfg.lr, cfg.warmup, stepf)
+        dims = model_sharded_leaves()
+        if dims is None:
+            dims = map_dicts(lambda _: None, params)
 
-        def leaf(p, g, sk, dg, m):
+        def leaf(p, g, sk, dg, m, dim):
             gf = g.float()
             if sk is None:
                 dg.mul_(0.99).add_(0.01 * (gf * gf))
                 upd = gf / torch.clamp(torch.sqrt(dg), min=1e-8)
             else:
-                upd, sk = precondition(gf, step, sk)
+                upd, sk = precondition(gf, step, sk, dim)
             m.mul_(cfg.momentum).add_(upd)
             p.copy_(p.float() - sched * m)
             return sk
 
         sketch = map_dicts(leaf, params, grads, state.sketch, state.diag,
-                           state.mom)
+                           state.mom, dims)
         return params, state._replace(sketch=sketch)
 
     return Optimizer("sketchy_dsfd", init, update)

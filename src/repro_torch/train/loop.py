@@ -38,13 +38,12 @@ from repro_torch.launch.mesh import default_store, process_runtime
 from repro_torch.models.params import (abstract_params, init_params,
                                        param_pspecs)
 from repro_torch.parallel.sharding import (axis_rules, make_rules,
-                                           mesh_shape, spec_names_model)
+                                           mesh_shape, split_dim)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import (Optimizer, get_optimizer,
                                          opt_state_pspecs)
 from repro_torch.train.train_step import (
-    TrainStepConfig, build_train_step, init_sketch_state,
-    refuse_sketches_under_model_axis)
+    TrainStepConfig, _model_split, build_train_step, init_sketch_state)
 
 log = logging.getLogger("repro_torch.train")
 
@@ -138,7 +137,7 @@ def _state_layout(defs, opt: Optimizer, rules, mesh, coords, param_dtype):
     specs = _aligned(atree, (pspecs, ospecs, ()))
     shapes = [tuple(x.shape) for _, x in ckpt.leaves_with_paths(atree)]
     blocks = [convert.block_of(sh, sp, mesh, coords)
-              if spec_names_model(sp) else None
+              if split_dim(sp) is not None else None
               for sh, sp in zip(shapes, specs)]
     return shapes, blocks
 
@@ -173,8 +172,6 @@ def train(cfg: ModelConfig, mesh=None, *, device="cuda",
         shape, coords = dict(mesh_shape(mesh)), _coords(mesh)
         rules = train_rules(cfg, mesh)
     split = int(shape.get("model", 1)) > 1
-    if split:
-        refuse_sketches_under_model_axis(tsc, opt)
     d_idx, d_n = 0, 1          # this process's slice of the global batch
     for a in ("pod", "data"):
         if a in shape:
@@ -192,7 +189,8 @@ def train(cfg: ModelConfig, mesh=None, *, device="cuda",
         opt_state = opt.init(params)
         step = torch.zeros((), dtype=torch.int32, device=dev)
         data_state = pipeline.init_state()
-        sketch_state = init_sketch_state(tsc, params, opt, dev)
+        sketch_state = init_sketch_state(tsc, params, opt, dev,
+                                         _model_split(cfg, params))
 
         saver = None
         if loop.ckpt_dir:

@@ -29,7 +29,7 @@ import torch.distributed as dist
 
 from repro_torch.parallel.sharding import (all_reduce, model_coord,
                                            model_sharded_leaves)
-from repro_torch.tree import map_dicts
+from repro_torch.tree import map_dicts, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +131,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.99, eps: float = 1e-30,
         sched = _schedule(lr, warmup, stepf)
         sharded = model_sharded_leaves()
         if sharded is None:
-            sharded = map_dicts(lambda _: False, params)
+            sharded = map_dicts(lambda _: None, params)
 
         # the reference's arithmetic, with every full-size temporary
         # written in place where that computes the same values, so that an
@@ -170,11 +170,12 @@ def adafactor(lr: float = 1e-3, decay: float = 0.99, eps: float = 1e-30,
     return Optimizer("adafactor", init, update)
 
 
-def _mean_square(u: torch.Tensor, split: bool) -> torch.Tensor:
-    """mean(u²) of a whole leaf: of ``u`` itself, or where each process of
-    the model axis holds one equal block of it (``split``), the sum over
-    the axis's group over the count of the whole leaf."""
-    if not split:
+def _mean_square(u: torch.Tensor, split) -> torch.Tensor:
+    """mean(u²) of a whole leaf: of ``u`` itself (``split`` None), or
+    where each process of the model axis holds one equal block of it
+    along dimension ``split``, the sum over the axis's group over the
+    count of the whole leaf."""
+    if split is None:
         return torch.mean(u * u)
     _, group = model_coord()
     total = all_reduce(torch.sum(u * u), group, "sum")
@@ -210,10 +211,18 @@ def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate):
     entry, the column statistics (all but the next to last) its spec
     without that entry, anything else (a 0-d placeholder) is replicated.
     The states' fields (``AdamState``, ``FactoredState``) mirror the
-    parameter tree; sgdm's state is that tree itself."""
+    parameter tree; sgdm's state is that tree itself.  A nested state of a
+    leaf (Sketchy's sketch, a NamedTuple of tensors) is replicated, as the
+    reference's is."""
     del opt
 
     def leaf(spec, p, s):
+        if s is None:
+            return None
+        if not hasattr(s, "shape"):
+            # a nested state (Sketchy's DS-FD sketch of a leaf): small, and
+            # the same on every process, so replicated
+            return tree_map(lambda _: (), s)
         t = tuple(spec)
         if tuple(s.shape) == tuple(p.shape):
             return t

@@ -17,8 +17,11 @@ the data axes ('pod', 'data'), one host round trip per dtype
 (``parallel/sharding.py::all_reduce_flat``), takes the gradient norm over
 the whole model (a leaf the model axis splits adds its sum of squares over
 that axis's group) and reports data coordinate 0's balance loss.  The
-gradient sketches run where every process holds the same gradients (a
-data axis); under a model axis of more than one process they raise.
+gradient sketches compute the reference's values on the global arrays:
+under a data axis every process holds the same reduced gradients; under a
+model axis of more than one process a split leaf's block is hashed by its
+global indices and its FD summary is carried across the axis
+(``sketch/blocks.py``), so every process holds the same sketches.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from repro_torch.parallel.sharding import (all_reduce, all_reduce_flat,
                                            constrain, current_mesh,
                                            data_axes, is_dtensor,
                                            model_coord, model_sharded,
-                                           model_size, spec_names_model)
+                                           model_size, split_dim)
 from repro_torch.sketch.compress import compress_grads, compress_init
 from repro_torch.sketch.monitor import sketch_init, sketch_update
 from repro_torch.train.optimizer import Optimizer
@@ -165,8 +168,6 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
         """sketch_state (optional): {"compress": ..., "monitor": ...}, the
         DS-FD training-integration state."""
         split = _model_split(cfg, params)
-        if split is not None:
-            refuse_sketches_under_model_axis(tsc, opt)
         grads, loss, aux = grads_of(params, batch)
         grads, loss, aux = _reduce_over_data(grads, loss, aux)
         if sketch_state is not None:
@@ -178,7 +179,7 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
 
         if tsc.compress is not None:
             grads, sk["compress"] = compress_grads(
-                tsc.compress, grads, sk.get("compress"))
+                tsc.compress, grads, sk.get("compress"), split)
 
         gnorm = _global_norm(grads, split)
         scale = torch.clamp(tsc.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -191,7 +192,7 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
 
         if tsc.sketch is not None:
             sk["monitor"], sk_metrics = sketch_update(
-                tsc.sketch, sk.get("monitor"), grads, step)
+                tsc.sketch, sk.get("monitor"), grads, step, split)
             metrics.update(sk_metrics)
 
         out = (new_params, new_opt, step + 1, metrics)
@@ -200,19 +201,6 @@ def build_train_step(cfg: ModelConfig, opt: Optimizer,
         return out
 
     return train_step
-
-
-def refuse_sketches_under_model_axis(tsc: TrainStepConfig,
-                                     opt: Optimizer) -> None:
-    """Raise where ``tsc`` or ``opt`` asks for a gradient sketch: each
-    sketches whole gradient matrices, which a model axis of more than one
-    process splits (not ported yet)."""
-    if (tsc.sketch is not None or tsc.compress is not None
-            or opt.name == "sketchy_dsfd"):
-        raise NotImplementedError(
-            "the gradient sketches (the monitor, FD compression, Sketchy) "
-            "under a model axis of more than one process: ROADMAP §1, "
-            "'Gradient sketches under a model axis'")
 
 
 def _in_processes(params) -> bool:
@@ -227,12 +215,14 @@ def _in_processes(params) -> bool:
 
 def _model_split(cfg: ModelConfig, params):
     """Under a process mesh with a model axis of more than one process,
-    the tree of bools (as ``params``) that marks each leaf the axis
-    splits, by its spec under the rules in force; None otherwise."""
+    the tree (as ``params``) of each leaf's split dimension, read from its
+    spec under the rules in force, or None for a leaf every process holds
+    whole; None without such an axis.  Dimension 0 is a split: a reader
+    tests ``is not None``."""
     if model_size() == 1 or not _in_processes(params):
         return None
     specs = param_pspecs(api.param_defs(cfg))
-    return map_dicts(lambda _, spec: spec_names_model(spec), params, specs)
+    return map_dicts(lambda _, spec: split_dim(spec), params, specs)
 
 
 def _reduce_over_data(grads, loss, aux):
@@ -258,28 +248,30 @@ def _reduce_over_data(grads, loss, aux):
 def _global_norm(grads, split) -> torch.Tensor:
     """‖g‖ over every leaf; a leaf the model axis splits (``split``) adds
     its sum of squares over the axis's group."""
-    if split is None:
+    dims = list(leaves(split)) if split is not None else []
+    if all(f is None for f in dims):
         return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in leaves(grads)))
     parts = [torch.sum(torch.square(g.float())) for g in leaves(grads)]
-    flags = list(leaves(split))
-    whole = sum(p for p, f in zip(parts, flags) if not f)
-    blocks = sum(p for p, f in zip(parts, flags) if f)
+    whole = sum(p for p, f in zip(parts, dims) if f is None)
+    blocks = sum(p for p, f in zip(parts, dims) if f is not None)
     _, group = model_coord()
     return torch.sqrt(whole + all_reduce(blocks, group, "sum"))
 
 
 def init_sketch_state(tsc: TrainStepConfig, params, opt: Optimizer,
-                      device="cuda"):
+                      device="cuda", split=None):
     """The DS-FD integration state for this config (or None), on the card
-    unless ``device`` names the CPU."""
+    unless ``device`` names the CPU.  Under a model axis ``split``
+    (:func:`_model_split`) gives each leaf's split dimension: a block's
+    error feedback has the block's shape."""
     del opt
     if tsc.sketch is None and tsc.compress is None:
         return None
     dev = resolve_device(device)
     sk = {}
     if tsc.compress is not None:
-        sk["compress"] = compress_init(tsc.compress, params, dev)
+        sk["compress"] = compress_init(tsc.compress, params, dev, split)
     if tsc.sketch is not None:
         sk["monitor"] = sketch_init(tsc.sketch, dev)
     return sk

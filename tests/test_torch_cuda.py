@@ -1433,11 +1433,15 @@ import json, os, sys
 import torch
 pid, port, root, arch, n_model = (int(sys.argv[1]), int(sys.argv[2]),
                                   sys.argv[3], sys.argv[4], int(sys.argv[5]))
+sketches = json.loads(sys.argv[6]) if len(sys.argv) > 6 else {}
 torch.backends.cuda.matmul.allow_tf32 = False
 import dataclasses
 from repro_torch.configs.base import get_config
 from repro_torch.launch import mesh
+from repro_torch.sketch import (CompressConfig, SketchConfig, SketchyConfig,
+                                sketchy_dsfd)
 from repro_torch.train.loop import LoopConfig, train
+from repro_torch.train.train_step import TrainStepConfig
 
 mesh.init_distributed(pid, 2, "127.0.0.1", port, timeout_s=30)
 try:
@@ -1445,13 +1449,56 @@ try:
     pm = mesh.make_process_mesh(n_model)
     cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64,
                               use_flash=True, remat="full")
+    tsc = TrainStepConfig(
+        sketch=(SketchConfig(**sketches["monitor"])
+                if "monitor" in sketches else None),
+        compress=(CompressConfig(**sketches["compress"])
+                  if "compress" in sketches else None))
+    opt = (sketchy_dsfd(SketchyConfig(**sketches["sketchy"]))
+           if "sketchy" in sketches else None)
     res = train(cfg, pm, device="cuda", loop=LoopConfig(steps=3),
-                seq_len=256, global_batch=4)
+                seq_len=256, global_batch=4, tsc=tsc, opt=opt)
     with open(os.path.join(root, f"train_{pid}.json"), "w") as f:
         json.dump(res["history"], f)
 finally:
     mesh.shutdown()
 """
+
+
+def _train_pair(root, arch, n_model, sketches=None):
+    """The two processes' histories of ``_TRAIN_MESH_SCRIPT``."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TRAIN_MESH_SCRIPT, str(pid), str(port),
+         str(root), arch, str(n_model), json.dumps(sketches or {})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    return [json.loads((root / f"train_{pid}.json").read_text())
+            for pid in range(2)]
+
+
+def _mesh_train_cfg(arch):
+    return dataclasses.replace(get_config(arch).reduced(), head_dim=64,
+                               use_flash=True, remat="full")
 
 
 @pytest.mark.parametrize("arch,n_model", [("grok-1-314b", 2),
@@ -1465,43 +1512,81 @@ def test_train_under_a_process_mesh_on_one_card_matches_one_process(
     process on the card: each step's loss and gradient norm within 1e-5
     relative (f32, TF32 off: the partial gradients' sums in another
     order)."""
-    import json
-    import socket
-    import subprocess
-    import sys
-    from pathlib import Path
-
     from repro_torch.train.loop import LoopConfig, train
 
-    root = tmp_path
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    src = Path(__file__).resolve().parents[1] / "src"
-    env = dict(os.environ, PYTHONPATH=str(src))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _TRAIN_MESH_SCRIPT, str(pid), str(port),
-         str(root), arch, str(n_model)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=env) for pid in range(2)]
-    try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-4000:]
-    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64,
-                              use_flash=True, remat="full")
-    want = train(cfg, device=cuda,
+    pair = _train_pair(tmp_path, arch, n_model)
+    want = train(_mesh_train_cfg(arch), device=cuda,
                  loop=LoopConfig(steps=3), seq_len=256,
                  global_batch=4)["history"]
-    for pid in range(2):
-        got = json.loads((root / f"train_{pid}.json").read_text())
+    for pid, got in enumerate(pair):
         for g, w in zip(got, want):
             for k in ("loss", "grad_norm"):
                 assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]), (pid, k, g, w)
+
+
+# the gradient sketches of tests/test_torch_grad_sketch_mesh.py
+MESH_SKETCHES = {
+    "monitor+compress": {
+        "monitor": dict(d=64, eps=0.25, window=64),
+        "compress": dict(rank=4, eps=0.25, window=8, min_size=2048,
+                         summary_rows=4)},
+    "sketchy": {"sketchy": dict(lr=2e-2, rank=4, eps=0.5, window=4,
+                                summary_rows=4, warmup=4)}}
+
+
+@pytest.mark.parametrize("which", sorted(MESH_SKETCHES))
+def test_gradient_sketches_under_a_model_axis_on_one_card_match_one_process(
+        cuda, tmp_path, which):
+    """Reduced grok-1 under (1, 2) over two processes sharing the card,
+    with the monitor and compression (AdamW) or with Sketchy, against one
+    process on the card: each step's loss, balance loss and gradient norm
+    within 2e-4 and the monitor's metrics within 1e-4 (the CPU tests'
+    tolerances: the count-sketch sums by atomics, the FD summary is
+    carried across the two processes, the blocks' sums are added over the
+    axis).  The two processes' losses and norms are held to each other
+    alike (the count-sketch's atomics may round their rows apart)."""
+    from repro_torch.sketch import (CompressConfig, SketchConfig,
+                                    SketchyConfig, sketchy_dsfd)
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.train_step import TrainStepConfig
+
+    kw = MESH_SKETCHES[which]
+    pair = _train_pair(tmp_path, "grok-1-314b", 2, kw)
+    tsc = TrainStepConfig(
+        sketch=SketchConfig(**kw["monitor"]) if "monitor" in kw else None,
+        compress=(CompressConfig(**kw["compress"]) if "compress" in kw
+                  else None))
+    opt = sketchy_dsfd(SketchyConfig(**kw["sketchy"])) if "sketchy" in kw \
+        else None
+    want = train(_mesh_train_cfg("grok-1-314b"), device=cuda,
+                 loop=LoopConfig(steps=3), seq_len=256, global_batch=4,
+                 tsc=tsc, opt=opt)["history"]
+    for got in pair:
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                tol = 1e-4 if k.startswith("sketch/") else 2e-4
+                assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), \
+                    (k, g, w)
+
+
+def test_chunked_count_sketch_on_the_card_matches_the_cpu(cuda):
+    """A leaf of more than one ``HASH_CHUNK`` (hashed in chunks) and a
+    small one: the card's row within 1e-5·‖row‖ of the CPU's (atomics
+    sum the same f32 addends in another order)."""
+    from repro_torch.sketch import monitor
+
+    rng = np.random.default_rng(31)
+    g = {"big": torch.from_numpy(rng.standard_normal(
+        (3, monitor.HASH_CHUNK // 2 + 7)).astype(np.float32)),
+        "small": torch.from_numpy(rng.standard_normal((5, 9)).astype(
+            np.float32))}
+    cfg = monitor.SketchConfig(d=128)
+    want = monitor.project_grads(cfg, g)
+    got = monitor.project_grads(cfg, _to(g, cuda)).cpu()
+    assert torch.linalg.vector_norm(got - want) <= 1e-5 * float(
+        torch.linalg.vector_norm(want))
 
 
 def test_analyzer_counts_a_flash_prefill_alike_on_card_and_cpu(cuda):

@@ -28,7 +28,8 @@ another's checkpoint waits for its marker file.  Each has a 120 s limit.
   the data shards' there, each package's as the other's).
 * The gradient monitor and FD compression under (2, 1), against the
   reference's under (2, 1) (``test_torch_grad_sketch_train.py``'s
-  settings and tolerances); under (1, 2) they raise.
+  settings and tolerances); under a model axis,
+  ``test_torch_grad_sketch_mesh.py``.
 * ``launch/train.py`` under two torchrun-style processes (``RANK``,
   ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), and ``--mesh pod``.
 """
@@ -91,10 +92,6 @@ _job("chain_ref", "grok", "adamw", (2, 1), src=f"port_{CHAIN}",
 # reference's compile is the longest, so it starts at once)
 _job("sketch_2x1", "smollm", "adamw", (2, 1), src="init_smollm_adamw",
      steps=3, sketch="monitor+compress")
-_job("refuse_monitor", "smollm", "adamw", (1, 2), src="base_smollm_adamw",
-     sketch="monitor", refuse=True)
-_job("refuse_compress", "smollm", "adamw", (1, 2),
-     src="base_smollm_adamw", sketch="compress", refuse=True)
 
 # who runs what: reference processes (device count, jobs in order) and
 # port groups (processes, jobs in order)
@@ -104,8 +101,8 @@ REF_PROCS = [(2, ["base_grok_adamw", "grok_adamw_1x2", "grok_adamw_2x1"]),
              (2, ["base_smollm_adamw", "smollm_adamw_2x1"]),
              (2, ["sketch_2x1"]),
              (4, ["grok_adamw_2x2", "grok_adafactor_2x2", "chain_ref"])]
-PORT_GROUPS = [(2, ["smollm_adamw_2x1", "sketch_2x1", "refuse_monitor",
-                    "refuse_compress", "grok_adamw_1x2", "chain_2x1",
+PORT_GROUPS = [(2, ["smollm_adamw_2x1", "sketch_2x1", "grok_adamw_1x2",
+                    "chain_2x1",
                     "grok_adamw_2x1", "grok_adafactor_1x2",
                     "grok_adafactor_2x1"]),
                (4, ["grok_adamw_2x2", "grok_adafactor_2x2"])]
@@ -211,19 +208,13 @@ for name in sys.argv[2].split(","):
     if "compress" in job.get("sketch", ""):
         kw["compress"] = CompressConfig(rank=4, eps=0.25, window=8,
                                         min_size=2048, summary_rows=2)
-    try:
-        res = train(config(get_config, job), mesh, device="cpu",
-                    loop=LoopConfig(steps=job["steps"], ckpt_dir=out_dir,
-                                    ckpt_every=job["ckpt_every"]),
-                    tsc=TrainStepConfig(**kw), opt=opt, seq_len=%(seq)d,
-                    global_batch=%(batch)d)
-        out = {"history": res["history"]}
-    except NotImplementedError as e:
-        if not job.get("refuse"):
-            raise
-        out = {"raised": str(e)}
+    res = train(config(get_config, job), mesh, device="cpu",
+                loop=LoopConfig(steps=job["steps"], ckpt_dir=out_dir,
+                                ckpt_every=job["ckpt_every"]),
+                tsc=TrainStepConfig(**kw), opt=opt, seq_len=%(seq)d,
+                global_batch=%(batch)d)
     if pid == 0:
-        finish("port_" + name, out)
+        finish("port_" + name, {"history": res["history"]})
 shutdown()
 print("OK", pid)
 """ % {"seq": SEQ, "batch": BATCH}
@@ -435,12 +426,6 @@ def test_gradient_sketches_under_a_data_axis_match_the_reference(runs):
             np.testing.assert_allclose(p[n], r[n], rtol=SKETCH_METRIC_TOL,
                                        atol=SKETCH_METRIC_TOL,
                                        err_msg=f"{k} {n}")
-
-
-@pytest.mark.parametrize("what", ["monitor", "compress"])
-def test_gradient_sketches_under_a_model_axis_raise(runs, what):
-    out = json.loads((runs / f"port_refuse_{what}.json").read_text())
-    assert "Gradient sketches under a model axis" in out["raised"]
 
 
 def test_launcher_trains_over_torchrun_processes(runs):
