@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--ticks 136] [--fast-ticks 12]
+    python3 chip_smoke.py [--seed 0] [--ticks 136] [--fast-ticks 8]
                           [--fine-ticks 136] [--layered-ticks 136]
                           [--time-ticks 136] [--score-ticks 64]
                           [--history-ticks 192] [--topology-ticks 128]
@@ -29,17 +29,21 @@ Phases, each printing its seconds on a line of its own:
    prefill's), grok-1's (buckets 512 and 256, bf16, G = 6), qwen2-vl's
    ((4, 512) and (1, 256), 12/2 heads, bf16, G = 6), the train
    phase's f32 shape (B=8, S=1024, H=9, Hkv=3, dh=64), smollm's (G=3,
-   dh=64, bf16), qwen1.5's (G=1, f32), one non-causal case and a 64-row
+   dh=64, bf16), qwen1.5's (G=1, f32), a tensor-parallel llama3-8b
+   process's local heads (B=4, S=512, H=16, Hkv=4, dh=128, f32: phase
+   train_mesh (d)), one non-causal case and a 64-row
    query tail (S=192, bf16), the bucket-512 (llama3-8b and grok-1),
-   qwen2-vl (4, 512), f32-prefill and train shapes timed beside
+   qwen2-vl (4, 512), f32-prefill, train and local-head shapes timed beside
    ``scaled_dot_product_attention``, with the device times of both; and
    how far the bf16 kernel's o lies from the plain version's on inputs
    scaled ×8, against a single bf16 rounding of p; the flash backward at
    the train phase's shape (B=8, S=1024, H=9, Hkv=3, dh=64, causal) in
-   f32 and bf16, at dh = 128 in both and at grok-1's expert-parallel
-   train step (B=4, S=512, H=48, Hkv=8, dh=128, bf16), against
+   f32 and bf16, at dh = 128 in both, at grok-1's expert-parallel
+   train step (B=4, S=512, H=48, Hkv=8, dh=128, bf16) and at the local
+   heads of train_mesh (d) (f32), against
    ``flash_bwd_ref`` on the forward kernel's residuals, the f32 case, the
-   bf16 train shape and grok-1's timed beside SDPA's backward on the same
+   bf16 train shape, grok-1's and the local heads' timed beside SDPA's
+   backward on the same
    inputs, with the GFLOP the kernel executes over the tiles it visits
    (seven f32 products on the CUDA cores; in bf16 ten products' worth on
    the tensor cores, dV, dK and dQ split in two) beside the bound's five.
@@ -63,7 +67,8 @@ Phases, each printing its seconds on a line of its own:
    Frobenius of a from-scratch fold.  Then 8 more ticks split where their
    time goes (SVD, each kernel, other) on the host clock.
 4. fast    — a short ``mode="fast"`` run (the users' default) at the same
-   width, checked (every user too) and split the same way.
+   width, 8 ticks (cut from 16 to 12, then to 8 for train_mesh (d)),
+   checked (every user too) and split the same way.
 5. fine    — the krylov fleet at ε = 1/128 (m = 256, whose D and K do not
    fit one CTA): ``SketchFleetEngine("dsfd", d=300, streams=256,
    eps=1/128, window=1024, block=8, mode="krylov", use_kernel=True)``,
@@ -74,9 +79,9 @@ Phases, each printing its seconds on a line of its own:
    of them against float64 Grams on the host as a cross-check.  Then the
    same split of 8 more ticks.
 6. layered — Seq-DS-FD at full width:
-   ``SketchFleetEngine("seq-dsfd", d=300, streams=128, eps=1/32,
-   window=1024, block=8, mode="krylov", R=64)`` (7 levels, θⱼ = 32·2ʲ)
-   for 136 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
+   ``SketchFleetEngine("seq-dsfd", d=300, streams=48, eps=1/32,
+   window=1024, block=8, mode="krylov", R=64)`` (7 levels, θⱼ = 32·2ʲ;
+   S cut from 128 for train_mesh (d): its tick grows with S) for 136 ticks, rows as phase 3's scaled to ‖a‖² log-uniform on [1, R]
    with 2 % at 0.99·R; then Time-DS-FD, ``("time-dsfd", streams=32,
    R=16)`` (10 levels, θⱼ = 2ʲ) for 136 ticks, half its users idle every
    other 4 ticks.  Every user of both is held to βε‖A_W‖_F² (β = 4,
@@ -279,11 +284,24 @@ Phases, each printing its seconds on a line of its own:
    2e-4 of theirs.  Each run's flash launches are counted from 0 (2 × 30
    forward, 30 backward a step).  (b) and (c) ran in the mesh phase.
    It prints each run's losses, step times, the gradient all-reduce's ms
-   and peak memory.  Last, ``fd_compress`` of 4096 Gaussian rows at
+   and peak memory.  Then ``fd_compress`` of 4096 Gaussian rows at
    grok-1's widths d = 6144 and 32768, with ℓ = 4 (the compression's 8
    summary rows) and 2 (Sketchy's 4): its ms a round, and from them the
    seconds one full-width grok-1 step would spend in it, at 1 and 64
-   layers.
+   layers.  Last, (d) tensor parallelism: llama3-8b at full width, 2 of
+   its 32 layers, f32 parameters and activations, flash and full remat,
+   seq 512, global batch 4, AdamW: 2 steps through ``train()`` in this
+   process, then 2 over two children (``--mesh-child tp``) as a (1, 2)
+   mesh on ``cuda:0``, each holding half of the heads, KV heads, FFN and
+   vocabulary (``train/loop.py::train_rules``).  The children's losses
+   and gradient norms must equal each other's and lie within 2e-4 of the
+   one process's (relative), their parameters after the last update
+   within 2e-4 of the matching blocks of the one process's (sampled at a
+   stride, 65536 entries a leaf), and each run's flash kernels must
+   launch 2 × 2 forward and 2 backward a step at its own heads (the
+   children's (4, 512, 16, 4, 128)).  It prints each run's step times,
+   the count, bytes and host-clock ms of each step's all-reduces, and
+   peak memory.
 16. launch sizes — in a fresh process (``--launch-sizes``), each
    dump-step kernel of the krylov and fine phases timed at the fewest,
    the median, the 90th-percentile and the most streams its launches
@@ -769,6 +787,7 @@ FLASH_SHAPES = [
     ("train f32", 8, 1024, 9, 3, 64, "float32", True),
     ("smollm G=3", 2, 256, 9, 3, 64, "bfloat16", True),
     ("qwen1.5 G=1", 1, 512, 16, 16, 64, "float32", True),
+    ("llama3-8b TP local f32", 4, 512, 16, 4, 128, "float32", True),
     ("non-causal", 1, 512, 32, 8, 128, "bfloat16", False),
     ("query tail S=192", 1, 192, 32, 8, 128, "bfloat16", True),
 ]
@@ -780,7 +799,8 @@ LSE_TOL = 1e-3
 # timed shapes and their keys in the kernels line's flash_fwd entry
 FLASH_TIMED = {"llama3-8b bucket 512": None, "llama3-8b f32 prefill": "f32",
                "train f32": "f32_train", "grok-1 bucket 512": "grok",
-               "qwen2-vl 4x512": "qwen2vl"}
+               "qwen2-vl 4x512": "qwen2vl",
+               "llama3-8b TP local f32": "f32_tp"}
 
 
 def flash_bound(B, S, H, Hkv, dh, dtype, causal):
@@ -915,18 +935,22 @@ def p_rounding(rng) -> None:
 
 # (label, B, S, H, Hkv, dh, dtype, causal): the train phase's shape
 # (smollm-135m at seq 1024, batch 8; it runs f32, see run_train), bf16 at
-# the same shape and dh = 128 in both types, and grok-1's expert-parallel
-# train step (bf16, batch 4 × 512, G = 6: phase train_mesh (b))
+# the same shape and dh = 128 in both types, grok-1's expert-parallel
+# train step (bf16, batch 4 × 512, G = 6: phase train_mesh (b)) and a
+# tensor-parallel llama3-8b process's local heads (f32, 16 of 32 query
+# and 4 of 8 KV heads: phase train_mesh (d))
 FLASH_BWD_SHAPES = [
     ("train f32", 8, 1024, 9, 3, 64, "float32", True),
     ("train bf16", 8, 1024, 9, 3, 64, "bfloat16", True),
     ("dh=128 f32", 2, 1024, 8, 2, 128, "float32", True),
     ("dh=128 bf16", 2, 1024, 8, 2, 128, "bfloat16", True),
     ("grok-1 train bf16", 4, 512, 48, 8, 128, "bfloat16", True),
+    ("llama3-8b TP local f32", 4, 512, 16, 4, 128, "float32", True),
 ]
 # timed shapes and their keys in the kernels line's flash_bwd entry
 FLASH_BWD_TIMED = {"train f32": None, "train bf16": "train_bf16",
-                   "grok-1 train bf16": "grok"}
+                   "grok-1 train bf16": "grok",
+                   "llama3-8b TP local f32": "tp"}
 # f32: the same identities in f32, another summation order (measured
 # ~1e-5 at gradients of ~10); bf16: each gradient rounded once to bf16
 # from f32 sums in another order, one bf16 step (2⁻⁸ relative) at most
@@ -1603,7 +1627,7 @@ class Layered:
     blink: bool = False
 
 
-SEQ = Layered("seq-dsfd", 128, 64.0)
+SEQ = Layered("seq-dsfd", 48, 64.0)
 TIME = Layered("time-dsfd", 32, 16.0, blink=True)
 LAYERED_EPS, BETA, HEAVY_SHARE = 1 / 32, 4.0, 0.02
 
@@ -3563,7 +3587,9 @@ def mesh_child(mode: str, pid: int, n: int, port: int, root: str) -> int:
     draw the same seeded bf16 weights as the parent's one-process run and
     keep this process's experts, serve the parent's prompts teacher-forced
     on its tokens, time the all-reduce; ``virtual``: the E = 2 block over
-    N = 4 processes.  Writes ``DIR/MODE_PID.json`` (and the logits)."""
+    N = 4 processes; ``dp`` and ``tp``: the train_mesh phase's parts (a)
+    and (d).  Writes ``DIR/MODE_PID.json`` (and the logits, or the
+    samples of the final parameters)."""
     import torch
 
     from repro_torch import convert
@@ -3587,6 +3613,9 @@ def mesh_child(mode: str, pid: int, n: int, port: int, root: str) -> int:
     if mode == "dp":
         out.update(dp_train(seed, dev, mesh.make_process_mesh(1, dev.type),
                             Path(root) / "dp"))
+    elif mode == "tp":
+        out.update(tp_train(seed, dev, pm))
+        np.savez(Path(root) / f"tp_{pid}.npz", **out.pop("blocks"))
     elif mode == "virtual":
         v = VIRTUAL
         z = np.load(f"{root}/virtual.npz")
@@ -4839,13 +4868,13 @@ def _log_dp(label: str, run: dict) -> None:
         f"{run['launches']['flash_bwd']}")
 
 
-def _held_to(label: str, got: list, want: list) -> float:
+def _held_to(label: str, got: list, want: list, part: str = "(a)") -> float:
     """The worst relative distance of ``got``'s losses and gradient norms
     from ``want``'s; fails past ``TRAIN_MESH_RTOL``."""
     worst = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
                 for k in ("loss", "grad_norm"))
     if len(got) != len(want) or worst > TRAIN_MESH_RTOL:
-        raise AssertionError(f"train_mesh (a) {label}: losses and grad "
+        raise AssertionError(f"train_mesh {part} {label}: losses and grad "
                              f"norms {got} vs {want}: {worst:.3e} (tol "
                              f"{TRAIN_MESH_RTOL:.0e}, relative)")
     return worst
@@ -4931,6 +4960,242 @@ def run_train_mesh(seed: int, device: str = "cuda") -> dict:
     return launches
 
 
+# (d) tensor parallelism: llama3-8b at full width (d_model 4096, 32 query
+# and 8 KV heads of 128, d_ff 14336, vocabulary 128256, untied), 2 of its
+# 32 layers, f32 parameters and activations, the flash gate and full
+# remat, seq 512, global batch 4, AdamW, no sketch: 2 steps in one process,
+# then 2 over two children (``--mesh-child tp``) as a (1, 2) mesh on
+# cuda:0, each holding half of the heads, KV heads, FFN and vocabulary
+# (``train/loop.py::train_rules``).  Losses and gradient norms are held to
+# ``TRAIN_MESH_RTOL`` (relative), the parameters after the last update to
+# it as ``tests/test_torch_train_tp.py`` holds them (|Δ| ≤ tol·(1 + |w|)),
+# on ``TP_SAMPLE`` entries of every block at a fixed stride (a block is up
+# to 1.05 GB: the children write the samples, not the blocks).
+TP_ARCH, TP_LAYERS, TP_SEQ, TP_BATCH, TP_STEPS, TP_PROCS = (
+    "llama3-8b", 2, 512, 4, 2, 2)
+TP_SAMPLE = 2 ** 16
+# (B, S, H, Hkv, dh) of a child's flash calls: its 16 query and 4 KV heads
+TP_LOCAL = (TP_BATCH, TP_SEQ, 16, 4, 128)
+
+
+def _tp_cfg():
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS,
+                               use_flash=True, remat="full",
+                               param_dtype="float32", act_dtype="float32")
+
+
+def _tp_samples(tree) -> dict:
+    """{leaf path: ``TP_SAMPLE`` entries of the leaf (flattened) at a fixed
+    stride, f64} of a parameter tree."""
+    from repro_torch.train.checkpoint import leaves_with_paths
+
+    out = {}
+    for path, t in leaves_with_paths(tree):
+        flat = t.detach().reshape(-1)
+        stride = max(1, flat.numel() // TP_SAMPLE)
+        out[path] = flat[::stride][:TP_SAMPLE].double().cpu().numpy()
+    return out
+
+
+def _tp_blocks(cfg, params, coord: int) -> dict:
+    """The samples of the blocks of ``params`` (the whole tree) that
+    process ``coord`` of the (1, TP_PROCS) mesh holds."""
+    from repro_torch import convert
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.train.loop import train_rules
+
+    mesh = {"data": 1, "model": TP_PROCS}
+    rules = train_rules(cfg, mesh)
+    with axis_rules(mesh, rules):
+        return _tp_samples(convert.local_params(
+            params, api.param_defs(cfg), rules, mesh,
+            {"data": 0, "model": coord}))
+
+
+def tp_train(seed: int, dev, mesh=None) -> dict:
+    """One run of the train_mesh phase's part (d) (see ``TP_*``) through
+    ``train()`` under ``mesh`` (None: one process): each step's metrics
+    and host-clock time, every all-reduce of the model axis (its step, its
+    bytes and its host-clock ms between two synchronisations), the peak
+    memory, the flash launches counted from 0 and the (q, k) shapes they
+    took, and the samples of the final parameters (``_tp_blocks``: one
+    process's for every coordinate, a child's own block's)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as fk, ops
+    from repro_torch.parallel import sharding
+    from repro_torch.train import loop
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = _tp_cfg()
+    fwd, bwd = ops.flash_forward, ops.flash_backward
+    shapes, starts, stamps, reduces = set(), [], [], []
+
+    def seen(fn, name):
+        def call(q, k, *a, **kw):
+            shapes.add((name, tuple(q.shape), tuple(k.shape)))
+            return fn(q, k, *a, **kw)
+        return call
+
+    orig_reduce = sharding._reduce
+
+    def timed(t, group, op):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = orig_reduce(t, group, op)
+        torch.cuda.synchronize()
+        reduces.append((len(starts), t.numel() * t.element_size(),
+                        (time.perf_counter() - t1) * 1e3))
+        return out
+
+    build = loop.build_train_step
+
+    def built(*a, **k):
+        fn = build(*a, **k)
+
+        def step(*args):
+            starts.append(time.perf_counter())
+            return fn(*args)
+        return step
+
+    fk.flash_fwd.launches = fk.flash_bwd.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharding._reduce, loop.build_train_step = timed, built
+    ops.flash_forward, ops.flash_backward = seen(fwd, "fwd"), seen(bwd, "bwd")
+    try:
+        res = train(cfg, mesh, device=dev,
+                    loop=LoopConfig(steps=TP_STEPS, seed=seed,
+                                    log_every=10 ** 9),
+                    seq_len=TP_SEQ, global_batch=TP_BATCH,
+                    param_dtype=torch.float32,
+                    hooks={"on_step": lambda it, m: stamps.append(
+                        time.perf_counter())})
+    finally:
+        sharding._reduce, loop.build_train_step = orig_reduce, build
+        ops.flash_forward, ops.flash_backward = fwd, bwd
+    out = dict(history=res["history"], wall_s=time.perf_counter() - t0,
+               setup_s=starts[0] - t0,
+               step_s=[b - a for a, b in zip(starts, stamps)],
+               reduces=reduces, peak=torch.cuda.max_memory_allocated(),
+               held=param_bytes(res["params"]),
+               launches={"flash_fwd": fk.flash_fwd.launches,
+                         "flash_bwd": fk.flash_bwd.launches},
+               shapes=sorted(shapes))
+    out["blocks"] = ([_tp_blocks(cfg, res["params"], c)
+                      for c in range(TP_PROCS)] if mesh is None
+                     else _tp_samples(res["params"]))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _log_tp(label: str, run: dict) -> None:
+    h = run["history"]
+    steps = []
+    for i in range(1, len(h) + 1):
+        mine = [(b, ms) for s, b, ms in run["reduces"] if s == i]
+        big = [ms for b, ms in mine if b >= 2 ** 20]
+        steps.append(f"step {i}: {len(mine)} ({len(big)} of "
+                     f"{max([b for b, _ in mine], default=0) / 1e6:.1f} MB), "
+                     f"{sum(b for b, _ in mine) / 1e6:.1f} MB, "
+                     f"{sum(ms for _, ms in mine):.3f} ms")
+    red = ("; all-reduces of the model axis (count, bytes, host-clock ms "
+           "between synchronisations) " + "; ".join(steps)
+           if run["reduces"] else "")
+    log(f"train_mesh {label}: losses "
+        + ", ".join(f"{x['loss']:.6f}" for x in h) + "; grad norms "
+        + ", ".join(f"{x['grad_norm']:.6f}" for x in h) + "; steps "
+        + ", ".join(f"{1e3 * t:.3f}" for t in run["step_s"])
+        + f" ms (host clock, from the step's call to its metrics){red}; "
+        f"{run['setup_s']:.3f} s before the first step; weights held "
+        f"{run['held'] / 1e9:.2f} GB; peak {run['peak'] / 2**30:.2f} GiB; "
+        f"flash launches fwd {run['launches']['flash_fwd']} bwd "
+        f"{run['launches']['flash_bwd']} at (q, k) "
+        + ", ".join(f"{n} {q}/{k}" for n, q, k in run["shapes"]))
+
+
+def _tp_launches(label: str, run: dict, H: int, Hkv: int) -> None:
+    B, S, _, _, dh = TP_LOCAL
+    want = {("fwd", (B * H, S, dh), (B * Hkv, S, dh)),
+            ("bwd", (B * H, S, dh), (B * Hkv, S, dh))}
+    got = {(n, tuple(q), tuple(k)) for n, q, k in run["shapes"]}
+    n = run["launches"]
+    if (n["flash_fwd"], n["flash_bwd"]) != (2 * TP_LAYERS * TP_STEPS,
+                                            TP_LAYERS * TP_STEPS) \
+            or got != want:
+        raise AssertionError(f"train_mesh (d) {label}: flash launches {n} "
+                             f"at {sorted(got)} in {TP_STEPS} steps of "
+                             f"{TP_LAYERS} layers (full remat: forward 2 a "
+                             f"layer, backward 1, at {sorted(want)})")
+
+
+def run_tp_train(seed: int, dev) -> dict:
+    """Part (d) of the train_mesh phase (see ``TP_*``): the two children's
+    losses and gradient norms must equal each other's and lie within
+    ``TRAIN_MESH_RTOL`` of the one process's, their parameter blocks after
+    the last update within it of the matching blocks of the one process's
+    parameters, and each child's flash kernels launch at its local heads.
+    Returns the flash launches of the three runs."""
+    import tempfile
+
+    one = tp_train(seed, dev)
+    _log_tp("(d) one process", one)
+    cfg = _tp_cfg()
+    _tp_launches("one process", one, cfg.n_heads, cfg.n_kv)
+    want = one.pop("blocks")
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as root:
+        (Path(root) / "seed.json").write_text(json.dumps(
+            {"seed": seed, "device": dev.type}))
+        kids = _spawn_mesh_children("tp", TP_PROCS, root)
+        got = [dict(np.load(Path(root) / f"tp_{k['pid']}.npz"))
+               for k in kids]
+    for k in kids:
+        _log_tp(f"(d) process {k['pid']} of {TP_PROCS} (tensor-parallel)", k)
+        _tp_launches(f"process {k['pid']}", k, TP_LOCAL[2], TP_LOCAL[3])
+    key = [[(x["loss"], x["grad_norm"]) for x in k["history"]] for k in kids]
+    if any(x != key[0] for x in key):
+        raise AssertionError(f"train_mesh (d): the children's losses and "
+                             f"gradient norms differ: {key}")
+    err = _held_to("two processes vs one", kids[0]["history"],
+                   one["history"], "(d)")
+    worst, entries = 0.0, 0
+    for pid, blocks in enumerate(got):
+        if blocks.keys() != want[pid].keys():
+            raise AssertionError(f"train_mesh (d): process {pid} holds "
+                                 f"{sorted(blocks)}, not {sorted(want[pid])}")
+        for name, a in blocks.items():
+            b = want[pid][name]
+            if a.shape != b.shape:
+                raise AssertionError(f"train_mesh (d): {name} of process "
+                                     f"{pid}: {a.shape} vs {b.shape}")
+            d = float(np.max(np.abs(a - b) / (1 + np.abs(b))))
+            if not d <= TRAIN_MESH_RTOL:
+                raise AssertionError(
+                    f"train_mesh (d): {name} of process {pid} after "
+                    f"{TP_STEPS} updates: |Δ|/(1 + |w|) {d:.3e} (tol "
+                    f"{TRAIN_MESH_RTOL:.0e})")
+            worst, entries = max(worst, d), entries + a.size
+    log(f"train_mesh (d) {TP_ARCH} at full width, {TP_LAYERS} layers, "
+        f"tensor-parallel over {TP_PROCS} processes on cuda:0: the "
+        f"children's losses and gradient norms equal, within {err:.3e} of "
+        f"one process's (relative, tol {TRAIN_MESH_RTOL:.0e}); their "
+        f"parameters after {TP_STEPS} updates within {worst:.3e} of the "
+        f"one process's blocks (|Δ|/(1 + |w|), {entries} sampled entries)")
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    for run in [one] + kids:
+        for n in launches:
+            launches[n] += run["launches"][n]
+    return launches
+
+
 PHASE_S: dict = {}      # each phase's seconds, in the order run
 
 
@@ -4944,7 +5209,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int,
                     default=17 * WINDOW // (16 * BLOCK))
-    ap.add_argument("--fast-ticks", type=int, default=12)
+    ap.add_argument("--fast-ticks", type=int, default=8)
     ap.add_argument("--fine-ticks", type=int,
                     default=17 * WINDOW // (16 * BLOCK))
     ap.add_argument("--layered-ticks", type=int,
@@ -5109,6 +5374,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     tm = run_train_mesh(args.seed)
     time_fd_rounds(args.seed, torch.device("cuda", 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_tp = time.perf_counter()
+    for k, n in run_tp_train(args.seed, torch.device("cuda", 0)).items():
+        tm[k] += n
+    log(f"phase train_mesh (d): {time.perf_counter() - t_tp:.3f} s")
     _phase("train_mesh", t)
     log(f"phase train_mesh (b), run inside the mesh phase: "
         f"{msh['train_s']:.3f} s; (c) {msh['sketch_s']:.3f} s")

@@ -10,7 +10,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import (all_reduce, constrain,
+                                           enter_group, tp_split)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -84,11 +85,31 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return constrain(table[tokens], "batch", "seq", "embed")
+    """The rows of ``table`` (V, D) at ``tokens``.  Where the rules put
+    'vocab' on a model axis of processes (``tp_split``), ``table`` is this
+    process's rows [m·V/M, (m+1)·V/M): it looks up the tokens in that
+    range, gives 0 for the others, and the group's results are summed
+    (one addend is nonzero, so the sum is the row itself)."""
+    tp = tp_split("vocab", table)
+    if tp is None:
+        return constrain(table[tokens], "batch", "seq", "embed")
+    m, _, group = tp
+    V_l = table.shape[0]
+    local = tokens.long() - m * V_l
+    own = (local >= 0) & (local < V_l)
+    rows = table[local.clamp(0, V_l - 1)]
+    return all_reduce(torch.where(own[..., None], rows, rows.new_zeros(())),
+                      group, "sum")
 
 
 def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) @ tableᵀ (D, V) → (B, S, V) in f32."""
+    """x (B, S, D) @ tableᵀ (D, V) → (B, S, V) in f32.  Where the rules
+    put 'vocab' on a model axis of processes, x enters the model group and
+    this process computes its (B, S, V/M) block from its rows of the
+    table."""
+    tp = tp_split("vocab", table)
+    if tp is not None:
+        x = enter_group(x, tp[2])
     out = torch.matmul(x.float(), table.float().t())
     return constrain(out, "batch", "seq", "vocab")
 

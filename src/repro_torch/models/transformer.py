@@ -9,6 +9,19 @@ the stacked ``(L, ...)`` layer weights is a Python loop over the layer
 axis; the weights keep the stacked layout, and its ``jax.checkpoint``
 policies become ``torch.utils.checkpoint`` per layer.
 
+Under a mesh of processes whose rules put 'heads', 'kv', 'ff' and 'vocab'
+on the model axis (``train/loop.py::train_rules``), each process holds its
+block of those leaves and the blocks are Megatron's: the QKV projections
+and SwiGLU's ``wg``/``wu`` column-parallel after the input enters the
+model group (``parallel/sharding.py::enter_group``: identity forward,
+all-reduce backward), ``wo`` and ``wd`` row-parallel with their partial
+outputs summed (``all_reduce``: all-reduce forward, identity backward),
+the embedding a lookup in this process's rows summed over the group and
+the logits this process's vocabulary block.  The residual stream is whole
+and the same on every process.  Where the heads do not divide the axis the
+attention stays whole; where the KV heads do not, each process takes the
+KV heads its query heads read.
+
 The VLM's vision frontend is a stub in both packages: its prefill and
 training forward take the (B, S, 3) M-RoPE position ids from the caller
 and raise without them (the reference has no default ids either; its
@@ -34,10 +47,11 @@ from repro_torch.models.layers.common import (apply_mrope, apply_rope,
 from repro_torch.models.layers.mlp import swiglu
 from repro_torch.models.layers.moe import moe_block, virtual_expert_shapes
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.sharding import (axis_rules, constrain,
-                                           constrain_divisible,
+from repro_torch.parallel.sharding import (all_reduce, axis_rules,
+                                           constrain, constrain_divisible,
                                            current_mesh, current_rules,
-                                           model_size)
+                                           enter_group, model_size,
+                                           tp_split)
 
 
 def _msize() -> int:
@@ -131,22 +145,63 @@ def _positions(cfg: ModelConfig, batch, tokens):
     return positions
 
 
+def _kv_heads(cfg: ModelConfig, m: int, M: int):
+    """The KV heads that process ``m`` of ``M`` needs where its query heads
+    are split and the KV heads are not: a slice of whole heads where its
+    H/M query heads read them in groups as the whole model's do (query
+    head h reads KV head h // G), else one KV head per query head (groups
+    of one)."""
+    H_l, G = cfg.n_heads // M, cfg.n_heads // cfg.n_kv
+    want = [(m * H_l + j) // G for j in range(H_l)]
+    lo, n = want[0], want[-1] + 1 - want[0]
+    if H_l % n == 0 and want == [lo + j // (H_l // n) for j in range(H_l)]:
+        return slice(lo * cfg.dh, (lo + n) * cfg.dh)
+    return torch.tensor([h * cfg.dh + i for h in want for i in range(cfg.dh)])
+
+
+def _kv_block(w: torch.Tensor, cols, group) -> torch.Tensor:
+    """This process's KV columns of a whole ``wk``/``wv``/``bk``/``bv``:
+    the leaf enters the model group, so its gradient is the sum of the
+    processes' partial ones (each computes its own heads' part)."""
+    w = enter_group(w, group)
+    if isinstance(cols, slice):
+        return w[..., cols]
+    return w.index_select(-1, cols.to(w.device))
+
+
 def _qkv(cfg: ModelConfig, lp, h, positions):
+    """q (B, S, H, dh), k and v (B, S, KV, dh), rotated.  Where the rules
+    put 'heads' on a model axis of processes (``tp_split``) the
+    projections are column-parallel: the normed input enters the model
+    group, and H and KV are this process's counts (H/M, and KV/M or the
+    KV heads its query heads read, ``_kv_heads``)."""
     B, S, _ = h.shape
     dh = cfg.dh
+    wk, wv = lp["wk"], lp["wv"]
+    bk, bv = (lp["bk"], lp["bv"]) if cfg.qkv_bias else (None, None)
+    tp = tp_split("heads", lp["wq"])
+    if tp is not None:
+        m, M, group = tp
+        h = enter_group(h, group)
+        if tp_split("kv", wk) is None:
+            cols = _kv_heads(cfg, m, M)
+            wk, wv = _kv_block(wk, cols, group), _kv_block(wv, cols, group)
+            if cfg.qkv_bias:
+                bk, bv = _kv_block(bk, cols, group), _kv_block(bv, cols,
+                                                              group)
     q = matmul(h, lp["wq"])
-    k = matmul(h, lp["wk"])
-    v = matmul(h, lp["wv"])
+    k = matmul(h, wk)
+    v = matmul(h, wv)
     if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q, k, v = q + lp["bq"], k + bk, v + bv
     # a DTensor's sharded dimension splits into heads only where the heads
     # divide its shards: lay the projections out by heads first
     q = constrain_divisible(q, "batch", "seq_attn", "heads")
     k = constrain_divisible(k, "batch", "seq_attn", "kv")
     v = constrain_divisible(v, "batch", "seq_attn", "kv")
-    q = q.reshape(B, S, cfg.n_heads, dh)
-    k = k.reshape(B, S, cfg.n_kv, dh)
-    v = v.reshape(B, S, cfg.n_kv, dh)
+    q = q.reshape(B, S, q.shape[-1] // dh, dh)
+    k = k.reshape(B, S, k.shape[-1] // dh, dh)
+    v = v.reshape(B, S, v.shape[-1] // dh, dh)
     # 'seq_attn' is live only where the heads cannot shard over 'model':
     # sequence-parallel attention in place of replicated head compute
     q = constrain_divisible(q, "batch", "seq_attn", "heads", None)
@@ -158,20 +213,33 @@ def _qkv(cfg: ModelConfig, lp, h, positions):
 
 
 def _mlp(cfg: ModelConfig, lp, h):
-    """The feed-forward block and its balance loss (0 for SwiGLU)."""
+    """The feed-forward block and its balance loss (0 for SwiGLU).  Where
+    the rules put 'ff' on a model axis of processes, SwiGLU is
+    column-parallel in ``wg`` and ``wu`` and row-parallel in ``wd``: the
+    input enters the model group and the partial outputs are summed."""
     if cfg.moe:
         return moe_block(h, lp["wr"], lp["wg"], lp["wu"], lp["wd"],
                          moe=cfg.moe)
-    return (swiglu(h, lp["wg"], lp["wu"], lp["wd"]),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    tp = tp_split("ff", lp["wg"])
+    if tp is None:
+        return swiglu(h, lp["wg"], lp["wu"], lp["wd"]), zero
+    group = tp[2]
+    y = swiglu(enter_group(h, group), lp["wg"], lp["wu"], lp["wd"])
+    return all_reduce(y, group, "sum"), zero
 
 
 def _attn_out_and_mlp(cfg: ModelConfig, lp, x, attn):
     """The rest of a pre-norm block once attention is done: the output
     projection and residual, then the MLP and its residual.  Returns the
-    block's output and the MLP's balance loss."""
+    block's output and the MLP's balance loss.  With the heads split over
+    a model axis of processes ``wo`` is row-parallel: this process's
+    heads' projection, summed over the group."""
     B, S, _ = x.shape
-    attn = matmul(attn.reshape(B, S, cfg.n_heads * cfg.dh), lp["wo"])
+    attn = matmul(attn.reshape(B, S, -1), lp["wo"])
+    tp = tp_split("heads", lp["wo"])
+    if tp is not None:
+        attn = all_reduce(attn, tp[2], "sum")
     x = x + constrain(attn, "batch", "seq", "embed")
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     y, aux = _mlp(cfg, lp, h2)
@@ -234,10 +302,35 @@ def _under(body, mesh, rules):
     return call
 
 
+def _check_blocks(cfg: ModelConfig, params) -> None:
+    """Where the rules split 'vocab', 'heads', 'kv' or 'ff' over a model
+    axis of M processes, each must hold 1/M of the leaves they lay out:
+    a process that holds them whole under such rules raises."""
+    lay = params["layers"]
+    dh = cfg.dh
+    checks = [("vocab", params["embed"], 0, cfg.vocab),
+              ("heads", lay["wq"], -1, cfg.n_heads * dh),
+              ("kv", lay["wk"], -1, cfg.n_kv * dh)]
+    if not cfg.moe:
+        checks.append(("ff", lay["wg"], -1, cfg.d_ff))
+    for name, leaf, dim, whole in checks:
+        tp = tp_split(name, leaf)
+        if tp is not None and leaf.shape[dim] * tp[1] != whole:
+            raise ValueError(
+                f"the rules split '{name}' over {tp[1]} processes, but this "
+                f"process holds {leaf.shape[dim]} of its {whole} entries in "
+                f"a leaf of shape {tuple(leaf.shape)}: hold this process's "
+                "block (convert.local_params)")
+
+
 def forward_train(cfg: ModelConfig, params, batch
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, V) f32, aux): aux is the MoE
-    balance loss averaged over the layers, 0 for the dense family."""
+    balance loss averaged over the layers, 0 for the dense family.  Where
+    the rules put 'vocab' on a model axis of processes the logits are this
+    process's (B, S, V/M) block (``train_step.py::loss_fn`` reduces over
+    the group)."""
+    _check_blocks(cfg, params)
     tokens = batch["tokens"]
     positions = _positions(cfg, batch, tokens)
     x = embed(tokens, params["embed"]).to(_act(cfg))

@@ -17,7 +17,10 @@ placements (:func:`placements`); on a plain tensor, or without a mesh, it
 returns its argument as it is, so the one-card path is unchanged.  The
 expert-parallel MoE block (``models/layers/moe.py``) reads the model axis
 of the mesh in force and reduces over its group with :func:`all_reduce`
-(forward and backward, for autograd) after :func:`enter_group`; a train
+(forward and backward, for autograd) after :func:`enter_group`, and so do
+the tensor-parallel attention, SwiGLU, embedding and logits of the
+transformer where the rules put 'heads', 'ff' or 'vocab' on a model axis
+of processes (:func:`tp_split`); a train
 step over a process mesh (``train/train_step.py``) averages its gradients
 over the data axes (:func:`data_axes`) with :func:`all_reduce_flat`, and
 its gradient sketches carry an FD summary from one block's owner to the
@@ -37,6 +40,8 @@ import torch.distributed as dist
 _ctx = threading.local()
 
 Spec = Tuple[object, ...]
+# the logical axes that tensor parallelism splits over 'model'
+TP_AXES = ("heads", "kv", "ff", "vocab")
 
 
 def is_dtensor(x) -> bool:
@@ -244,6 +249,26 @@ def model_coord() -> Tuple[int, Optional[dist.ProcessGroup]]:
     return int(mesh.get_local_rank("model")), mesh.get_group("model")
 
 
+def tp_split(name: str, t: torch.Tensor
+             ) -> Optional[Tuple[int, int, dist.ProcessGroup]]:
+    """(this process's coordinate, the axis's size, its group) where the
+    rules in force put logical axis ``name`` on 'model' of a process mesh
+    with more than one process on that axis, and ``t`` is a plain tensor
+    (this process's block of a leaf, or a value computed from one): the
+    tensor-parallel layers then compute their partial results and reduce
+    them themselves.  None otherwise: no mesh, a plain shape, a model axis
+    of one, or DTensors (the dry-run, where DTensor places the
+    collectives)."""
+    rules = current_rules()
+    if not rules or is_dtensor(t) or not on_model(rules.get(name)):
+        return None
+    m, group = model_coord()
+    n = model_size()
+    if group is None or n == 1:
+        return None
+    return m, n, group
+
+
 def data_axes() -> list:
     """``[(axis, coordinate, size, group)]`` of the data axes ('pod',
     'data') of the process mesh in force whose size passes 1: the axes a
@@ -258,11 +283,16 @@ def data_axes() -> list:
             for a in ("pod", "data") if int(shape.get(a, 1)) > 1]
 
 
+def on_model(p) -> bool:
+    """True where a spec entry or rule (a mesh axis, a tuple of them or
+    None) names 'model'."""
+    return "model" in (tuple(p) if isinstance(p, (tuple, list)) else (p,))
+
+
 def split_dim(spec: Spec) -> Optional[int]:
     """The dimension that ``spec`` splits over 'model', or None."""
     for i, p in enumerate(spec):
-        names = tuple(p) if isinstance(p, (tuple, list)) else (p,)
-        if "model" in names:
+        if on_model(p):
             return i
     return None
 
@@ -290,24 +320,25 @@ def model_sharded_leaves():
 
 
 def _reduce(t: torch.Tensor, group, op: str) -> torch.Tensor:
-    """Sum or mean of ``t`` over ``group`` as a new tensor, outside
-    autograd; the active analyzer counts one all-reduce."""
+    """Sum, mean or maximum of ``t`` over ``group`` as a new tensor,
+    outside autograd; the active analyzer counts one all-reduce."""
     from repro_torch.kernels import dispatch
 
-    if op not in ("sum", "mean"):
-        raise ValueError(f"op {op!r} not in ('sum', 'mean')")
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"op {op!r} not in ('sum', 'mean', 'max')")
     n = dist.get_world_size(group)
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     with dispatch.collective("all-reduce", t.numel() * t.element_size(), n):
         if t.is_cuda:
             host = torch.empty(t.shape, dtype=t.dtype, device="cpu",
                                pin_memory=True)
             host.copy_(t)
-            dist.all_reduce(host, group=group)
+            dist.all_reduce(host, op=red, group=group)
             out = host.to(t.device)
         else:
             out = t.clone()
             if out.device.type != "meta":
-                dist.all_reduce(out, group=group)
+                dist.all_reduce(out, op=red, group=group)
         if op == "mean":
             out = out / n
     return out
@@ -361,6 +392,13 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     (``launch/hlo.py``) counts it as one all-reduce of ``t``'s bytes over
     the group's size, whatever the device."""
     return _AllReduce.apply(t, group, op)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``group``, as a new tensor
+    outside autograd (no gradient flows through it), staged as in
+    :func:`all_reduce`."""
+    return _reduce(t.detach(), group, "max")
 
 
 def all_reduce_flat(tensors, group) -> list:

@@ -31,7 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.mesh import local_device
 from repro_torch.models import api
-from repro_torch.parallel.sharding import axis_rules
+from repro_torch.parallel.sharding import (TP_AXES, axis_rules,
+                                           mesh_shape, on_model)
 from repro_torch.serve.ingest import AdmissionQueue, IngestBacklogError, \
     SlabTransfer, make_pipeline
 from repro_torch.serve.serve_step import build_decode_step, \
@@ -65,6 +66,23 @@ class EngineConfig:
     temperature: float = 0.0
 
 
+def _refuse_tensor_parallel(mesh, rules) -> None:
+    """Raise for ``rules`` that put a tensor-parallel axis on a model axis
+    of ``mesh`` with more than one process."""
+    if mesh is None or not rules \
+            or int(mesh_shape(mesh).get("model", 1)) == 1:
+        return
+    split = [k for k in TP_AXES if on_model(rules.get(k))]
+    if split:
+        raise ValueError(
+            f"ServeEngine: the rules put {', '.join(split)} on a model axis "
+            f"of {int(mesh_shape(mesh)['model'])} processes; serving holds "
+            "the dense part whole on each process (only 'experts' may be "
+            "split): tensor-parallel serving and its decode cache are not "
+            "ported (ROADMAP §1, 'Tensor parallelism: what remains', "
+            "tensor-parallel serving)")
+
+
 class ServeEngine:
     """Continuous batching of one model on one device.
 
@@ -82,13 +100,17 @@ class ServeEngine:
     With ``mesh`` and ``rules`` every prefill and decode runs under
     ``parallel/sharding.py::axis_rules``: an expert-parallel MoE engine
     of a process that holds its experts' block of ``params`` (one of a
-    group that serves the same requests in lockstep).
+    group that serves the same requests in lockstep).  Rules that split
+    the heads, KV heads, FFN or vocabulary over a model axis of more than
+    one process raise a ``ValueError``: the reference's engine has no
+    mesh, and no tensor-parallel decode cache is ported.
     """
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  dtype=torch.float32, device="cuda", *, mesh=None,
                  rules=None):
         self.device = resolve_device(device)
+        _refuse_tensor_parallel(mesh, rules)
         self._rules = (contextlib.nullcontext if mesh is None else
                        functools.partial(axis_rules, mesh, rules or {}))
         self.cfg = cfg

@@ -21,10 +21,12 @@ sketches compute what the reference computes on the global arrays:
   whole leaf, bit for bit the one-process ``fd_compress``'s on the same
   device.
 
-A leaf split along its last dimension splits the columns of that view,
-which no rule of the port's process meshes produces: it belongs to tensor
-parallelism of the dense part (ROADMAP §1, "Tensor parallelism of the
-dense part across processes"), and raises.
+A leaf split along its last dimension splits the columns of that view.
+Tensor parallelism splits such leaves, but a train step that carries a
+gradient sketch keeps the dense part whole (``train/loop.py::
+train_rules``), so none reaches the sketches; the FD of rows split by
+columns is not ported (ROADMAP §1, "The gradient sketches over
+column-split leaves"), and raises.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ def check_split(shape, dim: Optional[int]) -> None:
     if dim is not None and dim == len(shape) - 1:
         raise NotImplementedError(
             f"a gradient sketch of a leaf {tuple(shape)} split along its "
-            "last dimension: ROADMAP §1, 'Tensor parallelism of the dense "
-            "part across processes'")
+            "last dimension: ROADMAP §1, 'The gradient sketches over "
+            "column-split leaves'")
 
 
 def whole_sum(x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:

@@ -426,7 +426,10 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
         if block is None:
             arr = np.load(file)
         else:
-            arr = np.ascontiguousarray(np.load(file, mmap_mode="r")[block])
+            # a copy: a block of leading rows is a view of the read-only
+            # mapping, which a CPU tensor would share (and an in-place
+            # update then writes into)
+            arr = np.array(np.load(file, mmap_mode="r")[block], order="C")
         dtype = manifest["dtypes"][i]
         if host_leaves is not None and host_leaves(manifest["paths"][i]):
             leaves.append(arr)

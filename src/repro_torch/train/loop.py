@@ -5,9 +5,10 @@ integrations wired through.
 Counterpart of ``repro/train/loop.py``.  Without a mesh the job runs on
 one device.  Under a ("data", "model") mesh of processes
 (``launch/mesh.py::make_process_mesh``: gloo, so processes may share one
-card) each process holds the dense parameters whole and its block of the
-experts (:func:`train_rules`), trains on its data coordinate's slice of
-the batch, and the train step reduces over the mesh's groups
+card) each process holds its block of the experts and, in the transformer
+families, of the heads, the FFN and the vocabulary (tensor parallelism;
+the dense part whole where the step carries a gradient sketch:
+:func:`train_rules`), trains on its data coordinate's slice of the batch, and the train step reduces over the mesh's groups
 (``train/train_step.py``); the reference's ``device_put`` by
 ``param_pspecs``/``opt_state_pspecs`` becomes each process keeping its
 block.  The parameters are drawn by ``models/params.py::init_params``
@@ -37,7 +38,7 @@ from repro_torch import convert
 from repro_torch.launch.mesh import default_store, process_runtime
 from repro_torch.models.params import (abstract_params, init_params,
                                        param_pspecs)
-from repro_torch.parallel.sharding import (axis_rules, make_rules,
+from repro_torch.parallel.sharding import (TP_AXES, axis_rules, make_rules,
                                            mesh_shape, split_dim)
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import (Optimizer, get_optimizer,
@@ -82,17 +83,45 @@ class StragglerWatchdog:
         return False
 
 
-def train_rules(cfg: ModelConfig, mesh) -> Dict[str, object]:
+TP_FAMILIES = ("dense", "moe")              # models/transformer.py's
+
+
+def train_rules(cfg: ModelConfig, mesh, *,
+                sketched: bool = False) -> Dict[str, object]:
     """The logical-axis rules of a train step over a process mesh: the
     reference's table for ``mesh`` (``parallel/sharding.py::make_rules``)
-    with the batch on the data axes and only the experts (and 'expert_ff',
-    where the table puts it there) on the model axis; every other leaf is
-    held whole by each process.  Tensor parallelism of the dense part
-    across processes is not ported (ROADMAP §1)."""
+    with the batch on the data axes, the experts (and 'expert_ff', where
+    the table puts it there) on the model axis and, for the transformer
+    families (``TP_FAMILIES``), 'heads', 'kv', 'ff' and 'vocab' where the
+    table puts them on it: Megatron's tensor parallelism
+    (``models/transformer.py``).  Every other rule is None, so each
+    process holds those leaves whole: 'seq_attn' and 'kv_seq' (a model
+    whose heads do not divide the axis keeps its attention whole), 'lru',
+    'inner' and 'embed'.
+
+    A step that carries a gradient sketch (``sketched``: the monitor, FD
+    compression or Sketchy) keeps the dense part whole and splits only the
+    experts: the sketches' FD over rows split by columns is not ported
+    (ROADMAP §1, 'The gradient sketches over column-split leaves').  This
+    is a layout, not a fallback: the step computes the same function."""
     with axis_rules(mesh, {}):       # the experts' count at this model size
         rules = make_rules(mesh, api.sharding_dims(cfg))
     keep = ("batch", "experts", "expert_ff")
+    if cfg.family in TP_FAMILIES and not sketched:
+        keep += TP_AXES
     return {k: (v if k in keep else None) for k, v in rules.items()}
+
+
+def _layout_line(cfg: ModelConfig, shape, rules, sketched: bool) -> str:
+    split = [k for k in TP_AXES + ("experts",) if rules.get(k) is not None]
+    line = (f"{cfg.name} on mesh {dict(shape)}: "
+            + (f"{', '.join(split)} split over 'model'" if split
+               else "every leaf whole on each process"))
+    if sketched and cfg.family in TP_FAMILIES:
+        line += ("; the dense part whole on each process, since the step "
+                 "carries a gradient sketch (ROADMAP §1, 'The gradient "
+                 "sketches over column-split leaves')")
+    return line
 
 
 def _coords(mesh) -> Dict[str, int]:
@@ -132,7 +161,7 @@ def _state_layout(defs, opt: Optimizer, rules, mesh, coords, param_dtype):
     pspecs = param_pspecs(defs, rules)
     aparams = abstract_params(defs, param_dtype)
     astate = opt.init(aparams)
-    ospecs = opt_state_pspecs(opt, pspecs, aparams, astate)
+    ospecs = opt_state_pspecs(opt, pspecs, aparams, astate, by_field=True)
     atree = (aparams, astate, torch.zeros((), device="meta"))
     specs = _aligned(atree, (pspecs, ospecs, ()))
     shapes = [tuple(x.shape) for _, x in ckpt.leaves_with_paths(atree)]
@@ -170,7 +199,10 @@ def train(cfg: ModelConfig, mesh=None, *, device="cuda",
     shape, coords, rules = {}, {}, None
     if mesh is not None:
         shape, coords = dict(mesh_shape(mesh)), _coords(mesh)
-        rules = train_rules(cfg, mesh)
+        sketched = (tsc.sketch is not None or tsc.compress is not None
+                    or opt.name.startswith("sketchy"))
+        rules = train_rules(cfg, mesh, sketched=sketched)
+        log.info("layout: %s", _layout_line(cfg, shape, rules, sketched))
     split = int(shape.get("model", 1)) > 1
     d_idx, d_n = 0, 1          # this process's slice of the global batch
     for a in ("pod", "data"):

@@ -5,7 +5,9 @@ Counterpart of ``repro/train/optimizer.py``:
 * ``adamw`` — f32 m and v;
 * ``adafactor`` — factored f32 second moments and bf16 momentum; under a
   process mesh its update clipping adds a leaf's blocks up over the model
-  axis (``parallel/sharding.py::model_sharded``), the rest is local;
+  axis (``parallel/sharding.py::model_sharded``), and so do its row and
+  column means over a dimension that the axis splits (a tensor-parallel
+  leaf); the rest is local;
 * ``sgdm`` — for toy runs.
 
 The states are the reference's NamedTuples (``AdamState(m, v)``,
@@ -141,11 +143,16 @@ def adafactor(lr: float = 1e-3, decay: float = 0.99, eps: float = 1e-30,
             g2 = g * g
             g2.add_(eps)
             if p.dim() >= 2:
-                vr.mul_(decay).add_((1 - decay) * g2.mean(dim=-1))
-                vc.mul_(decay).add_((1 - decay) * g2.mean(dim=-2))
+                # a mean over the dimension the model axis splits is the
+                # blocks' sums added over its group, over the whole count
+                last = split is not None and split == p.dim() - 1
+                rows = split is not None and split == p.dim() - 2
+                vr.mul_(decay).add_((1 - decay) * _whole_mean(g2, -1, last))
+                vc.mul_(decay).add_((1 - decay) * _whole_mean(g2, -2, rows))
                 del g2
-                norm = torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
-                                   min=eps)
+                norm = torch.clamp(
+                    _whole_mean(vr, -1, rows, keepdim=True)[..., None],
+                    min=eps)
                 denom = vr[..., None] * vc[..., None, :]
                 denom.div_(norm).sqrt_().clamp_(min=1e-12)
                 u = g / denom
@@ -168,6 +175,18 @@ def adafactor(lr: float = 1e-3, decay: float = 0.99, eps: float = 1e-30,
         return params, state
 
     return Optimizer("adafactor", init, update)
+
+
+def _whole_mean(x: torch.Tensor, dim: int, split: bool,
+                keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)``, where ``split`` says that each process of the
+    model axis holds one equal block of ``x`` along ``dim``: then the
+    blocks' sums added over the axis's group, over the whole count."""
+    if not split:
+        return x.mean(dim=dim, keepdim=keepdim)
+    _, group = model_coord()
+    total = all_reduce(x.sum(dim=dim, keepdim=keepdim), group, "sum")
+    return total / (x.shape[dim] * dist.get_world_size(group))
 
 
 def _mean_square(u: torch.Tensor, split) -> torch.Tensor:
@@ -204,7 +223,8 @@ def get_optimizer(name: str, **kw) -> Optimizer:
     return {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}[name](**kw)
 
 
-def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate):
+def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate, *,
+                     by_field: bool = False):
     """Each optimizer-state leaf's spec, found by matching its shape
     against its parameter's: the same shape takes the parameter's spec, the
     row statistics (all but the last dimension) its spec without the last
@@ -213,10 +233,17 @@ def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate):
     The states' fields (``AdamState``, ``FactoredState``) mirror the
     parameter tree; sgdm's state is that tree itself.  A nested state of a
     leaf (Sketchy's sketch, a NamedTuple of tensors) is replicated, as the
-    reference's is."""
+    reference's is.
+
+    The match tries the rows first, as the reference's does, so the column
+    statistics of a leaf whose last two dimensions are equal take the
+    rows' spec (ROADMAP §3 note (x)).  ``by_field=True`` lays Adafactor's
+    ``vr`` and ``vc`` of a leaf of two dimensions or more out as the rows
+    and the columns they are, whatever their shapes: the layout of a
+    process mesh's blocks (``train/loop.py``)."""
     del opt
 
-    def leaf(spec, p, s):
+    def leaf(spec, p, s, name=None):
         if s is None:
             return None
         if not hasattr(s, "shape"):
@@ -224,6 +251,8 @@ def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate):
             # the same on every process, so replicated
             return tree_map(lambda _: (), s)
         t = tuple(spec)
+        if name in ("vr", "vc") and p.dim() >= 2:
+            return t[:-1] if name == "vr" else t[:-2] + t[-1:]
         if tuple(s.shape) == tuple(p.shape):
             return t
         if tuple(s.shape) == tuple(p.shape[:-1]):
@@ -233,10 +262,12 @@ def opt_state_pspecs(opt: Optimizer, param_specs, aparams, astate):
             return t[:-2] + t[-1:]
         return ()
 
-    def field(ftree):
-        return map_dicts(leaf, param_specs, aparams, ftree)
+    def field(ftree, name=None):
+        return map_dicts(lambda sp, p, s: leaf(sp, p, s, name), param_specs,
+                         aparams, ftree)
 
     if hasattr(astate, "_fields"):
-        return type(astate)(*[field(getattr(astate, f))
+        named = by_field and isinstance(astate, FactoredState)
+        return type(astate)(*[field(getattr(astate, f), f if named else None)
                               for f in astate._fields])
     return field(astate)

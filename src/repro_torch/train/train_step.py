@@ -16,7 +16,9 @@ own batch shard; the step then averages every gradient and the loss over
 the data axes ('pod', 'data'), one host round trip per dtype
 (``parallel/sharding.py::all_reduce_flat``), takes the gradient norm over
 the whole model (a leaf the model axis splits adds its sum of squares over
-that axis's group) and reports data coordinate 0's balance loss.  The
+that axis's group) and reports data coordinate 0's balance loss.  Where
+the vocabulary is split over the model axis (tensor parallelism), the loss
+reads the logits' blocks through the group without gathering them.  The
 gradient sketches compute the reference's values on the global arrays:
 under a data axis every process holds the same reduced gradients; under a
 model axis of more than one process a split leaf's block is hashed by its
@@ -37,10 +39,11 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import api
 from repro_torch.models.params import count_params, param_pspecs
 from repro_torch.parallel.sharding import (all_reduce, all_reduce_flat,
-                                           constrain, current_mesh,
-                                           data_axes, is_dtensor,
-                                           model_coord, model_sharded,
-                                           model_size, split_dim)
+                                           all_reduce_max, constrain,
+                                           current_mesh, data_axes,
+                                           is_dtensor, model_coord,
+                                           model_sharded, model_size,
+                                           split_dim, tp_split)
 from repro_torch.sketch.compress import compress_grads, compress_init
 from repro_torch.sketch.monitor import sketch_init, sketch_update
 from repro_torch.train.optimizer import Optimizer
@@ -87,14 +90,20 @@ def loss_fn(cfg: ModelConfig, params, micro_batch,
     """Cross-entropy ``logsumexp(z) − z[label]`` plus the z-loss
     1e-4·mean(lse²) and ``aux_coeff``·aux.  The reference forms a one-hot
     only to keep the vocab axis sharded; the label logit is gathered here
-    (the one-hot form only for DTensor logits), the same value."""
+    (the one-hot form only for DTensor logits), the same value.  Logits
+    split by vocabulary over a model axis of processes give their terms
+    through the group (:func:`_split_vocab_terms`)."""
     logits, aux = api.forward_train(cfg, params, micro_batch)
     zf = logits.float()
-    lse = torch.logsumexp(zf, dim=-1)                          # (B, S)
     labels = micro_batch["labels"].long()
-    if not is_dtensor(zf):
+    tp = tp_split("vocab", zf)
+    if tp is not None:
+        lse, label_logit = _split_vocab_terms(zf, labels, tp[0], tp[2])
+    elif not is_dtensor(zf):
+        lse = torch.logsumexp(zf, dim=-1)                      # (B, S)
         label_logit = torch.gather(zf, -1, labels[..., None])[..., 0]
     else:
+        lse = torch.logsumexp(zf, dim=-1)
         # on DTensors, the reference's one-hot keeps the vocab axis
         # sharded: a gather over it would gather the (B, S, V) logits
         onehot = constrain(F.one_hot(labels, zf.shape[-1]).to(zf.dtype),
@@ -104,6 +113,27 @@ def loss_fn(cfg: ModelConfig, params, micro_batch,
     # z-loss keeps the softmax normalizer bounded (stability at scale)
     zl = 1e-4 * torch.mean(lse * lse)
     return loss + aux_coeff * aux + zl, (loss, aux)
+
+
+def _split_vocab_terms(zf: torch.Tensor, labels: torch.Tensor, m: int,
+                       group):
+    """(lse, the label's logit), each (B, S) and the same on every process,
+    from this process's (B, S, V/M) block ``zf`` of the logits, without
+    gathering them: the row maximum all-reduced (no gradient), the sum of
+    exponentials all-reduced (which gives the whole lse and its
+    gradient), and the label's logit taken where this process holds the
+    label and summed over the group."""
+    V_l = zf.shape[-1]
+    top = all_reduce_max(torch.amax(zf, dim=-1), group)
+    total = all_reduce(torch.sum(torch.exp(zf - top[..., None]), dim=-1),
+                       group, "sum")
+    lse = top + torch.log(total)
+    local = labels - m * V_l
+    own = (local >= 0) & (local < V_l)
+    picked = torch.gather(zf, -1, local.clamp(0, V_l - 1)[..., None])[..., 0]
+    label_logit = all_reduce(torch.where(own, picked, picked.new_zeros(())),
+                             group, "sum")
+    return lse, label_logit
 
 
 def _grads(cfg: ModelConfig, params, batch, aux_coeff: float):

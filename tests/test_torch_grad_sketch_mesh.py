@@ -18,8 +18,8 @@ at once, each process with a 120 s limit and transports of at most 30 s.
   summary carried across the axis equals the one-process ``fd_compress``
   of the whole leaf bit for bit, with runs that end mid-round (ℓ = 4, 96
   rows a run), zero rows at a run's boundary and an all-zero run; a leaf
-  split along its last dimension raises (ROADMAP §1, tensor parallelism
-  of the dense part); two Sketchy updates of a block equal the whole
+  split along its last dimension raises (ROADMAP §1, the gradient
+  sketches over column-split leaves); two Sketchy updates of a block equal the whole
   leaf's block within 1e-6.
 * Whole runs, three steps from one seeded start (the port's draw, saved in
   the layout both read): the monitor and compression (AdamW) on reduced
@@ -509,8 +509,8 @@ def test_sketchy_update_of_a_block_is_the_whole_leafs(runs, world):
 @pytest.mark.parametrize("world", SIZES)
 def test_a_split_along_the_last_dimension_raises(runs, world):
     for out in _pieces(runs, world):
-        assert out["last"] and ("ROADMAP §1, 'Tensor parallelism of the "
-                                "dense part across processes'") in out["last"]
+        assert out["last"] and ("ROADMAP §1, 'The gradient sketches over "
+                                "column-split leaves'") in out["last"]
 
 
 def _assert_history(port, ref):
